@@ -113,3 +113,89 @@ def test_backward_recomputes_through_the_plain_version(cuda, weights):
     (gk,) = torch.autograd.grad(K.encode_head(x, *ew), x, g)
     (gp,) = torch.autograd.grad(K.encode_head_reference(x, *ew), x, g)
     torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Macro-block compositors (kernels/composite.py)
+# ---------------------------------------------------------------------------
+
+def _raw_rows(g, n, bs, mtw, mth):
+    """Packed [n, 16] rows whose means fall over a mth x mtw grid of bs-px
+    blocks: [mx, my, conic a, b, c, log(opacity), r, g, b, pad x7]."""
+    raw = np.zeros((n, 16), np.float32)
+    raw[:, 0] = g.random(n) * mtw * bs
+    raw[:, 1] = g.random(n) * mth * bs
+    sig = g.random(n) * 6 + 1.5
+    raw[:, 2] = 1.0 / sig ** 2
+    raw[:, 3] = (g.random(n) - 0.5) * 0.2 / sig ** 2
+    raw[:, 4] = 1.0 / (sig * (g.random(n) + 0.5)) ** 2
+    raw[:, 5] = np.log(g.random(n) * 0.9 + 0.05)
+    raw[:, 6:9] = g.random((n, 3))
+    return raw
+
+
+def _assert_composite_close(out, ref):
+    """max abs <= 1e-3 * max(1, max|ref|) and mean abs <= 1e-5: the kernel's
+    sequential product and the reference's exp(cumsum(log1p)) round
+    differently, so the 1e-4 transmittance cutoff can flip at single
+    pixels."""
+    assert out.shape == ref.shape
+    err = (out.cpu() - ref.cpu()).abs()
+    assert float(err.max()) <= 1e-3 * max(1.0, float(ref.abs().max())), float(err.max())
+    assert float(err.mean()) <= 1e-5, float(err.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_kernels_match_plain_on_edge_cases(cuda, bs):
+    """Both compositors against their plain versions: an empty block,
+    counts that are not multiples of 64, segments that start mid-group, a
+    count above kc (clipped), and a block that saturates after a few rows
+    (the block-wide early exit)."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(3)
+    mtw, mth, kc = 3, 2, 200
+    n_blocks = mtw * mth
+    rows = _raw_rows(g, 1400, bs, mtw, mth)
+    # Block 4's segment opens with ten wide opaque splats.
+    bx, by = (4 % mtw + 0.5) * bs, (4 // mtw + 0.5) * bs
+    rows[700:710, 0:6] = [bx, by, 1e-4, 0.0, 1e-4, 0.0]
+    starts = np.array([0, 5, 250, 450, 700, 1000], np.int32)     # 5, 250, 450: mid-group
+    counts = np.array([0, 37, 200, 129, 200, 260], np.int32)     # 260 > kc: clipped
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    table, st, ct = (torch.from_numpy(a).to(cuda) for a in (rows, starts, counts))
+    C.reset_launch_counts()
+    out = C.composite_macro_mxu_seg(table, st, ct, bg, n_blocks=n_blocks, kc=kc, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    ref = C.composite_macro_mxu_seg_reference(table, st, ct, bg, n_blocks, kc, bs, mtw)
+    _assert_composite_close(out, ref)
+    torch.testing.assert_close(out[0, :, 0].cpu(), bg.cpu()[:, None].expand(3, bs * bs))
+
+    window = C._segment_window(table, st, torch.clamp(ct, max=kc), kc).contiguous()
+    win_counts = torch.clamp(ct, max=kc)
+    out_w = C.composite_macro_mxu(window, win_counts, bg, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    _assert_composite_close(out_w, C.composite_macro_mxu_reference(window, win_counts, bg, bs,
+                                                                   mtw))
+    _assert_composite_close(out_w, out)
+    assert C.launch_counts() == {"composite_macro_mxu_seg": 1, "composite_macro_mxu": 1}
+    walked = C.walked_rows(window, win_counts, bg, bs, mtw)
+    assert walked < int(win_counts.sum())  # block 4 stopped early
+
+
+@pytest.mark.cuda
+def test_composite_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from aip_tpu_torch.kernels import composite as C
+
+    raw = torch.zeros(2, 64, 16, device=cuda)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        C.composite_macro_mxu(raw, counts.long(), torch.zeros(3), bs=64, mtw=2)
+    with pytest.raises(ValueError):
+        C.composite_macro_mxu(raw, counts, torch.zeros(3), bs=48, mtw=2)
+    with pytest.raises(ValueError):
+        C.composite_macro_mxu(raw[..., :9].contiguous(), counts, torch.zeros(3), bs=64, mtw=2)
+    with pytest.raises(ValueError):
+        C.composite_macro_mxu_seg(raw[0], counts.cpu(), counts, torch.zeros(3), n_blocks=2,
+                                  kc=64, bs=64, mtw=2)
