@@ -1,11 +1,20 @@
-"""User-facing 3DGS render entry point, matching the reference API.
+"""User-facing 3DGS entry points: train and render, matching the reference API.
 
-Port of ``aip_tpu/gs/pipeline.py``'s ``run_3dgs_rendering`` (reference
-``Style_3DGS/render.py:51-113``): load the compressed model, decode the
-hash features once, pool the style embedding, render the train cameras
-with the selection shape the model was trained under, and write one PNG
-per view and an animated GIF, whose path is returned. Training
-(``run_3dgs_training``) belongs to the training slice.
+Port of ``aip_tpu/gs/pipeline.py``:
+
+* ``run_3dgs_training`` (reference ``Style_3DGS/train.py:418-500``): build
+  the config, optionally fit the selection's giant handling to the initial
+  scene, train, save ``model.npz``, the ``storage`` report and
+  ``cfg_args.json`` with the ``"selection"`` record that inference must
+  reuse;
+* ``run_3dgs_rendering`` (reference ``render.py:51-113``): load the
+  compressed model, decode the hash features once, pool the style
+  embedding, render the train cameras with the selection shape the model
+  was trained under, and write one PNG per view and an animated GIF, whose
+  path is returned.
+
+``device=None`` means CUDA; ``mesh_dp > 1`` and ``gaussian_shard`` (slice 6)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +28,89 @@ import torch
 from aip_tpu_torch.device import resolve_device
 from aip_tpu_torch.gs import compress as compress_mod
 from aip_tpu_torch.gs.dataset import Scene
+
+
+def run_3dgs_training(content_path, style_img_path, model_path="output/3dgs_model",
+                      iterations: int = 15_000, freeze_iters: int = 7_000,
+                      use_depth: bool = False, depth_offset: float = 0.5,
+                      depth_prominence: float = 20.0, white_background: bool = False,
+                      capacity: int = 1 << 17, log2_hashmap: int = 19,
+                      progress_every: int = 500, img_size: int = 512, seed: int = 0,
+                      checkpoint_iterations=(), test_iterations=(), start_checkpoint=None,
+                      logger=None, max_per_tile: int = 128, macro_capacity: int = 1024,
+                      views_per_step: int = 1, mesh_dp: int = 0, gaussian_shard: bool = False,
+                      fit_train_selection: bool = False, resolution: int = -1, device=None,
+                      cfg=None, trace=None) -> str:
+    """Train a stylized 3DGS scene and save the compressed model. Returns
+    model_path. ``cfg`` (a ``GSTrainConfig``), when given, replaces the
+    config the keyword arguments build (its schedule included); ``trace``
+    is passed to ``train``."""
+    import dataclasses
+
+    from aip_tpu_torch.gs.train import GSTrainConfig, train
+
+    if mesh_dp > 1 or gaussian_shard:
+        raise NotImplementedError(
+            "run_3dgs_training(mesh_dp > 1 / gaussian_shard) trains over several cards, the "
+            "multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = GSTrainConfig(iterations=iterations, freeze_iters=freeze_iters,
+                            white_background=white_background, capacity=capacity,
+                            log2_hashmap=log2_hashmap, max_per_tile=max_per_tile,
+                            macro_capacity=macro_capacity)
+    scene = Scene(str(content_path), white_background=cfg.white_background,
+                  resolution=resolution)
+    if fit_train_selection:
+        # Fit the giant handling (backend, span, pools) to the initial
+        # scene's demand with extra margin, so training renders never
+        # truncate giants; capacities stay the caller's.
+        from aip_tpu_torch.gs.gaussians import create_from_pcd
+        from aip_tpu_torch.gs.render import fit_selection
+
+        pcd = scene.point_cloud
+        st0, _dc = create_from_pcd(pcd.points, pcd.colors, cfg.capacity, device=dev)
+        sel0 = fit_selection(st0, scene.getTrainCameras(), margin=1.5)
+        print(f"fit_train_selection: {sel0}", flush=True)
+        cfg = dataclasses.replace(
+            cfg, dup_span=sel0["dup_span"], giant_capacity=sel0["giant_capacity"],
+            giant_backend=sel0.get("giant_backend", "merge"),
+            giant_span=sel0.get("giant_span", cfg.giant_span),
+            giant_pool=max(sel0.get("giant_pool", 0), cfg.giant_pool),
+            giant_pool_full=max(sel0.get("giant_pool_full", 0), cfg.giant_pool_full))
+    trainer, _style_f = train(
+        scene, style_img_path, cfg, use_depth=use_depth, depth_offset=depth_offset,
+        depth_prominence=depth_prominence, img_size=img_size,
+        guide_dir=str(Path(model_path) / "stylized"), progress_every=progress_every, seed=seed,
+        checkpoint_iterations=checkpoint_iterations, test_iterations=test_iterations,
+        start_checkpoint=start_checkpoint, checkpoint_dir=str(Path(model_path) / "checkpoints"),
+        logger=logger, views_per_step=views_per_step, device=dev, trace=trace)
+
+    out = Path(model_path)
+    out.mkdir(parents=True, exist_ok=True)
+    report = compress_mod.save_npz(out / "model.npz", trainer.gstate, trainer.field,
+                                   trainer.rvq_scale, trainer.rvq_rot)
+    (out / "storage").write_text(report)
+    (out / "cfg_args.json").write_text(json.dumps({
+        "source_path": str(content_path),
+        "white_background": cfg.white_background,
+        "resolution": resolution,
+        "iterations": cfg.iterations,
+        "freeze_iters": cfg.freeze_iters,
+        "log2_hashmap": cfg.log2_hashmap,
+        # The selection shape training rendered with; inference reuses it.
+        "selection": {
+            "max_per_tile": cfg.max_per_tile,
+            "macro_capacity": cfg.macro_capacity,
+            "dup_span": cfg.dup_span,
+            "giant_capacity": cfg.giant_capacity,
+            "giant_backend": cfg.giant_backend,
+            "giant_span": cfg.giant_span,
+            "giant_pool": cfg.giant_pool,
+            "giant_pool_full": cfg.giant_pool_full,
+        },
+    }))
+    return str(model_path)
 
 
 def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=None,

@@ -1,16 +1,22 @@
-"""3D Gaussian tile rasterizer, inference: projection, selection, composite.
+"""3D Gaussian tile rasterizer: projection, selection, composite.
 
-Port of ``aip_tpu/gs/rasterizer.py``'s inference path (reference
-``diff-gaussian-rasterization``'s forward): EWA projection with the 0.3 px
-low-pass and 3-sigma radius, the opacity-aware selection extent, and two
-renderers:
+Port of ``aip_tpu/gs/rasterizer.py`` (reference ``diff-gaussian-
+rasterization``): EWA projection with the 0.3 px low-pass and 3-sigma
+radius, the opacity-aware selection extent, and two renderers:
 
-* ``rasterize`` (:786): per-16-px-tile top-K selection (``select_per_tile``)
-  and the dense ``[tiles, K, 256]`` composite ``composite_tiles``, the path
-  ``run_3dgs_rendering`` takes below 512^2;
-* ``rasterize_matmul`` (:1055): (block, depth) pair-sort selection into
-  macro blocks (``select_macro_pairsort``), then either the plain
-  ``composite_raw_blocks`` (backend ``"matmul"``) or one of the two
+* ``rasterize`` (:786), differentiable: per-16-px-tile top-K selection
+  (``select_per_tile``, or ``select_per_tile_hierarchical`` when
+  ``settings.macro > 1``; selection sees stop-gradient depths, radii and
+  opacities, as at :816-821), then the composite. On a CUDA tensor the
+  composite is always ``kernels.composite_ad.composite_tiles_ad`` (kernel A
+  forward, kernel B backward), the way the reference's CUDA rasterizer
+  streams; on a CPU tensor ``ad_backend="xla"`` takes the dense
+  ``[tiles, K, 256]`` autograd of ``composite_tiles`` and ``"pallas"`` the
+  Function's plain versions. ``screenspace_offset`` is added to the
+  projected means so callers read dL/d mean2d from its gradient;
+* ``rasterize_matmul`` (:1055), inference: (block, depth) pair-sort
+  selection into macro blocks (``select_macro_pairsort``), then either the
+  plain ``composite_raw_blocks`` (backend ``"matmul"``) or one of the two
   hand-written CUDA compositors of ``kernels/composite.py`` (backend
   ``"mxu"``): the segment walk when the pair table is small enough, else
   the windowed walk, by the JAX package's own static rule.
@@ -25,12 +31,12 @@ merges are stable sorts (ties to the lower index, as ``lax.top_k``).
 ``rasterize_matmul`` names its stages for ``torch.profiler`` with
 ``record_function`` spans: ``gs.project``, ``gs.select`` (pair emission
 and sort), ``gs.gather`` (packed-table gather) and ``gs.composite`` (the
-compositor kernel); ``chip_smoke.py``'s frame breakdown reads them.
+compositor kernel); ``rasterize`` uses the same four names.
+``chip_smoke.py``'s breakdowns read them.
 
-``composite_backend="pallas"``, ``rasterize_fused``, ``rasterize_fast`` and
-the hierarchical per-tile selection raise ``NotImplementedError``: they
-come with the next slice of the port (ROADMAP queue 1), with the other
-three compositor kernels.
+``composite_backend="pallas"``, ``rasterize_fused`` and ``rasterize_fast``
+raise ``NotImplementedError``: they come with slice 2b of the port
+(ROADMAP queue 1), with the other three compositor kernels.
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ import torch
 from torch.profiler import record_function
 
 from aip_tpu_torch.kernels import composite as K
+from aip_tpu_torch.kernels import composite_ad as KAD
 
 TILE = 16
 
-_NEXT_SLICE = ("comes with the next slice of the port (the per-tile and macro-walk "
+_NEXT_SLICE = ("comes with slice 2b of the port (the per-tile and macro-walk inference "
                "compositor kernels; ROADMAP queue 1)")
 
 
@@ -477,36 +484,116 @@ def cull_radii(radii, opacities, settings: RasterSettings):
     return radii
 
 
+def select_per_tile_hierarchical(mean2d, depths, radii, valid, settings: RasterSettings):
+    """Two-level candidate selection (:642): macro blocks of (macro x
+    macro) tiles get their Kc candidates (``_macro_select``: pair sort or
+    chunked merge), then each 16 px tile keeps the K nearest of its block's
+    candidates that overlap it (a stable sort: ties to the lower candidate
+    slot, as ``lax.top_k``). Returns (idx [tiles, K], depth [tiles, K])
+    like ``select_per_tile``."""
+    th, tw = _tile_grid(settings)
+    k = settings.max_per_tile
+    m = settings.macro
+    kc = settings.macro_capacity
+    mth, mtw = math.ceil(th / m), math.ceil(tw / m)
+    macro_idx, _ = _macro_select(mean2d, depths, radii, valid, settings, mth, mtw)
+    kc = macro_idx.shape[1]
+    dev = mean2d.device
+
+    n_tiles = th * tw
+    mb = macro_idx.shape[0]
+    cvalid_b = macro_idx >= 0
+    safe_b = torch.clamp(macro_idx, min=0).long()
+    cm_b = mean2d[safe_b]                                   # [MB, Kc, 2]
+    cr_b = radii[safe_b]
+    cd_b = torch.where(cvalid_b, depths[safe_b], torch.full_like(cr_b, math.inf))
+
+    bidx = torch.arange(mb, device=dev)
+    bx0 = (bidx % mtw) * (m * TILE)
+    by0 = (bidx // mtw) * (m * TILE)
+    sub = torch.arange(m * m, device=dev)
+    tx0 = (bx0[:, None] + (sub % m)[None, :] * TILE).to(torch.float32)
+    ty0 = (by0[:, None] + (sub // m)[None, :] * TILE).to(torch.float32)
+    ox = ((cm_b[..., 0:1] + cr_b[..., None] >= tx0[:, None, :])
+          & (cm_b[..., 0:1] - cr_b[..., None] < tx0[:, None, :] + TILE))
+    oy = ((cm_b[..., 1:2] + cr_b[..., None] >= ty0[:, None, :])
+          & (cm_b[..., 1:2] - cr_b[..., None] < ty0[:, None, :] + TILE))
+    hit = ox & oy & (cvalid_b & (cr_b > 0))[..., None]      # [MB, Kc, m*m]
+    key = torch.where(hit, cd_b[..., None], torch.full_like(cd_b[..., None], math.inf))
+    key_t = key.permute(0, 2, 1).reshape(mb * m * m, kc)
+    cand_rep = torch.repeat_interleave(macro_idx, m * m, dim=0)     # [MB*m*m, Kc]
+    if kc < k:   # fewer candidates than slots: pad with empty ones
+        key_t = torch.cat([key_t, torch.full((key_t.shape[0], k - kc), math.inf, device=dev)], 1)
+        cand_rep = torch.cat([cand_rep, torch.full((cand_rep.shape[0], k - kc), -1,
+                                                   dtype=cand_rep.dtype, device=dev)], 1)
+    sel_d_b, sel_i_b = _topk_smallest(key_t, cand_rep, k)
+    sel_i_b = torch.where(torch.isinf(sel_d_b), torch.full_like(sel_i_b, -1), sel_i_b)
+
+    # (block, tile-in-block) -> global tile order; sub-tiles hanging over
+    # the grid edge are dropped.
+    gy = (torch.arange(mb) // mtw)[:, None] * m + (torch.arange(m * m) // m)[None, :]
+    gx = (torch.arange(mb) % mtw)[:, None] * m + (torch.arange(m * m) % m)[None, :]
+    gt = torch.where((gy < th) & (gx < tw), gy * tw + gx, torch.full_like(gy, n_tiles))
+    order = torch.sort(gt.reshape(-1), stable=True).indices[:n_tiles].to(dev)
+    return sel_i_b[order], sel_d_b[order]
+
+
 def _select(mean2d, depths, radii, valid, settings: RasterSettings, opacities=None):
     if opacities is not None:
         radii = cull_radii(radii, opacities, settings)
     if settings.macro > 1:
-        raise NotImplementedError(
-            f"rasterize with macro > 1 (select_per_tile_hierarchical) {_NEXT_SLICE}")
+        return select_per_tile_hierarchical(mean2d, depths, radii, valid, settings)
     return select_per_tile(mean2d, depths, radii, valid, settings)
 
 
-@torch.no_grad()
+def _tiles_to_image(tiles, settings: RasterSettings):
+    """[T, 3, 16, 16] tiles -> [H, W, 3]."""
+    th, tw = _tile_grid(settings)
+    img = tiles.reshape(th, tw, 3, TILE, TILE).permute(0, 3, 1, 4, 2)
+    return img.reshape(th * TILE, tw * TILE, 3)[: settings.image_height, : settings.image_width]
+
+
 def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmatrix,
               bg_color, settings: RasterSettings, tanfovx=1.0, tanfovy=1.0,
               scale_modifier=1.0, screenspace_offset=None):
-    """Forward: project + per-tile select + dense composite. Returns
-    (image [H, W, 3], radii [N]). Inference only (the training slice brings
-    the differentiable form); ``ad_backend`` must be ``"xla"``."""
-    if settings.ad_backend != "xla":
-        raise NotImplementedError(
-            "rasterize(ad_backend='pallas') is the differentiable compositor of the "
-            "training slice (ROADMAP queue 1, slice 3)")
-    mean2d, depths, conics, radii, valid = project_gaussians(
-        means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
-        settings, scale_modifier)
-    if screenspace_offset is not None:
-        mean2d = mean2d + screenspace_offset
-    valid_sel = valid & (opacities > (1.0 / 255.0))
-    sel_idx, sel_depth = _select(mean2d, depths, radii, valid_sel, settings,
-                                 opacities=opacities)
-    img = composite_tiles(sel_idx, sel_depth, mean2d, conics, colors, opacities,
-                          bg_color, settings)
+    """Project + per-tile select + composite, differentiable in means3d,
+    scales, rotations, opacities, colours and ``screenspace_offset`` ([N, 2],
+    added to the projected means). Returns (image [H, W, 3], radii [N])."""
+    if settings.ad_backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown ad_backend {settings.ad_backend!r}")
+    with record_function("gs.project"):
+        mean2d, depths, conics, radii, valid = project_gaussians(
+            means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
+            settings, scale_modifier)
+        if screenspace_offset is not None:
+            mean2d = mean2d + screenspace_offset
+    # Invisible splats (pruned or inactive slots arrive with opacity 0) must
+    # not take candidate capacity; selection sees no gradient.
+    with record_function("gs.select"), torch.no_grad():
+        op_sg = opacities.detach()
+        valid_sel = valid & (op_sg > (1.0 / 255.0))
+        sel_idx, sel_depth = _select(mean2d.detach(), depths.detach(), radii.detach(),
+                                     valid_sel, settings, opacities=op_sg)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=means3d.device)
+    if means3d.device.type == "cuda" or settings.ad_backend == "pallas":
+        _, tw = _tile_grid(settings)
+        n_tiles, k = sel_idx.shape
+        with record_function("gs.gather"):
+            # One packed gather through index_select, whose backward is a
+            # single index_add_ of the [T*K, 9] cotangent rows (atomics on
+            # the card); the backward of advanced indexing would sort the
+            # duplicate indices of each of four gathers instead.
+            flat = torch.clamp(sel_idx, min=0).reshape(-1).long()
+            slot_valid = (sel_idx >= 0).to(torch.float32)[:, :, None]
+            table = torch.cat([mean2d, conics, colors, opacities[:, None]], dim=1)
+            g = torch.index_select(table, 0, flat).reshape(n_tiles, k, 9)
+        with record_function("gs.composite"):
+            tiles = KAD.composite_tiles_ad(g[..., 0:2], g[..., 2:5], g[..., 5:8], g[..., 8:9],
+                                           slot_valid, tw, bg)
+        return _tiles_to_image(tiles, settings), radii
+    with record_function("gs.composite"):
+        img = composite_tiles(sel_idx, sel_depth, mean2d, conics, colors, opacities, bg,
+                              settings)
     return img, radii
 
 

@@ -1,16 +1,21 @@
-"""Render a GaussianState with neural colours: the inference path.
+"""Render a GaussianState with neural colours.
 
 Port of ``aip_tpu/gs/render.py`` (reference
-``Style_3DGS/gaussian_renderer/__init__.py:18-130``) in inference mode:
-style-conditioned SH from the colour field, SH -> RGB on the view
-direction, then the rasterizer. ``make_inference_frame_fn`` is the serving
+``Style_3DGS/gaussian_renderer/__init__.py:18-130``): style-conditioned SH
+from the colour field, SH -> RGB on the view direction, then the
+rasterizer. ``render`` has the three modes of the JAX package:
+``"inference"`` (no gradient), ``"train"`` (the straight-through mask gate
+on scales and opacities) and ``"train_rvq"`` (scales and rotations through
+the RVQ codebooks, straight-through), the training modes through the
+differentiable ``rasterize``. ``make_inference_frame_fn`` is the serving
 path: everything camera-independent (SH, activations) is computed once and
 each frame runs the view-dependent SH evaluation and ``rasterize_matmul``.
 ``fit_selection`` is the JAX package's host-side fit, copied, on top of the
 port's ``project_gaussians``.
 
-The training modes, ``renderer="pallas"`` and ``mesh`` raise
-``NotImplementedError`` naming the slice of the port that brings them.
+``renderer="pallas"`` in inference mode (training modes rasterize, as in
+the JAX package) and ``mesh`` raise ``NotImplementedError`` naming the
+slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from aip_tpu_torch.gs import gaussians as G
+from aip_tpu_torch.gs import rvq as rvq_mod
 from aip_tpu_torch.gs.colorfield import ColorFieldParams, predict_sh
 from aip_tpu_torch.gs.rasterizer import (TILE, RasterSettings, project_gaussians, rasterize,
                                          rasterize_matmul, selection_radii)
@@ -269,7 +276,6 @@ def render_frame(frame_fn, camera) -> torch.Tensor:
     return frame_fn(vm, pm, campos, math.tan(camera.FoVx * 0.5), math.tan(camera.FoVy * 0.5))
 
 
-@torch.no_grad()
 def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
            style_f: torch.Tensor | None = None, mode: str = "train",
            rvq_scale=None, rvq_rot=None, scaling_modifier: float = 1.0,
@@ -278,20 +284,34 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
            use_pallas: bool = False, renderer: str = "auto",
            sh_override: torch.Tensor | None = None, mesh=None,
            mesh_axis: str = "dp") -> RenderOutput:
-    """One view in inference mode, with renderer ``auto`` (``matmul`` from
-    512^2 up, else ``xla``), ``xla`` or ``matmul``. Tensors live on the
-    state's device."""
-    if mode != "inference":
-        raise NotImplementedError(
-            f"render(mode={mode!r}) is the training slice of the port (ROADMAP queue 1, "
-            "slice 3); the port renders mode='inference'")
+    """One view. ``mode`` is ``"train"``, ``"train_rvq"`` or ``"inference"``;
+    renderer ``auto`` takes ``matmul`` for inference from 512^2 up, else
+    ``xla`` (the differentiable ``rasterize``). The camera is a Camera, or
+    any object with tensor ``world_view_transform``, ``full_proj_transform``
+    and ``camera_center`` when ``settings`` and the tangents are given.
+    Tensors live on the state's device."""
+    if mode not in ("train", "train_rvq", "inference"):
+        raise ValueError(f"unknown render mode {mode!r}")
     if mesh is not None:
         raise NotImplementedError(
             "render(mesh=...) is the multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
-    if use_pallas or renderer == "pallas":
+    if (use_pallas or renderer == "pallas") and mode == "inference":
         raise NotImplementedError(
-            "render(renderer='pallas') comes with the next slice of the port (the per-tile "
-            "compositor kernel; ROADMAP queue 1)")
+            "render(renderer='pallas') comes with slice 2b of the port (the per-tile "
+            "inference compositor kernel; ROADMAP queue 1)")
+    if mode == "inference":
+        with torch.no_grad():
+            return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
+                           scaling_modifier, settings, screenspace_offset, precomputed_enc,
+                           tanfovx, tanfovy, renderer, sh_override)
+    return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
+                   scaling_modifier, settings, screenspace_offset, precomputed_enc, tanfovx,
+                   tanfovy, renderer, sh_override)
+
+
+def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
+            scaling_modifier, settings, screenspace_offset, precomputed_enc, tanfovx, tanfovy,
+            renderer, sh_override) -> RenderOutput:
     if settings is None:
         settings = make_settings(camera)
     if tanfovx is None:
@@ -299,20 +319,39 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
     if tanfovy is None:
         tanfovy = math.tan(camera.FoVy * 0.5)
     dev = state.xyz.device
-    vm, pm, campos = _camera_tensors(camera, dev)
-    xyz = state.xyz
-    scales, rotations, opacity = _inference_activations(state)
-    if sh_override is not None:
-        sh = sh_override
+    if isinstance(camera.world_view_transform, torch.Tensor):
+        vm, pm, campos = (camera.world_view_transform, camera.full_proj_transform,
+                          camera.camera_center)
     else:
-        sh = predict_sh(field, xyz, style_f, precomputed_enc=precomputed_enc)
-    colors = _sh_colors(sh, xyz, campos)
+        vm, pm, campos = _camera_tensors(camera, dev)
+    xyz = state.xyz
+    if mode == "inference":
+        scales, rotations, opacity = _inference_activations(state)
+    else:
+        m = G.ste_mask(state)
+        if mode == "train_rvq":
+            if rvq_scale is None or rvq_rot is None:
+                raise ValueError("render(mode='train_rvq') needs rvq_scale and rvq_rot")
+            scales = rvq_mod.quantize(rvq_scale, G.get_scaling(state))[0] * m
+            rotations = rvq_mod.quantize(rvq_rot, G.get_rotation(state))[0]
+        else:
+            scales = G.get_scaling(state) * m
+            rotations = G.get_rotation(state)
+        opacity = (G.get_opacity(state) * m)[:, 0]
+        # Inactive slots contribute nothing.
+        opacity = torch.where(state.active, opacity, torch.zeros((), device=dev))
+    with record_function("gs.field"):
+        if sh_override is not None:
+            sh = sh_override
+        else:
+            sh = predict_sh(field, xyz, style_f, precomputed_enc=precomputed_enc)
+        colors = _sh_colors(sh, xyz, campos)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
 
     if renderer == "auto":
-        renderer = ("matmul" if settings.image_height * settings.image_width >= 512 * 512
-                    else "xla")
-    if renderer == "matmul":
+        renderer = ("matmul" if mode == "inference"
+                    and settings.image_height * settings.image_width >= 512 * 512 else "xla")
+    if renderer == "matmul" and mode == "inference":
         if settings.macro <= 1:
             settings = settings._replace(macro=4,
                                          macro_capacity=max(settings.macro_capacity, 1024),
@@ -320,7 +359,7 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
         img, radii = rasterize_matmul(xyz, scales, rotations, opacity, colors, vm, pm, bg,
                                       settings, tanfovx=tanfovx, tanfovy=tanfovy,
                                       scale_modifier=scaling_modifier)
-    elif renderer == "xla":
+    elif renderer in ("xla", "matmul", "pallas"):   # training always rasterizes
         img, radii = rasterize(xyz, scales, rotations, opacity, colors, vm, pm, bg, settings,
                                tanfovx=tanfovx, tanfovy=tanfovy,
                                scale_modifier=scaling_modifier,

@@ -59,6 +59,41 @@ seed 0):
     one 1088x1920 frame of the committed model by stage, with the device's
     busy share.
 
+Stylized 3DGS training, at full width (``GSTrainConfig``'s defaults: capacity
+2^17, a 16 x 2^19 x 2 hash grid, style_dim 256, K 128, macro 4, kc 1024),
+one view per step:
+
+15. a training scene (the 8 orbit cameras of phase 9 moved out to 1.5 times
+    their distance, the port's own 800^2 renders of the committed model as
+    images, a 100k-point cloud from numpy seed 0); one photometric step captures the gathered
+    [2500, 128, .] arrays of the real 800^2 selection, on which kernels A
+    (forward) and B (backward) are held against their plain versions, and
+    on edge tiles (empty, saturating, the 0.99 clamp, opacity 0, invalid
+    slots). Image and T_final at 1e-5 absolute, gradients at 1e-4 of each
+    one's largest value.
+16. kernel C on the same step's x01 [131072, 3] and upstream gradient
+    against its plain version (one ``index_add_``), at 1e-4 of the largest
+    entry (atomics add thousands of contributions to the coarse levels'
+    rows in another order).
+17. one training step at 128^2 (capacity 4096, a 2^16 table) from one
+    trainer on the card and on the CPU: the loss at 1e-4 relative, every
+    parameter group's gradient and the screen-space offset's at 1e-3 of
+    their largest entry.
+18. training (a main path): ``gs.pipeline.run_3dgs_training`` for 60
+    iterations with the schedule shortened so that every event fires
+    (photometric then style steps, clone, split, prune, opacity reset,
+    recompaction, the RVQ boundary, mask prunes), with the launch counts
+    set to 0 just before and read just after; then
+    ``run_3dgs_rendering`` of the saved model. Prints the events, the loss
+    curve (the mean of the last 5 photometric losses must be below the
+    first 5), the median step ms per phase (CUDA events), launches per step
+    and peak memory.
+19. the CLI: ``aip_tpu_torch.cli.run_3dgs.main`` for 4 iterations, which
+    trains and then renders.
+20. times of A, B and C on the served inputs (ms, plain ms, bound,
+    ``index_add_`` as C's library call), and a torch.profiler breakdown of
+    one photometric and one style step by stage, with the busy share.
+
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
@@ -85,12 +120,15 @@ PEAK_FLOPS = 989e12
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("adain_head", "composite")
+SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:278"),
     "composite_macro_mxu_seg": ("composite", "aip_tpu/ops/pallas/composite.py:442"),
     "composite_macro_mxu": ("composite", "aip_tpu/ops/pallas/composite.py:509"),
+    "composite_ad_fwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:184"),
+    "composite_ad_bwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:211"),
+    "hash_grad": ("hashgrad", "aip_tpu/ops/pallas/hashgrad.py:74"),
 }
 
 
@@ -280,7 +318,10 @@ def main():
     torch.cuda.empty_cache()
 
     # 9-14. stylized 3DGS inference render -------------------------------------
-    lines += _gs_phases(torch, dev)
+    gs_lines, bed = _gs_phases(torch, dev)
+    lines += gs_lines
+    # 15-20. stylized 3DGS training ----------------------------------------------
+    lines += _train_phases(torch, dev, bed)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -389,7 +430,9 @@ PAIR_FLOPS = 15         # float32 operations per (row, pixel) pair, the exp coun
 
 
 def _gs_phases(torch, dev):
-    """Phases 9-14. Returns the compositors' lines of the kernels table."""
+    """Phases 9-14. Returns the compositors' lines of the kernels table and
+    what the training phases reuse: the committed model on the card, its
+    800^2 frame function, the orbit cameras and the style."""
     import numpy as np
     from PIL import Image
 
@@ -564,7 +607,8 @@ def _gs_phases(torch, dev):
                          "3.35 TB/s"),
              library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
     _gs_profile(torch, _cycle(GR.render_frame, fitted_fns["bed_0037_1088x1920"], cams_1080))
-    return lines
+    return lines, dict(cams=cams, fn_800=fn_800, state=state, style_f=style_f,
+                       style_png=style_png)
 
 
 def _write_bed_scene(np, Image, size=800, n_cams=8, fov=0.8):
@@ -766,6 +810,453 @@ def _gs_profile(torch, frame, calls=3):
          stage_device_ms=ms if measured else "not measured",
          kernels=[{"name": name[:100], "ms_per_frame": us / 1e3 / calls,
                    "launches_per_frame": n / calls} for name, (us, n) in top])
+
+
+# ---------------------------------------------------------------------------
+# Stylized 3DGS training (phases 15-20)
+# ---------------------------------------------------------------------------
+
+TRAIN_WORK = WORK / "train"
+AD_FWD_PAIR_FLOPS = 25    # float32 operations per (slot, pixel) of kernel A, the exp as one
+AD_BWD_PAIR_FLOPS = 70    # kernel B: the alpha rebuilt, the chain rule, the 9-term reduction
+HASH_POINT_LEVEL_FLOPS = 60   # kernel C per (point, level): corners, weights, 16 products/adds
+TRAIN_SPANS = ("gs.field", "gs.project", "gs.select", "gs.gather", "gs.composite", "gs.loss",
+               "gs.adam", "gs.stats")
+TRAIN_SIZE = 800          # the orbit views' size (phase 9's cameras)
+N_OBJECT, N_BACKGROUND = 16_000, 84_000   # the initial cloud: the object and the far points
+ORBIT_SCALE = 1.5         # the training orbit's distance over phase 9's
+# The shortened schedule of phase 18: GSTrainConfig's defaults otherwise.
+SCHEDULE = dict(iterations=60, freeze_iters=40, densify_from_iter=10, densification_interval=10,
+                densify_until_iter=45, opacity_reset_interval=25, mask_prune_iter=10,
+                net_lr_step=(20, 40, 55))
+
+
+def _train_phases(torch, dev, bed):
+    """Phases 15-20. Returns the lines of kernels A, B and C."""
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.cli import run_3dgs
+    from aip_tpu_torch.gs import gaussians as G
+    from aip_tpu_torch.gs import pipeline
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gs.cameras import Camera
+    from aip_tpu_torch.gs.colorfield import _encode_terms
+    from aip_tpu_torch.gs.dataset import Scene
+    from aip_tpu_torch.kernels import composite as KC
+    from aip_tpu_torch.kernels import composite_ad as KAD
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    scene_dir = _write_train_scene(np, Image, bed)
+    scene = Scene(str(scene_dir), shuffle=False)
+    cams = scene.getTrainCameras()
+    ext = scene.cameras_extent
+    cfg = T.GSTrainConfig(**SCHEDULE)
+    pcd = scene.point_cloud
+    bg = torch.zeros(3, device=dev)
+    style_f = bed["style_f"]
+
+    # 15. kernels A and B on a real 800^2 selection --------------------------------
+    trainer = T.init_trainer(cfg, pcd.points, pcd.colors, ext, seed=0, device=dev)
+    step = T.make_train_step(cfg, ext, "photometric", TRAIN_SIZE, TRAIN_SIZE)
+    arrays = T.camera_to_arrays(cams[0], device=dev)
+    served = {}
+    with _capture(KAD, "composite_ad_fwd", served), _capture(KAD, "composite_ad_bwd", served), \
+            _capture(KH, "hash_grad", served):
+        step(trainer, arrays, style_f, bg)
+    torch.cuda.synchronize()
+    fwd_args, bwd_args = served["composite_ad_fwd"][0], served["composite_ad_bwd"][0]
+    n_tiles, k = fwd_args[0].shape[:2]
+    n_valid = int(fwd_args[4].sum().item())
+    emit("train_scene", scene=str(scene_dir.relative_to(ROOT)), cameras=len(cams),
+         size=[cams[0].image_height, cams[0].image_width], points=len(pcd.points),
+         capacity=cfg.capacity, table=[16, 1 << cfg.log2_hashmap, 2], style_dim=cfg.style_dim,
+         settings=step.settings._asdict(), tiles=n_tiles, slots=k, valid_slots=n_valid)
+    checked = _ad_check(torch, KAD, fwd_args, bwd_args, "served")
+    ad_err = {"composite_ad_fwd": checked["fwd"], "composite_ad_bwd": checked["bwd"]}
+    _ad_check(torch, KAD, *_ad_edge_cases(np, torch, KAD, dev), "edge")
+
+    # 16. kernel C at full width ----------------------------------------------------
+    x01, g_out, shape = served["hash_grad"][0]
+    out = KH.hash_grad(x01, g_out, shape)
+    torch.cuda.synchronize()
+    ref = KH.hash_grad_reference(x01, g_out, shape)
+    c_err = (out - ref).abs().max().item()
+    c_tol = 1e-4 * ref.abs().max().item()
+    emit("hash_grad_vs_plain", points=x01.shape[0], table=list(shape), max_abs_err=c_err,
+         max_abs_ref=ref.abs().max().item(), tol=c_tol, nonzero_rows=int((ref != 0).any(-1).sum()))
+    if not c_err <= c_tol:
+        raise AssertionError(f"hash_grad disagrees with index_add_: {c_err} > {c_tol}")
+    del out, ref
+
+    # 17. one training step, card against the port on the CPU, 128^2 ---------------
+    _card_vs_cpu_step(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext, style_f, dev)
+
+    # 18. training at full width --------------------------------------------------
+    model_dir = TRAIN_WORK / "model"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    trace = {}
+    for mod in (KAD, KH, KC):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline.run_3dgs_training(str(scene_dir), str(bed["style_png"]), model_path=str(model_dir),
+                               cfg=cfg, progress_every=0, device=dev, trace=trace)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {**KAD.launch_counts(), **KH.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = trace["steps"]
+    photo = [loss for _, ph, loss, _ in steps if ph == "photometric"]
+    by_phase = {}
+    for _, ph, _, ms in steps:
+        by_phase.setdefault(ph, []).append(ms)
+    ev = trace["events"]
+    emit("train_full_width", entry="aip_tpu_torch.gs.pipeline.run_3dgs_training",
+         schedule=SCHEDULE, steps=len(steps), events=ev,
+         loss_curve=[round(loss, 6) for _, _, loss, _ in steps],
+         first5_photometric=float(np.mean(photo[:5])), last5_photometric=float(np.mean(photo[-5:])),
+         median_step_ms={ph: statistics.median(v) for ph, v in by_phase.items()},
+         launches=train_launches,
+         launches_per_step={k_: v / len(steps) for k_, v in train_launches.items()},
+         peak_memory_gib=peak / 2**30, wall_s=train_s,
+         storage=(model_dir / "storage").read_text().splitlines())
+    fired = ("photometric_steps", "style_steps", "densify_events", "cloned", "split", "pruned",
+             "opacity_reset", "recompact", "rvq_qat_start", "mask_prune_events")
+    missing = [e for e in fired if ev.get(e, 0) <= 0]
+    if missing or "final_mask_pruned" not in ev:
+        raise AssertionError(f"events that never fired: {missing}")
+    if not (np.isfinite([loss for _, _, loss, _ in steps]).all()
+            and np.mean(photo[-5:]) < np.mean(photo[:5])):
+        raise AssertionError("the photometric loss did not fall")
+    if min(train_launches.values()) < len(steps):
+        raise AssertionError(f"a training kernel was not launched every step: {train_launches}")
+    KC.reset_launch_counts()
+    gif = Path(pipeline.run_3dgs_rendering(str(bed["style_png"]), str(model_dir),
+                                           output_dir=str(model_dir / "renders"), device=dev))
+    torch.cuda.synchronize()
+    pngs = sorted((model_dir / "renders").glob("*.png"))
+    render_launches = KC.launch_counts()
+    emit("train_render", gif=str(gif.relative_to(ROOT)), gif_exists=gif.is_file(),
+         pngs=len(pngs), launches=render_launches)
+    # From 512^2 up the inference render takes the macro-block compositors.
+    macro = TRAIN_SIZE * TRAIN_SIZE >= 512 * 512
+    if not (gif.is_file() and len(pngs) == len(cams)
+            and (sum(render_launches.values()) > 0 or not macro)):
+        raise AssertionError("the trained model did not render")
+
+    # 19. the CLI: train a few iterations, then render -------------------------------
+    cli_out = TRAIN_WORK / "cli"
+    shutil.rmtree(cli_out, ignore_errors=True)
+    for mod in (KAD, KH):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_gif = Path(run_3dgs.main(["--content", str(scene_dir), "--style", str(bed["style_png"]),
+                                  "--output", str(cli_out), "--iterations", "4",
+                                  "--freeze_iters", "2"]))
+    torch.cuda.synchronize()
+    cli_launches = {**KAD.launch_counts(), **KH.launch_counts()}
+    emit("train_cli", entry="aip_tpu_torch.cli.run_3dgs.main", iterations=4,
+         gif=str(cli_gif.relative_to(ROOT)), gif_exists=cli_gif.is_file(),
+         model=(cli_out / "model.npz").is_file(), launches=cli_launches,
+         wall_s=time.perf_counter() - t0)
+    if not (cli_gif.is_file() and min(cli_launches.values()) >= 4):
+        raise AssertionError("the CLI did not train through the kernels and render")
+
+    # Times of A, B and C on the inputs the main path gave them --------------------
+    lines = []
+    bound = _ad_bound(fwd_args, n_valid)
+    timed = {
+        "composite_ad_fwd": (lambda: KAD.composite_ad_fwd(*fwd_args),
+                             lambda: KAD.composite_ad_fwd_reference(*fwd_args), None),
+        "composite_ad_bwd": (lambda: KAD.composite_ad_bwd(*bwd_args),
+                             lambda: KAD.composite_ad_bwd_reference(*bwd_args), None),
+    }
+    idx, w = _encode_terms(shape, x01)
+    vals = (w[..., None] * g_out.reshape(x01.shape[0], shape[0], 1, shape[2])).reshape(-1, shape[2])
+    flat = idx.reshape(-1)
+    table = torch.zeros((shape[0] * shape[1], shape[2]), device=dev)
+    timed["hash_grad"] = (lambda: KH.hash_grad(x01, g_out, shape),
+                          lambda: KH.hash_grad_reference(x01, g_out, shape),
+                          lambda: table.index_add_(0, flat, vals))
+    bound["hash_grad"] = _hash_bound(x01, shape)
+    errs = {**ad_err, "hash_grad": c_err}
+    for name, (kern, plain, lib) in timed.items():
+        t_comp, t_mem = bound[name]
+        lines.append({
+            "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+            "replaces": KERNELS[name][1], "launches": train_launches[name],
+            "max_abs_err": errs[name],
+            "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
+            "bound_ms": max(t_comp, t_mem) * 1e3,
+            "bound_by": "operations" if t_comp >= t_mem else "bytes",
+            "library_ms": None if lib is None else _time_ms(torch, lib),
+        })
+        emit("train_kernel_work", kernel=name, flops=t_comp * PEAK_FLOPS_F32,
+             bytes=t_mem * PEAK_BYTES, launches_per_step=train_launches[name] / len(steps),
+             definition=_BOUND_NOTES[name])
+    del idx, w, vals, flat, table
+
+    # 20. profile of one photometric and one style step --------------------------------
+    guide = np.asarray(Image.open(model_dir / "stylized" / f"{cams[0].image_name}.jpg")
+                       .convert("RGB").resize((TRAIN_SIZE, TRAIN_SIZE), Image.BILINEAR),
+                       np.float32) / 255.0
+    style_arrays = T.camera_to_arrays(cams[0], image=guide, device=dev)
+    for phase, cam_arrays in (("photometric", arrays), ("style", style_arrays)):
+        fn = T.make_train_step(cfg, ext, phase, TRAIN_SIZE, TRAIN_SIZE)
+        _train_profile(torch, phase, lambda: fn(trainer, cam_arrays, style_f, bg))
+    return lines
+
+
+_BOUND_NOTES = {
+    "composite_ad_fwd": ("operations = 25 float32 per (valid slot, pixel) at 67 TFLOP/s; bytes = "
+                         "the gathered [T,K,10] inputs read once, image and T_final written once"),
+    "composite_ad_bwd": ("operations = 70 float32 per (valid slot, pixel) at 67 TFLOP/s; bytes = "
+                         "inputs, T_final and the upstream gradient read once, the [T,K,9] "
+                         "gradients written once"),
+    "hash_grad": ("operations = 60 float32 per (point, level); bytes = x01 and the upstream "
+                  "gradient read once, the [L,T,F] table written once (atomics not counted)"),
+}
+
+
+def _write_train_scene(np, Image, bed):
+    """The training scene: the 8 orbit cameras of phase 9 moved out to 1.5
+    times their distance from the model (the object fills about two thirds
+    of each view, and the scene extent, which scales the densification
+    rule's size split between clone and split, grows with the orbit), with
+    the port's own 800^2 inference renders of the committed model as
+    images, and a points3d.ply of 100k points from numpy seed 0. 16k are
+    drawn from the model's active positions, so the cloud covers the
+    object; 84k are sparse far points in a wide slab above every camera
+    (outside all views, as a COLMAP cloud's far points are), whose kNN
+    scales exceed a tenth of the scene extent. The first densification
+    after the opacity reset interval prunes them, so the live count falls
+    below a quarter of the capacity and the capacity buckets recompact (the
+    bucket rule keeps twice the live count: at 100k live splats a 2^17
+    capacity never shrinks)."""
+    from aip_tpu_torch.gs.dataset import Scene, write_ply
+    from aip_tpu_torch.gs.render import render_frame
+
+    scene = TRAIN_WORK / "scene"
+    shutil.rmtree(scene, ignore_errors=True)
+    (scene / "images").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    state = bed["state"]
+    xyz = state.xyz[state.active].cpu().numpy().astype(np.float64)
+    obj = xyz[rng.choice(len(xyz), N_OBJECT, replace=False)]
+    center = np.median(xyz, axis=0)
+    meta = json.loads((GS_WORK / "scene" / "transforms_train.json").read_text())
+    blank = Image.fromarray(np.zeros((TRAIN_SIZE, TRAIN_SIZE, 3), np.uint8))
+    for f in meta["frames"]:
+        c2w = np.array(f["transform_matrix"])
+        c2w[:3, 3] = center + ORBIT_SCALE * (c2w[:3, 3] - center)
+        f["transform_matrix"] = c2w.tolist()
+        blank.save(scene / (f["file_path"].lstrip("./") + ".png"))
+    (scene / "transforms_train.json").write_text(json.dumps(meta))
+    dist = float(np.linalg.norm(np.array(meta["frames"][0]["transform_matrix"])[:3, 3] - center))
+    back = np.empty((N_BACKGROUND, 3))
+    back[:, :2] = center[:2] + (rng.random((N_BACKGROUND, 2)) * 2 - 1) * 24 * dist
+    back[:, 2] = center[2] + (2 + rng.random(N_BACKGROUND) * 4) * dist
+    pts = np.concatenate([obj, back]).astype(np.float32)
+    write_ply(scene / "points3d.ply", pts, rng.integers(0, 256, (len(pts), 3)))
+    for cam in Scene(str(scene), shuffle=False).getTrainCameras():
+        img = render_frame(bed["fn_800"], cam).clamp(0, 1).cpu().numpy()
+        Image.fromarray((img * 255).astype(np.uint8)).save(scene / "images" / f"{cam.image_name}.png")
+    return scene
+
+
+def _ad_check(torch, KAD, fwd_args, bwd_args, case):
+    """Kernels A and B against their plain versions on one input: the image
+    and T_final at 1e-5 absolute, each gradient at 1e-4 of its largest
+    value (the same float32 walks; B reduces the 256 pixels in another
+    order). Returns the largest absolute errors, {"fwd": .., "bwd": ..}."""
+    out, tf = KAD.composite_ad_fwd(*fwd_args)
+    grads = KAD.composite_ad_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    ref_out, ref_tf = KAD.composite_ad_fwd_reference(*fwd_args)
+    ref_grads = KAD.composite_ad_bwd_reference(*bwd_args)
+    f_err = max((out - ref_out).abs().max().item(), (tf - ref_tf).abs().max().item())
+    rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+           for a, b in zip(grads, ref_grads)]
+    b_err = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
+    emit("composite_ad_vs_plain", case=case, in_shape=list(fwd_args[0].shape),
+         fwd_max_abs_err=f_err, fwd_tol=1e-5,
+         bwd_max_rel_err=dict(zip(("mean", "conic", "color", "opacity"), rel)), bwd_tol_rel=1e-4,
+         t_final_min=tf.min().item())
+    if not (f_err <= 1e-5 and max(rel) <= 1e-4):
+        raise AssertionError(f"composite_ad kernels disagree with the plain version ({case})")
+    return {"fwd": f_err, "bwd": b_err}
+
+
+def _ad_edge_cases(np, torch, KAD, dev, k=128, tile_w=4):
+    """8 tiles of K slots around each tile's pixels: tile 1 empty (every
+    slot invalid), tile 2 saturating below T = 1e-4, tile 3 a splat at the
+    0.99 clamp and one of opacity 0, tile 4 invalid slots between valid
+    ones, tile 5 only its first slot valid. Returns the forward's and the
+    backward's arguments, with an upstream gradient from seed 5."""
+    g = np.random.default_rng(5)
+    n = 8
+    t = np.arange(n)
+    x0 = ((t % tile_w) * 16).astype(np.float32)[:, None]
+    y0 = ((t // tile_w) * 16).astype(np.float32)[:, None]
+    mean = np.stack([x0 + g.random((n, k)) * 20 - 2, y0 + g.random((n, k)) * 20 - 2], -1)
+    sig = g.random((n, k)) * 4 + 1.5
+    conic = np.stack([1 / sig ** 2, (g.random((n, k)) - 0.5) * 0.3 / sig ** 2,
+                      1 / (sig * (g.random((n, k)) + 0.6)) ** 2], -1)
+    color = g.random((n, k, 3))
+    op = g.random((n, k, 1)) * 0.7 + 0.1
+    valid = np.ones((n, k, 1))
+    valid[1] = 0.0
+    conic[2, :, 0] = conic[2, :, 2] = 1e-3
+    conic[2, :, 1] = 0.0
+    op[2] = 0.98
+    mean[3, 0] = [x0[3, 0] + 7.5, y0[3, 0] + 7.5]
+    op[3, 0] = 1.0
+    op[3, 1] = 0.0
+    valid[4, ::3] = 0.0
+    valid[5, 1:] = 0.0
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    args = [f(a) for a in (mean, conic, color, op, valid)] + [f([0.2, 0.5, 0.1])]
+    _, t_final = KAD.composite_ad_fwd_reference(*args, tile_w)
+    g_out = f(g.standard_normal((n, 3, 16, 16)))
+    return (*args, tile_w), (*args, t_final, g_out, tile_w)
+
+
+def _ad_bound(fwd_args, n_valid):
+    """(operations s, bytes s) of kernels A and B on the served input."""
+    n_tiles, k = fwd_args[0].shape[:2]
+    pairs = n_valid * 256
+    in_bytes = n_tiles * k * 10 * 4
+    img_bytes = n_tiles * 256 * 4
+    return {
+        "composite_ad_fwd": (pairs * AD_FWD_PAIR_FLOPS / PEAK_FLOPS_F32,
+                             (in_bytes + 4 * img_bytes) / PEAK_BYTES),
+        "composite_ad_bwd": (pairs * AD_BWD_PAIR_FLOPS / PEAK_FLOPS_F32,
+                             (in_bytes + 4 * img_bytes + n_tiles * k * 9 * 4) / PEAK_BYTES),
+    }
+
+
+def _hash_bound(x01, shape):
+    n = x01.shape[0]
+    l, t, f = shape
+    return (n * l * HASH_POINT_LEVEL_FLOPS / PEAK_FLOPS_F32,
+            (n * 3 * 4 + n * l * f * 4 + l * t * f * 4) / PEAK_BYTES)
+
+
+def _card_vs_cpu_step(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext, style_f, card):
+    """Phase 17: one photometric step at 128^2 (3,000 points of the cloud's
+    object part, capacity 4,096, a 2^16 table so that kernel C runs; the
+    other settings GSTrainConfig's defaults) from
+    one trainer, on the card and on the CPU. The loss at 1e-4 relative;
+    every parameter group's gradient (Adam's first moment after one step is
+    0.1 g) and the screen-space offset's gradient at 1e-3 of their largest
+    entry: float32 sums in other orders, atomics in kernel C."""
+    from aip_tpu_torch.kernels import composite_ad as KAD
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    rng = np.random.default_rng(1)
+    img = Image.open(scene_dir / "images" / f"{cams[0].image_name}.png").convert("RGB")
+    img = np.asarray(img.resize((128, 128), Image.BILINEAR), np.float32) / 255.0
+    c = cams[0]
+    cam = Camera(colmap_id=0, R=c.R, T=c.T, FoVx=c.FoVx, FoVy=c.FoVy, image=img,
+                 image_name="c128", uid=0)
+    cfg = T.GSTrainConfig(capacity=4096, log2_hashmap=16)
+    pick = rng.choice(N_OBJECT, min(3000, N_OBJECT), replace=False)
+    trainer = T.init_trainer(cfg, pcd.points[pick], pcd.colors[pick], ext, seed=0, device="cpu")
+    gs = trainer.gstate
+    # Anisotropic, rotated splats, so that every group has a gradient.
+    gs = gs._replace(
+        scaling=gs.scaling + torch.from_numpy(rng.normal(0, 0.3, (4096, 3)).astype(np.float32)),
+        rotation=torch.from_numpy(rng.standard_normal((4096, 4)).astype(np.float32)))
+    trainer = trainer._replace(gstate=gs)
+    res = []
+    for dev in ("cpu", card):
+        tr = G.tree_map(lambda t: t.to(dev) if t.ndim else t, trainer)
+        step = T.make_train_step(cfg, ext, "photometric", 128, 128)
+        stats = {}
+        KAD.reset_launch_counts()
+        KH.reset_launch_counts()
+        with _capture(G, "add_densification_stats", stats):
+            new, metrics = step(tr, T.camera_to_arrays(cam, device=dev), style_f.to(dev),
+                                torch.zeros(3, device=dev))
+        torch.cuda.synchronize()
+        launches = {**KAD.launch_counts(), **KH.launch_counts()}
+        grads = {k: v.cpu() / 0.1 for k, v in {**new.opt_g.mu, **new.opt_net.mu}.items()}
+        grads["screenspace_offset"] = stats["add_densification_stats"][0][1].cpu()
+        res.append((metrics["loss"].item(), grads))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    errs = {k: (g_gpu[k] - g_cpu[k]).abs().max().item() / max(g_cpu[k].abs().max().item(), 1e-30)
+            for k in g_cpu}
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    emit("train_card_vs_cpu", size=128, capacity=4096, table=[16, 1 << 16, 2], loss_cpu=l_cpu,
+         loss_card=l_gpu, loss_rel_err=loss_err, grad_rel_err=errs, tol_loss=1e-4, tol_grad=1e-3,
+         launches_on_card=launches)
+    if not (loss_err <= 1e-4 and max(errs.values()) <= 1e-3 and min(launches.values()) >= 1):
+        raise AssertionError("a training step on the card disagrees with the CPU")
+
+
+def _train_profile(torch, phase, fn):
+    """torch.profiler over one training step after a warm-up: device time
+    by stage and the device's busy share of the host's wall time. A stage
+    is the device time of the ops inside its record_function span (colour
+    field forward, projection, selection, gather, loss, Adam, statistics);
+    kernels A, B and C by their kernel names (the profiler links a ctypes
+    launch to the enclosing span or autograd node; they are taken out of
+    it); the backward's gather transpose (IndexSelectBackward: the
+    scatter-add into per-Gaussian arrays, an index_add_) and the rest of
+    the backward by the autograd nodes the engine ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in TRAIN_SPANS:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    stages = {name: 0.0 for name in TRAIN_SPANS}
+    stages.update({"kernel A": 0.0, "kernel B": 0.0, "kernel C": 0.0,
+                   "backward scatter-add": 0.0, "backward other": 0.0})
+    named = (("kernel A", "composite_ad_fwd"), ("kernel B", "composite_ad_bwd"),
+             ("kernel C", "hash_grad"))
+
+    def subtree_us(e):
+        """Device time of the kernels an op and its children launched,
+        kernels A, B and C left out (they are stages of their own)."""
+        own = sum(k.duration for k in e.kernels if not any(p in k.name for _, p in named))
+        return own + sum(subtree_us(c) for c in e.cpu_children)
+
+    node = "autograd::engine::evaluate_function: "
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in TRAIN_SPANS:
+            stages[e.name] += subtree_us(e)
+        elif e.name.startswith(node):
+            op = e.name[len(node):]
+            key = "backward scatter-add" if op.startswith("Index") else "backward other"
+            stages[key] += subtree_us(e)
+    for name, (us, _) in by_name.items():
+        for key, pat in named:
+            if pat in name:
+                stages[key] += us
+    ms = {k: v / 1e3 for k, v in stages.items()}
+    ms["rest"] = busy_us / 1e3 - sum(ms.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    measured = busy_us > 0 and stages["gs.project"] > 0
+    emit("train_profile", step=phase, wall_ms=wall_us / 1e3,
+         device_ms=busy_us / 1e3 if busy_us else "not measured",
+         device_busy_share=busy_us / wall_us if busy_us else "not measured",
+         stage_device_ms=ms if measured else "not measured",
+         kernels=[{"name": name[:100], "ms": us / 1e3, "launches": n} for name, (us, n) in top])
 
 
 if __name__ == "__main__":

@@ -199,3 +199,155 @@ def test_composite_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         C.composite_macro_mxu_seg(raw[0], counts.cpu(), counts, torch.zeros(3), n_blocks=2,
                                   kc=64, bs=64, mtw=2)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable per-tile compositor (kernels A and B) and the hash-table
+# gradient (kernel C)
+# ---------------------------------------------------------------------------
+
+def _gathered(g, n_tiles=8, k=48, tile_w=4):
+    """Gathered per-tile arrays around each tile's pixels, with edge cases:
+    tile 1 empty (every slot invalid), tile 2 saturating (T falls below
+    1e-4), tile 3 a splat at the 0.99 clamp and one of opacity 0, tile 4
+    invalid slots between valid ones."""
+    t = np.arange(n_tiles)
+    x0 = ((t % tile_w) * 16).astype(np.float32)[:, None]
+    y0 = ((t // tile_w) * 16).astype(np.float32)[:, None]
+    mean = np.stack([x0 + g.random((n_tiles, k)) * 20 - 2,
+                     y0 + g.random((n_tiles, k)) * 20 - 2], -1).astype(np.float32)
+    sig = g.random((n_tiles, k)) * 4 + 1.5
+    conic = np.stack([1 / sig ** 2, (g.random((n_tiles, k)) - 0.5) * 0.3 / sig ** 2,
+                      1 / (sig * (g.random((n_tiles, k)) + 0.6)) ** 2], -1).astype(np.float32)
+    color = g.random((n_tiles, k, 3)).astype(np.float32)
+    op = (g.random((n_tiles, k, 1)) * 0.7 + 0.1).astype(np.float32)
+    valid = np.ones((n_tiles, k, 1), np.float32)
+    valid[1] = 0.0
+    conic[2, :, 0] = conic[2, :, 2] = 1e-3
+    conic[2, :, 1] = 0.0
+    op[2] = 0.98
+    mean[3, 0] = [x0[3, 0] + 7.5, y0[3, 0] + 7.5]
+    op[3, 0] = 1.0
+    op[3, 1] = 0.0
+    valid[4, ::3] = 0.0
+    return [torch.from_numpy(a) for a in (mean, conic, color, op, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 48, 128])
+def test_composite_ad_kernels_match_plain(cuda, k):
+    """Kernel A's image and final transmittance at 1e-5 absolute, kernel
+    B's four gradients at 1e-4 of each one's largest value (the same fp32
+    walks; B sums the 256 pixels in another order)."""
+    from aip_tpu_torch.kernels import composite_ad as AD
+
+    g = np.random.default_rng(4)
+    args = [a.to(cuda) for a in _gathered(g, k=k)]
+    bg = torch.tensor([0.2, 0.5, 0.1], device=cuda)
+    g_out = torch.from_numpy(g.standard_normal((8, 3, 16, 16)).astype(np.float32)).to(cuda)
+    AD.reset_launch_counts()
+    out, tf = AD.composite_ad_fwd(*args, bg, 4)
+    grads = AD.composite_ad_bwd(*args, bg, tf, g_out, 4)
+    torch.cuda.synchronize()
+    assert AD.launch_counts() == {"composite_ad_fwd": 1, "composite_ad_bwd": 1}
+    ref_out, ref_tf = AD.composite_ad_fwd_reference(*args, bg, 4)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tf, ref_tf, rtol=0, atol=1e-5)
+    ref_grads = AD.composite_ad_bwd_reference(*args, bg, ref_tf, g_out, 4)
+    for a, b in zip(grads, ref_grads):
+        scale = max(float(b.abs().max()), 1e-8)
+        assert float((a - b).abs().max()) / scale < 1e-4
+        assert float(a[1].abs().max()) == 0.0          # the empty tile
+
+
+@pytest.mark.cuda
+def test_composite_ad_function_on_the_card_matches_the_cpu(cuda):
+    from aip_tpu_torch.kernels import composite_ad as AD
+
+    g = np.random.default_rng(5)
+    cpu = _gathered(g)
+    bg = torch.tensor([0.1, 0.1, 0.2])
+    g_out = torch.from_numpy(g.standard_normal((8, 3, 16, 16)).astype(np.float32))
+    res = []
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev, copy=True).requires_grad_(i < 4) for i, a in enumerate(cpu)]
+        out = AD.composite_tiles_ad(*leaves, 4, bg.to(dev))
+        out.backward(g_out.to(dev))
+        res.append([out.detach().cpu()] + [a.grad.cpu() for a in leaves[:4]])
+    for a, b in zip(*res):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2,n", [(16, 5000), (19, 131072)])
+def test_hash_grad_kernel_matches_index_add(cuda, log2, n):
+    """Kernel C against its plain version (one index_add_), both fp32;
+    atomics add in another order, so 1e-5 of the largest entry. A wrong
+    corner index would be off by whole contributions."""
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    g = np.random.default_rng(6)
+    x = torch.from_numpy((g.random((n, 3)) * 0.5 + 0.25).astype(np.float32)).to(cuda)
+    go = torch.from_numpy(g.standard_normal((n, 32)).astype(np.float32)).to(cuda)
+    shape = (16, 1 << log2, 2)
+    KH.reset_launch_counts()
+    out = KH.hash_grad(x, go, shape)
+    torch.cuda.synchronize()
+    assert KH.launch_counts() == {"hash_grad": 1}
+    ref = KH.hash_grad_reference(x, go, shape)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def _tiny_training(dev, log2_hashmap=16):
+    """A trainer on 300 points and one 64x48 camera looking at them."""
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gs.cameras import Camera
+
+    g = np.random.default_rng(7)
+    pts = (g.random((300, 3)) * 2 - 1).astype(np.float32)
+    cols = g.random((300, 3)).astype(np.float32)
+    cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), FoVx=0.9, FoVy=0.7,
+                 image=g.random((48, 64, 3)).astype(np.float32), image_name="v", uid=0)
+    cfg = T.GSTrainConfig(capacity=512, log2_hashmap=log2_hashmap, style_dim=0,
+                          max_per_tile=32, raster_chunk=256)
+    trainer = T.init_trainer(cfg, pts, cols, 1.0, seed=0, device="cpu")
+    # Anisotropic, rotated splats: every parameter group gets a gradient.
+    gs = trainer.gstate
+    gs = gs._replace(scaling=gs.scaling + torch.from_numpy(g.normal(0, 0.3, (512, 3)).astype(
+        np.float32)), rotation=torch.from_numpy(g.standard_normal((512, 4)).astype(np.float32)))
+    return T, cfg, trainer._replace(gstate=gs), cam
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_launches_a_b_c_and_matches_the_cpu(cuda):
+    """One photometric step from the same trainer on the card and on the
+    CPU: the loss at 1e-5 relative, every parameter group's gradient (Adam's
+    first moment after one step is 0.1 g) at 1e-3 of its largest entry
+    (float sums in other orders; the colour field's table gradient through
+    atomics)."""
+    from aip_tpu_torch.gs import gaussians as G
+    from aip_tpu_torch.kernels import composite_ad as AD
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    T, cfg, trainer, cam = _tiny_training(cuda)
+    res = {}
+    for dev in ("cpu", cuda):
+        tr = G.tree_map(lambda t: t.to(dev) if t.ndim else t, trainer)
+        step = T.make_train_step(cfg, 1.0, "photometric", 48, 64)
+        AD.reset_launch_counts()
+        KH.reset_launch_counts()
+        new, metrics = step(tr, T.camera_to_arrays(cam, device=dev), None,
+                            torch.zeros(3, device=dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert AD.launch_counts() == {"composite_ad_fwd": 1, "composite_ad_bwd": 1}
+            assert KH.launch_counts() == {"hash_grad": 1}
+        res[str(dev)] = (float(metrics["loss"]), new)
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = res["cpu"], res["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for opt_c, opt_g in ((t_cpu.opt_g, t_gpu.opt_g), (t_cpu.opt_net, t_gpu.opt_net)):
+        for name, mu in opt_c.mu.items():
+            ref = mu
+            got = opt_g.mu[name].cpu()
+            assert float((got - ref).abs().max()) <= 1e-3 * max(float(ref.abs().max()), 1e-12), \
+                name

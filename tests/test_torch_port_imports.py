@@ -52,7 +52,10 @@ def test_importing_every_module_leaves_jax_out():
     mods = _port_modules()
     for name in ("aip_tpu_torch.kernels.adain_head", "aip_tpu_torch.cli.run_depth",
                  "aip_tpu_torch.kernels.composite", "aip_tpu_torch.gs.pipeline",
-                 "aip_tpu_torch.gs.render", "aip_tpu_torch.runtime.bitcodec"):
+                 "aip_tpu_torch.gs.render", "aip_tpu_torch.runtime.bitcodec",
+                 "aip_tpu_torch.kernels.composite_ad", "aip_tpu_torch.kernels.hashgrad",
+                 "aip_tpu_torch.gs.train", "aip_tpu_torch.gs.checkpoint",
+                 "aip_tpu_torch.cli.run_3dgs", "aip_tpu_torch.config"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
