@@ -90,9 +90,42 @@ one view per step:
     and peak memory.
 19. the CLI: ``aip_tpu_torch.cli.run_3dgs.main`` for 4 iterations, which
     trains and then renders.
-20. times of A, B and C on the served inputs (ms, plain ms, bound,
-    ``index_add_`` as C's library call), and a torch.profiler breakdown of
-    one photometric and one style step by stage, with the busy share.
+20. times of A, B and C on the served inputs (ms over 100 back-to-back
+    calls in one CUDA-event window, beside the single-call figure; plain
+    ms, bound, ``index_add_`` as C's library call), and a torch.profiler
+    breakdown of one photometric and one style step by stage, with the
+    busy share.
+
+Video style transfer with TV-L1 temporal consistency, at the JAX package's
+video workload: 96 frames at 256^2 of a smooth texture (numpy seed 0) that
+moves by a known sub-pixel step each frame, 2 style images, depth on, the
+AdaIN model in bf16, TV-L1 at its defaults (4 levels x 5 warps x 300
+iterations), blend 0.7:
+
+21. ``tvl1`` kernel vs plain, float32: on the inputs the 96-frame flow call
+    hands each pyramid level (95 pairs at 256^2, 128^2, 64^2 and 32^2,
+    captured from the first warp), 300 iterations, and on edge cases (H or
+    W = 2, 37x45, grad2 = 0 everywhere, iters 0 and 1, B = 1); max abs
+    <= 1e-5.
+22. main path: ``pipelines.video.apply_style_transfer_multi_ada`` on the
+    frame directory, with the launch counts set to 0 just before and read
+    just after (tvl1 300 launches per level and warp, encode_head,
+    decode_tail); the 96 PNGs exist; the flows' mean endpoint error
+    against the known step over the interior <= 0.25 px. encode_head and
+    decode_tail are then held against their plain versions, by phase 3's
+    rule, on the arguments this call gave them (captured at each shape).
+23. fast-stylizer path: ``use_magenta_stylizer(load_magenta_npz(...))``
+    on the committed distilled checkpoint, then ``apply_style_transfer``
+    on the same frames.
+24. card vs CPU, fp32: 6 frames at 64^2 through the whole video call, the
+    card (kernels) against the port on the CPU (plain versions): frames
+    mean abs <= 1e-3, flows mean abs <= 1e-4 px.
+25. times: frames/s of the phase-22 call (host clock, median of 3) with its
+    stages (CUDA events), the ``tvl1`` kernel's ms per (level, warp) call
+    at each level, per iteration, its launches, plain ms and bound, and a
+    torch.profiler breakdown of one video call by stage with the busy
+    share. Then the CLI, ``cli.run_video.main`` on 4 frames, where cv2
+    imports (the card's machine has none: a line says it did not run).
 
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
@@ -120,7 +153,7 @@ PEAK_FLOPS = 989e12
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad")
+SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad", "tvl1")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:278"),
@@ -129,6 +162,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "composite_ad_fwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:184"),
     "composite_ad_bwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:211"),
     "hash_grad": ("hashgrad", "aip_tpu/ops/pallas/hashgrad.py:74"),
+    "tvl1": ("tvl1", "aip_tpu/ops/pallas/tvl1.py:99"),
 }
 
 
@@ -204,18 +238,7 @@ def main():
     for name, (kernel, plain, ws, make, shapes, serving) in cases.items():
         runs = [(s, dt) for dt in (f32, bf16) for s in shapes] + [(serving, bf16)]
         for shape, dt in runs:
-            x = make(*shape, dtype=dt)
-            out = kernel(x, *ws)
-            torch.cuda.synchronize()
-            ref = plain(x.float(), *[w.to(dt).float() for w in ws])
-            err = (out.float() - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            tol = (1e-4 if dt == f32 else 1e-2) * scale
-            emit("kernel_vs_plain", kernel=name, shape=list(shape), dtype=str(dt)[6:],
-                 out_shape=list(out.shape), max_abs_err=err, max_abs_ref=scale, tol=tol)
-            if not (out.shape == ref.shape and err <= tol):
-                raise AssertionError(f"{name} {list(shape)} {dt}: error {err} > {tol}")
-            del x, out, ref
+            err = _adain_check(torch, name, kernel, plain, make(*shape, dtype=dt), ws, "random")
         main_err[name] = err  # the serving-shape case, run last
     torch.cuda.empty_cache()
 
@@ -322,10 +345,32 @@ def main():
     lines += gs_lines
     # 15-20. stylized 3DGS training ----------------------------------------------
     lines += _train_phases(torch, dev, bed)
+    del bed
+    torch.cuda.empty_cache()
+    # 21-25. video style transfer -----------------------------------------------
+    lines += _video_phases(torch, dev)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _adain_check(torch, name, kernel, plain, x, ws, case):
+    """An AdaIN kernel wrapper against its plain version in fp32 on the same
+    inputs and weights rounded to x's dtype: max abs <= 1e-4 (fp32) or 1e-2
+    (bf16) of the reference's largest value. Returns the error."""
+    ws = [w.detach() for w in ws]
+    out = kernel(x, *ws)
+    torch.cuda.synchronize()
+    ref = plain(x.float(), *[w.to(x.dtype).float() for w in ws])
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = (1e-4 if x.dtype == torch.float32 else 1e-2) * scale
+    emit("kernel_vs_plain", kernel=name, case=case, shape=list(x.shape), dtype=str(x.dtype)[6:],
+         out_shape=list(out.shape), max_abs_err=err, max_abs_ref=scale, tol=tol)
+    if not (out.shape == ref.shape and err <= tol):
+        raise AssertionError(f"{name} {list(x.shape)} {x.dtype} ({case}): error {err} > {tol}")
+    return err
 
 
 def _hwio(module):
@@ -348,6 +393,23 @@ def _time_ms(torch, fn, runs=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _time_many_ms(torch, fn, n, warmup=3):
+    """One CUDA-event window around ``n`` back-to-back calls of ``fn``,
+    divided by ``n``, after a warm-up. The host queues calls ahead of the
+    device, so a short kernel is timed by the device rather than by its
+    wrapper's checks and allocations (while those stay shorter than it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def _profile(torch, fn, calls=3):
@@ -378,6 +440,77 @@ def _profile(torch, fn, calls=3):
          device_busy_share=busy_ms * 1e3 / wall_us if by_name else "not measured",
          kernels=[{"name": name[:100], "ms_per_call": ms / calls, "launches_per_call": n / calls}
                   for name, (ms, n) in top])
+
+
+def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, **fields):
+    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up, per
+    call: each stage's device time, the rest, the heaviest kernels and the
+    device's busy share of the host's wall time (one stream: kernel
+    durations do not overlap).
+
+    A CPU event that ``stage_of`` maps to a stage (by default a
+    record_function span named in ``stages``) takes the kernels that it and
+    its children launched; an inner stage's event takes its own. Each
+    correlation id is credited once: kineto links a kernel to every CPU
+    event of its launch's id, and a launch that blocks gets a second one
+    ("Command Buffer Full", "Activity Buffer Request"). Kernels launched
+    through ctypes are linked to no op of their stage: ``named``, pairs of
+    (stage, kernel-name pattern), credits them by name instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stage_of = stage_of or (lambda name: name if name in stages else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    by_name = {}
+    for e in events:  # kernels and copies, not the spans' device-side annotations
+        if (e.device_type == DeviceType.CUDA and e.name not in stages
+                and not getattr(e, "is_user_annotation", False)):
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    device_us = dict.fromkeys(stages, 0.0)
+    credited, credited_us = set(), {}
+
+    def walk(e, stage):
+        stage = stage_of(e.name) or stage
+        if stage is not None and e.kernels and e.id not in credited:
+            credited.add(e.id)
+            for k in e.kernels:
+                if not any(p in k.name for _, p in named):
+                    device_us[stage] += k.duration
+                    credited_us[k.name] = credited_us.get(k.name, 0.0) + k.duration
+        for c in e.cpu_children:
+            walk(c, stage)
+
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            walk(e, None)
+    for name, (us, _) in by_name.items():
+        stage = next((s for s, p in named if p in name), None)
+        if stage is not None:
+            device_us[stage] += us
+    ms = {k: v / 1e3 / calls for k, v in device_us.items()}
+    ms["rest"] = busy_us / 1e3 / calls - sum(ms.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    measured = busy_us > 0 and sum(device_us.values()) > 0
+    # A negative rest: the kernels credited for more time than they ran.
+    over = {name[:100]: (us - by_name.get(name, (0.0, 0))[0]) / 1e3 / calls
+            for name, us in credited_us.items() if us > by_name.get(name, (0.0, 0))[0] + 1e-3}
+    emit(label, **fields, calls=calls, wall_ms_per_call=wall_us / 1e3 / calls,
+         device_ms_per_call=busy_us / 1e3 / calls if busy_us else "not measured",
+         device_busy_share=busy_us / wall_us if busy_us else "not measured",
+         stage_device_ms_per_call=ms if measured else "not measured",
+         over_credited_ms_per_call=over,
+         kernels=[{"name": name[:100], "ms_per_call": us / 1e3 / calls,
+                   "launches_per_call": n / calls} for name, (us, n) in top])
 
 
 def _head_work(x):
@@ -606,7 +739,10 @@ def _gs_phases(torch, dev):
                          "rows, counts and starts read once, the planes written once, at "
                          "3.35 TB/s"),
              library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
-    _gs_profile(torch, _cycle(GR.render_frame, fitted_fns["bed_0037_1088x1920"], cams_1080))
+    _stage_profile(torch, "gs_profile",
+                   _cycle(GR.render_frame, fitted_fns["bed_0037_1088x1920"], cams_1080),
+                   GS_SPANS, named=(("gs.composite", "composite_macro_kernel"),), calls=3,
+                   scene="bed_0037_1088x1920")
     return lines, dict(cams=cams, fn_800=fn_800, state=state, style_f=style_f,
                        style_png=style_png)
 
@@ -677,17 +813,19 @@ def _fog(torch, np, Camera, dev, n=100_000):
 
 
 class _capture:
-    """Within the block, record the arguments of the first call of
-    ``module.<name>`` (the kernel wrapper, which still runs)."""
+    """Within the block, record the arguments of ``module.<name>`` (the
+    kernel wrapper, which still runs): those of the first call for each
+    ``key(args)``, by default the name."""
 
-    def __init__(self, module, name, store):
+    def __init__(self, module, name, store, key=None):
         self.module, self.name, self.store = module, name, store
+        self.key = key or (lambda args: name)
 
     def __enter__(self):
         orig = self.orig = getattr(self.module, self.name)
 
         def spy(*args, **kw):
-            self.store.setdefault(self.name, (args, kw))
+            self.store.setdefault(self.key(args), (args, kw))
             return orig(*args, **kw)
 
         spy.launches = 0  # the wrapper counts on its module's name, here the spy
@@ -768,60 +906,27 @@ def _cycle(render_frame, fn, cams):
     return frame
 
 
-def _gs_profile(torch, frame, calls=3):
-    """torch.profiler over ``calls`` frames after a warm-up: the device time
-    of each rasterizer stage, the rest, the heaviest kernels, and the
-    device's busy share of the host's wall time. A stage's time is the
-    device time of the PyTorch ops inside its record_function span; the
-    compositor kernels, launched through ctypes and so linked to no op, are
-    the composite stage by their kernel name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    frame()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            frame()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    by_name = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in GS_SPANS:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_us = sum(us for us, _ in by_name.values())
-    stages = {name: 0.0 for name in GS_SPANS}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name in stages:
-            stages[e.name] += e.device_time_total
-    stages["gs.composite"] += sum(us for name, (us, _) in by_name.items()
-                                  if "composite_macro_kernel" in name)
-    ms = {k: v / 1e3 / calls for k, v in stages.items()}
-    ms["rest"] = busy_us / 1e3 / calls - sum(ms.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    measured = busy_us > 0 and stages["gs.project"] > 0
-    emit("gs_profile", scene="bed_0037_1088x1920", calls=calls,
-         wall_ms_per_frame=wall_us / 1e3 / calls,
-         device_ms_per_frame=busy_us / 1e3 / calls if busy_us else "not measured",
-         device_busy_share=busy_us / wall_us if busy_us else "not measured",
-         stage_device_ms=ms if measured else "not measured",
-         kernels=[{"name": name[:100], "ms_per_frame": us / 1e3 / calls,
-                   "launches_per_frame": n / calls} for name, (us, n) in top])
-
-
 # ---------------------------------------------------------------------------
 # Stylized 3DGS training (phases 15-20)
 # ---------------------------------------------------------------------------
 
 TRAIN_WORK = WORK / "train"
+MANY_CALLS = 100          # calls in one CUDA-event window (_time_many_ms)
 AD_FWD_PAIR_FLOPS = 25    # float32 operations per (slot, pixel) of kernel A, the exp as one
 AD_BWD_PAIR_FLOPS = 70    # kernel B: the alpha rebuilt, the chain rule, the 9-term reduction
 HASH_POINT_LEVEL_FLOPS = 60   # kernel C per (point, level): corners, weights, 16 products/adds
 TRAIN_SPANS = ("gs.field", "gs.project", "gs.select", "gs.gather", "gs.composite", "gs.loss",
                "gs.adam", "gs.stats")
+# Phase 20's stages: the spans (colour field forward, projection, selection,
+# gather, loss, Adam, statistics), kernels A, B and C by their kernel names,
+# and the backward by the autograd nodes the engine ran: the gather's
+# transpose (IndexSelectBackward, an index_add_ into per-Gaussian arrays)
+# and the rest.
+TRAIN_NAMED = (("kernel A", "composite_ad_fwd"), ("kernel B", "composite_ad_bwd"),
+               ("kernel C", "hash_grad"))
+TRAIN_STAGES = (TRAIN_SPANS + tuple(s for s, _ in TRAIN_NAMED)
+                + ("backward scatter-add", "backward other"))
+AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
 TRAIN_SIZE = 800          # the orbit views' size (phase 9's cameras)
 N_OBJECT, N_BACKGROUND = 16_000, 84_000   # the initial cloud: the object and the far points
 ORBIT_SCALE = 1.5         # the training orbit's distance over phase 9's
@@ -983,18 +1088,20 @@ def _train_phases(torch, dev, bed):
     errs = {**ad_err, "hash_grad": c_err}
     for name, (kern, plain, lib) in timed.items():
         t_comp, t_mem = bound[name]
+        single_ms = _time_ms(torch, kern)
         lines.append({
             "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
             "replaces": KERNELS[name][1], "launches": train_launches[name],
             "max_abs_err": errs[name],
-            "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
+            "ms": _time_many_ms(torch, kern, MANY_CALLS), "plain_ms": _time_ms(torch, plain),
             "bound_ms": max(t_comp, t_mem) * 1e3,
             "bound_by": "operations" if t_comp >= t_mem else "bytes",
             "library_ms": None if lib is None else _time_ms(torch, lib),
         })
         emit("train_kernel_work", kernel=name, flops=t_comp * PEAK_FLOPS_F32,
              bytes=t_mem * PEAK_BYTES, launches_per_step=train_launches[name] / len(steps),
-             definition=_BOUND_NOTES[name])
+             ms_many_calls=lines[-1]["ms"], calls_in_window=MANY_CALLS,
+             ms_single_call=single_ms, definition=_BOUND_NOTES[name])
     del idx, w, vals, flat, table
 
     # 20. profile of one photometric and one style step --------------------------------
@@ -1004,7 +1111,8 @@ def _train_phases(torch, dev, bed):
     style_arrays = T.camera_to_arrays(cams[0], image=guide, device=dev)
     for phase, cam_arrays in (("photometric", arrays), ("style", style_arrays)):
         fn = T.make_train_step(cfg, ext, phase, TRAIN_SIZE, TRAIN_SIZE)
-        _train_profile(torch, phase, lambda: fn(trainer, cam_arrays, style_f, bg))
+        _stage_profile(torch, "train_profile", lambda: fn(trainer, cam_arrays, style_f, bg),
+                       TRAIN_STAGES, named=TRAIN_NAMED, stage_of=_train_stage, step=phase)
     return lines
 
 
@@ -1017,6 +1125,16 @@ _BOUND_NOTES = {
     "hash_grad": ("operations = 60 float32 per (point, level); bytes = x01 and the upstream "
                   "gradient read once, the [L,T,F] table written once (atomics not counted)"),
 }
+
+
+def _train_stage(name):
+    """The phase-20 stage of a CPU event's name, or None."""
+    if name in TRAIN_SPANS:
+        return name
+    if name.startswith(AUTOGRAD_NODE):
+        index = name[len(AUTOGRAD_NODE):].startswith("Index")
+        return "backward scatter-add" if index else "backward other"
+    return None
 
 
 def _write_train_scene(np, Image, bed):
@@ -1195,68 +1313,306 @@ def _card_vs_cpu_step(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext,
         raise AssertionError("a training step on the card disagrees with the CPU")
 
 
-def _train_profile(torch, phase, fn):
-    """torch.profiler over one training step after a warm-up: device time
-    by stage and the device's busy share of the host's wall time. A stage
-    is the device time of the ops inside its record_function span (colour
-    field forward, projection, selection, gather, loss, Adam, statistics);
-    kernels A, B and C by their kernel names (the profiler links a ctypes
-    launch to the enclosing span or autograd node; they are taken out of
-    it); the backward's gather transpose (IndexSelectBackward: the
-    scatter-add into per-Gaussian arrays, an index_add_) and the rest of
-    the backward by the autograd nodes the engine ran."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------------------
+# Video style transfer with TV-L1 temporal consistency (phases 21-25)
+# ---------------------------------------------------------------------------
 
-    fn()
+VIDEO_WORK = WORK / "video"
+VIDEO_FRAMES, VIDEO_SIZE = 96, 256
+VIDEO_STEP = (0.6, -0.35)        # (dx, dy) px a frame: the flows are -VIDEO_STEP
+EPE_MARGIN, EPE_BOUND = 16, 0.25  # tests/test_torch_port_flow.py's bound, in px
+TVL1_TOL = 1e-5
+TVL1_PIXEL_ITER_FLOPS = 55       # float32 operations per pixel and iteration
+TVL1_PIXEL_BYTES = 64            # 10 fields read, 6 written, float32
+TVL1_FLOW_LAUNCHES = 4 * 5 * 300  # kernel launches of one flow call: levels x warps x iterations
+DISTILLED = ROOT / "docs" / "examples" / "magenta" / "magenta_distilled.npz"
+
+
+def _video_phases(torch, dev):
+    """Phases 21-25. Returns the tvl1 kernel's line of the kernels table."""
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.kernels import adain_head as KA
+    from aip_tpu_torch.kernels import tvl1 as KT
+    from aip_tpu_torch.models import decoder as DEC
+    from aip_tpu_torch.models import magenta, weights
+    from aip_tpu_torch.models import vgg as VGG
+    from aip_tpu_torch.ops import flow as OF
+    from aip_tpu_torch.pipelines import video
+
+    shutil.rmtree(VIDEO_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    frames_dir = _write_images(np, Image, _moving_texture(np, VIDEO_FRAMES, VIDEO_SIZE, 0),
+                               VIDEO_WORK / "frames", "frame")
+    g = np.random.default_rng(1)
+    styles_dir = _write_images(np, Image, [g.random((VIDEO_SIZE, VIDEO_SIZE, 3)),
+                                           _moving_texture(np, 1, VIDEO_SIZE, 2)[0] ** 2],
+                               VIDEO_WORK / "styles", "style")
+    emit("video_scene", frames=VIDEO_FRAMES, size=VIDEO_SIZE, step_px=VIDEO_STEP,
+         styles=len(video._list_images(styles_dir)), write_s=time.perf_counter() - t0,
+         frames_dir=str(frames_dir.relative_to(ROOT)))
+
+    # 21. the kernel against its plain version ----------------------------------------
+    frames = video._load_frames(frames_dir, video._list_images(frames_dir),
+                                (VIDEO_SIZE, VIDEO_SIZE), dev)
+    served = {}  # the first call at each pyramid level, by its width
+    with _capture(OF, "tvl1_inner", served, key=lambda a: a[0].shape[-1]):
+        OF.estimate_flow_tvl1(frames[:-1], frames[1:])
+    del frames
+    main_err = max(_tvl1_check(torch, KT, a, f"served {hw}^2") for hw, (a, _) in served.items())
+    args = served[VIDEO_SIZE][0]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for case, b, h, w, iters, flat in (("H=2", 4, 2, 64, 30, False), ("W=2", 4, 64, 2, 30, False),
+                                       ("37x45", 2, 37, 45, 30, False),
+                                       ("grad2=0", 2, 64, 64, 30, True),
+                                       ("iters=0", 2, 32, 32, 0, False),
+                                       ("iters=1", 2, 32, 32, 1, False),
+                                       ("B=1", 1, VIDEO_SIZE, VIDEO_SIZE, 300, False)):
+        _tvl1_check(torch, KT, _tvl1_random(torch, gen, dev, b, h, w, iters, flat), case)
+
+    # 22. main path: the 96-frame multi-style depth-aware video call -------------------
+    vgg = weights.get_vgg_params(device=dev)
+    dec = weights.get_decoder_params(device=dev)
+    call = dict(target_resolution=(VIDEO_SIZE, VIDEO_SIZE), compute_dtype=torch.bfloat16,
+                use_depth=True, flow_method="tvl1", vgg_params=vgg, dec_params=dec, device=dev)
+    out_dir = VIDEO_WORK / "styled"
+    trace, adain_served = {}, {}
+
+    def by_shape(name):
+        return lambda a: (name, tuple(a[0].shape), a[0].dtype)
+
+    KT.reset_launch_counts()
+    KA.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _capture(VGG, "encode_head", adain_served, key=by_shape("encode_head")), \
+            _capture(DEC, "decode_tail", adain_served, key=by_shape("decode_tail")):
+        paths = video.apply_style_transfer_multi_ada(frames_dir, styles_dir, out_dir,
+                                                     trace=trace, **call)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    wall_s = time.perf_counter() - t0
+    launches = {**KT.launch_counts(), **KA.launch_counts()}
+    epe = _endpoint_error(np, trace["flows"])
+    emit("video_main", entry="aip_tpu_torch.pipelines.video.apply_style_transfer_multi_ada",
+         frames=len(paths), pngs_exist=all(p.is_file() for p in paths),
+         out_size=list(np.asarray(Image.open(paths[0])).shape), launches=launches,
+         flow_epe_px=epe, epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
+         stage_ms_first_call=trace["stage_ms"])
+    if not (len(paths) == VIDEO_FRAMES and all(p.is_file() for p in paths)):
+        raise AssertionError("the video call did not write every frame")
+    if not (launches["tvl1"] >= TVL1_FLOW_LAUNCHES and launches["encode_head"] > 0
+            and launches["decode_tail"] > 0):
+        raise AssertionError(f"a kernel of the video path was not launched: {launches}")
+    if not epe <= EPE_BOUND:
+        raise AssertionError(f"flows are {epe} px off the known step")
+    # The AdaIN kernels at the shapes this call gave them, with phase 3's rule.
+    adain = {"encode_head": (KA.encode_head, KA.encode_head_reference),
+             "decode_tail": (KA.decode_tail, KA.decode_tail_reference)}
+    for (name, _, _), (a, _) in adain_served.items():
+        _adain_check(torch, name, *adain[name], a[0], a[1:], "video served")
+    del adain_served
+
+    # 23. fast-stylizer path --------------------------------------------------------
+    fast_dir = VIDEO_WORK / "styled_fast"
+    magenta.use_magenta_stylizer(magenta.load_magenta_npz(DISTILLED, device=dev))
+    KT.reset_launch_counts()
+    fast_trace = {}
+    try:
+        fast = video.apply_style_transfer(frames_dir, styles_dir / "style_001.png", fast_dir,
+                                          target_resolution=(VIDEO_SIZE, VIDEO_SIZE),
+                                          device=dev, trace=fast_trace)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    by_name = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in TRAIN_SPANS:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_us = sum(us for us, _ in by_name.values())
-    stages = {name: 0.0 for name in TRAIN_SPANS}
-    stages.update({"kernel A": 0.0, "kernel B": 0.0, "kernel C": 0.0,
-                   "backward scatter-add": 0.0, "backward other": 0.0})
-    named = (("kernel A", "composite_ad_fwd"), ("kernel B", "composite_ad_bwd"),
-             ("kernel C", "hash_grad"))
+    finally:
+        video.register_fast_stylizer(None)
+    fast_launches = KT.launch_counts()
+    emit("video_fast_stylizer", entry="aip_tpu_torch.pipelines.video.apply_style_transfer",
+         checkpoint=str(DISTILLED.relative_to(ROOT)), frames=len(fast), launches=fast_launches,
+         flow_epe_px=_endpoint_error(np, fast_trace["flows"]),
+         stage_ms_first_call=fast_trace["stage_ms"])
+    if not (len(fast) == VIDEO_FRAMES and all(p.is_file() for p in fast)
+            and fast_launches["tvl1"] >= TVL1_FLOW_LAUNCHES):
+        raise AssertionError("the fast-stylizer video call failed")
 
-    def subtree_us(e):
-        """Device time of the kernels an op and its children launched,
-        kernels A, B and C left out (they are stages of their own)."""
-        own = sum(k.duration for k in e.kernels if not any(p in k.name for _, p in named))
-        return own + sum(subtree_us(c) for c in e.cpu_children)
+    # 24. card vs CPU, fp32, 6 frames at 64^2 --------------------------------------------
+    _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, dev)
 
-    node = "autograd::engine::evaluate_function: "
-    for e in events:
-        if e.device_type != DeviceType.CPU:
-            continue
-        if e.name in TRAIN_SPANS:
-            stages[e.name] += subtree_us(e)
-        elif e.name.startswith(node):
-            op = e.name[len(node):]
-            key = "backward scatter-add" if op.startswith("Index") else "backward other"
-            stages[key] += subtree_us(e)
-    for name, (us, _) in by_name.items():
-        for key, pat in named:
-            if pat in name:
-                stages[key] += us
-    ms = {k: v / 1e3 for k, v in stages.items()}
-    ms["rest"] = busy_us / 1e3 - sum(ms.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    measured = busy_us > 0 and stages["gs.project"] > 0
-    emit("train_profile", step=phase, wall_ms=wall_us / 1e3,
-         device_ms=busy_us / 1e3 if busy_us else "not measured",
-         device_busy_share=busy_us / wall_us if busy_us else "not measured",
-         stage_device_ms=ms if measured else "not measured",
-         kernels=[{"name": name[:100], "ms": us / 1e3, "launches": n} for name, (us, n) in top])
+    # 25. times ------------------------------------------------------------------------
+    walls, stage_runs = [], []
+    for _ in range(3):
+        run_trace = {}
+        t0 = time.perf_counter()
+        video.apply_style_transfer_multi_ada(frames_dir, styles_dir, out_dir, trace=run_trace,
+                                             **call)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        stage_runs.append(run_trace["stage_ms"])
+    wall = statistics.median(walls)
+    emit("video_time", frames=VIDEO_FRAMES, size=VIDEO_SIZE, dtype="bfloat16",
+         wall_s=walls, frames_per_s=VIDEO_FRAMES / wall,
+         stage_ms={k: statistics.median(r[k] for r in stage_runs) for k in stage_runs[0]},
+         stage_definition="CUDA events recorded at each stage's bounds, median of 3 calls")
+
+    per_level = {}
+    for hw, (a, _) in sorted(served.items()):
+        per_level[hw] = {"shape": list(a[0].shape),
+                         "ms_per_call": _time_many_ms(torch, lambda: KT.tvl1_inner(*a), 5, 1),
+                         "ms_per_call_single": _time_ms(torch, lambda: KT.tvl1_inner(*a), 3, 1)}
+    one = (*args[:7], 1, *args[8:])
+    ms_iter = _time_many_ms(torch, lambda: KT.tvl1_inner(*one), 300, 3)
+    plain_ms = _time_ms(torch, lambda: KT.tvl1_inner_reference(*args), 3, 1)
+    b, h, w = args[0].shape
+    iters = args[7]
+    flops = TVL1_PIXEL_ITER_FLOPS * b * h * w * iters
+    nbytes = TVL1_PIXEL_BYTES * b * h * w
+    t_comp, t_mem = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+    call_ms = per_level[VIDEO_SIZE]["ms_per_call"]
+    emit("tvl1_kernel_work", served_shape=[b, h, w], iters=iters, per_level=per_level,
+         ms_per_iteration_in_call=call_ms / iters, ms_per_iteration_one_iteration_calls=ms_iter,
+         launches_per_video_call=launches["tvl1"],
+         calls_per_video_call=launches["tvl1"] // iters, flops=flops, bytes=nbytes,
+         flow_stage_kernel_ms=sum(5 * v["ms_per_call"] for v in per_level.values()),
+         definition=("operations = 55 float32 per pixel and iteration (a division and a square "
+                     "root as one each) at 67 TFLOP/s (H100 SXM, CUDA cores); bytes = the ten "
+                     "[B,H,W] inputs read once and the six outputs written once, at 3.35 TB/s"),
+         library_ms_reason="no single PyTorch call runs a TV-L1 iteration")
+    _stage_profile(torch, "video_profile", lambda: video.apply_style_transfer_multi_ada(
+        frames_dir, styles_dir, out_dir, **call), VIDEO_STAGES, named=VIDEO_NAMED,
+        frames=VIDEO_FRAMES)
+    _video_cli(torch, np, Image, KT, styles_dir)
+    return [{"name": "tvl1", "route": "cuda", "source": "aip_tpu_torch/csrc/tvl1.cu",
+             "replaces": KERNELS["tvl1"][1], "launches": launches["tvl1"],
+             "max_abs_err": main_err, "ms": call_ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_comp, t_mem) * 1e3,
+             "bound_by": "operations" if t_comp >= t_mem else "bytes", "library_ms": None}]
+
+
+def _moving_texture(np, n, size, seed):
+    """n frames [size, size, 3] in [0, 1] of a smooth periodic texture
+    (Gaussian-filtered noise, sigma 2.5 px, by its spectrum) moved by
+    i * VIDEO_STEP at frame i, exactly, by a phase ramp: frame_i(x) =
+    T(x + i * step), so the flow from frame i to frame i+1 is -step."""
+    rng = np.random.default_rng(seed)
+    spec = np.fft.rfft2(rng.standard_normal((3, size, size)))
+    ky = np.fft.fftfreq(size)[:, None]
+    kx = np.fft.rfftfreq(size)[None, :]
+    spec = spec * np.exp(-(kx ** 2 + ky ** 2) * 2 * (math.pi * 2.5) ** 2)
+    ramp = np.exp(2j * math.pi * (kx * VIDEO_STEP[0] + ky * VIDEO_STEP[1]))
+    frames = np.stack([np.fft.irfft2(spec * ramp ** i, s=(size, size)) for i in range(n)])
+    frames = frames.transpose(0, 2, 3, 1)
+    return (frames - frames.min()) / (frames.max() - frames.min())
+
+
+def _write_images(np, Image, images, directory, prefix):
+    directory.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(images):
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            directory / f"{prefix}_{i:03d}.png")
+    return directory
+
+
+def _endpoint_error(np, flows):
+    """Mean endpoint error (px) of [N, H, W, 2] flows against -VIDEO_STEP,
+    EPE_MARGIN px in from the borders."""
+    c = EPE_MARGIN
+    inner = flows[:, c:-c, c:-c].float().cpu().numpy()
+    return float(np.linalg.norm(inner + np.asarray(VIDEO_STEP), axis=-1).mean())
+
+
+def _tvl1_random(torch, gen, dev, b, h, w, iters, flat):
+    """tvl1_inner arguments from ``gen``: the data term, warped gradients
+    (0 with ``flat``, so the safe branch runs), their squared norm, a flow
+    and dual fields under way; lambda 0.15, theta 0.3, tau 0.25."""
+    def f(s):
+        return torch.randn((b, h, w), generator=gen, device=dev) * s
+
+    gx, gy = (f(0.0), f(0.0)) if flat else (f(0.5), f(0.5))
+    return (f(0.1), gx, gy, gx * gx + gy * gy, f(0.5), f(0.5),
+            tuple(f(0.2) for _ in range(4)), iters, 0.15 * 0.3, 0.3, 0.25 / 0.3)
+
+
+def _tvl1_check(torch, KT, args, case):
+    """The kernel against the plain version on the card, the six outputs at
+    max abs <= TVL1_TOL. Returns the largest error."""
+    got = KT.tvl1_inner(*args)
+    torch.cuda.synchronize()
+    want = KT.tvl1_inner_reference(*args)
+    err = max((a - b).abs().max().item()
+              for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])))
+    emit("tvl1_vs_plain", case=case, shape=list(args[0].shape), iters=args[7],
+         max_abs_err=err, max_abs_u=max(want[0].abs().max().item(), want[1].abs().max().item()),
+         tol=TVL1_TOL)
+    if not err <= TVL1_TOL:
+        raise AssertionError(f"tvl1 ({case}) is {err} off its plain version")
+    return err
+
+
+def _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, card):
+    """Phase 24: 6 frames at 64^2 and 2 styles, the whole fp32 video call on
+    the card and on the CPU (the same weights): frames mean abs <= 1e-3 (as
+    8-bit images scaled to [0, 1]), flows mean abs <= 1e-4 px."""
+    root = VIDEO_WORK / "card_vs_cpu"
+    frames_dir = _write_images(np, Image, _moving_texture(np, 6, 64, 3), root / "frames", "f")
+    g = np.random.default_rng(4)
+    styles_dir = _write_images(np, Image, [g.random((64, 64, 3)), g.random((48, 64, 3))],
+                               root / "styles", "s")
+    res = {}
+    for dev, v, d in ((card, vgg, dec),
+                      ("cpu", weights.from_jax_params(_hwio(vgg), "cpu"),
+                       weights.from_jax_params(_hwio(dec), "cpu"))):
+        trace = {}
+        KT.reset_launch_counts()
+        paths = video.apply_style_transfer_multi_ada(
+            frames_dir, styles_dir, root / f"out_{torch.device(dev).type}",
+            target_resolution=(64, 64), compute_dtype=torch.float32, vgg_params=v,
+            dec_params=d, device=dev, trace=trace)
+        imgs = np.stack([np.asarray(Image.open(p), np.float64) for p in paths]) / 255.0
+        res[torch.device(dev).type] = (imgs, trace["flows"].cpu(), KT.launch_counts()["tvl1"])
+    (i_gpu, f_gpu, n_gpu), (i_cpu, f_cpu, n_cpu) = res["cuda"], res["cpu"]
+    img_err = np.abs(i_gpu - i_cpu)
+    flow_err = (f_gpu - f_cpu).abs()
+    emit("video_card_vs_cpu", frames=6, size=64, frames_mean_abs=float(img_err.mean()),
+         frames_max_abs=float(img_err.max()), flows_mean_abs_px=flow_err.mean().item(),
+         flows_max_abs_px=flow_err.max().item(), tol_frames_mean_abs=1e-3,
+         tol_flows_mean_abs_px=1e-4, tvl1_launches_on_card=n_gpu, tvl1_launches_on_cpu=n_cpu)
+    if not (img_err.mean() <= 1e-3 and flow_err.mean().item() <= 1e-4
+            and n_gpu >= TVL1_FLOW_LAUNCHES and n_cpu == 0):
+        raise AssertionError("the video call on the card disagrees with the CPU")
+
+
+VIDEO_STAGES = ("video.load", "video.depth", "video.stylize", "video.flows", "video.blend",
+                "video.save")
+# The ctypes-launched kernels' stages, by kernel name (_stage_profile).
+VIDEO_NAMED = (("video.flows", "tvl1_iter_kernel"), ("video.stylize", "encode_head_kernel"),
+               ("video.stylize", "decode_tail_kernel"))
+
+
+def _video_cli(torch, np, Image, KT, styles_dir):
+    """``cli.run_video.main`` on a 4-frame mp4, where cv2 imports."""
+    try:
+        import cv2
+    except ImportError:
+        emit("video_cli", ran=False,
+             reason="cv2 is not installed on this machine: the CLI's mp4 decode and encode "
+                    "need it; the video path ran through the pipeline functions above")
+        return
+    from aip_tpu_torch.cli import run_video
+
+    cli = VIDEO_WORK / "cli"
+    cli.mkdir(parents=True, exist_ok=True)
+    writer = cv2.VideoWriter(str(cli / "in.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 20,
+                             (VIDEO_SIZE, VIDEO_SIZE))
+    for img in _moving_texture(np, 4, VIDEO_SIZE, 5):
+        writer.write((img * 255).astype(np.uint8)[..., ::-1])
+    writer.release()
+    KT.reset_launch_counts()
+    out = run_video.main(["--video", str(cli / "in.mp4"), "--styles", str(styles_dir),
+                          "--output", str(cli / "out.mp4"), "--frames_dir", str(cli / "frames"),
+                          "--styled_dir", str(cli / "styled")])
+    torch.cuda.synchronize()
+    emit("video_cli", ran=True, entry="aip_tpu_torch.cli.run_video.main", output=out,
+         exists=Path(out).is_file(), launches=KT.launch_counts())
+    if not (Path(out).is_file() and KT.launch_counts()["tvl1"] >= TVL1_FLOW_LAUNCHES):
+        raise AssertionError("the video CLI wrote no video or launched no tvl1 kernel")
 
 
 if __name__ == "__main__":

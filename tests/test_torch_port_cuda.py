@@ -351,3 +351,78 @@ def test_train_step_on_the_card_launches_a_b_c_and_matches_the_cpu(cuda):
             got = opt_g.mu[name].cpu()
             assert float((got - ref).abs().max()) <= 1e-3 * max(float(ref.abs().max()), 1e-12), \
                 name
+
+
+# ---------------------------------------------------------------------------
+# TV-L1 primal-dual inner loop (kernels/tvl1.py)
+# ---------------------------------------------------------------------------
+
+def _tvl1_inputs(g, b, h, w, cuda, flat=False):
+    """The ten [B, H, W] fields of one warp: a linearised data term, warped
+    gradients, their squared norm (0 everywhere with ``flat``), a flow and
+    dual fields under way."""
+    f = lambda s: torch.from_numpy((g.standard_normal((b, h, w)) * s).astype(np.float32))  # noqa
+    gx, gy = (f(0.0), f(0.0)) if flat else (f(0.5), f(0.5))
+    args = [f(0.1), gx, gy, gx * gx + gy * gy, f(0.5), f(0.5)]
+    return [a.to(cuda) for a in args], tuple(f(0.2).to(cuda) for _ in range(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,iters,flat", [
+    ((3, 64, 96), 1, False), ((3, 64, 96), 30, False), ((2, 256, 256), 300, False),
+    ((2, 2, 9), 30, False), ((2, 11, 2), 30, False), ((1, 37, 45), 30, False),
+    ((2, 33, 40), 30, True), ((1, 16, 16), 0, False)])
+def test_tvl1_kernel_matches_plain(cuda, shape, iters, flat):
+    """tvl1_inner against tvl1_inner_reference on the card. Both round every
+    operation alike (the kernel with _rn intrinsics in the plain version's
+    order), so they agree to 1e-5 absolute even after 300 iterations."""
+    from aip_tpu_torch.kernels import tvl1 as KT
+
+    g = np.random.default_rng(9)
+    args, p = _tvl1_inputs(g, *shape, cuda, flat)
+    consts = (iters, 0.15 * 0.3, 0.3, 0.25 / 0.3)
+    KT.reset_launch_counts()
+    got = KT.tvl1_inner(*args, p, *consts)
+    torch.cuda.synchronize()
+    assert KT.launch_counts() == {"tvl1": iters}       # one launch an iteration
+    want = KT.tvl1_inner_reference(*args, p, *consts)
+    for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert a.shape == b.shape == shape
+        assert float((a - b).abs().max()) <= 1e-5
+    for a, b in zip(args[4:] + list(p), (got[0], got[1], *got[2])):   # inputs untouched
+        assert a.data_ptr() != b.data_ptr()
+
+
+@pytest.mark.cuda
+def test_tvl1_flow_on_the_card_matches_the_cpu(cuda):
+    """estimate_flow_tvl1 on the card (kernel) and on the CPU (plain
+    version) for a batch of 3 pairs at 48^2: mean abs <= 1e-4 px."""
+    from aip_tpu_torch.kernels import tvl1 as KT
+    from aip_tpu_torch.ops.flow import estimate_flow_tvl1
+
+    g = np.random.default_rng(10)
+    a = torch.from_numpy(g.random((3, 48, 48, 3)).astype(np.float32))
+    b = torch.roll(a, shifts=(1, 1), dims=(1, 2))
+    KT.reset_launch_counts()
+    on_card = estimate_flow_tvl1(a.to(cuda), b.to(cuda), iters=50).cpu()
+    assert KT.launch_counts() == {"tvl1": 4 * 5 * 50}  # levels x warps x iterations
+    on_cpu = estimate_flow_tvl1(a, b, iters=50)
+    assert float((on_card - on_cpu).abs().mean()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_tvl1_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from aip_tpu_torch.kernels import tvl1 as KT
+
+    args, p = _tvl1_inputs(np.random.default_rng(11), 1, 8, 8, cuda)
+    consts = (3, 0.045, 0.3, 0.8)
+    with pytest.raises(TypeError):
+        KT.tvl1_inner(*args[:5], args[5].double(), p, *consts)
+    with pytest.raises(ValueError):
+        KT.tvl1_inner(*args[:5], args[5][:, :4], p, *consts)
+    with pytest.raises(ValueError):
+        KT.tvl1_inner(*args[:5], args[5].cpu(), p, *consts)
+    with pytest.raises(ValueError):
+        KT.tvl1_inner(*args[:5], args[5].transpose(1, 2), p, *consts)
+    with pytest.raises(ValueError):
+        KT.tvl1_inner(*args, p[:3], *consts)

@@ -55,7 +55,11 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.gs.render", "aip_tpu_torch.runtime.bitcodec",
                  "aip_tpu_torch.kernels.composite_ad", "aip_tpu_torch.kernels.hashgrad",
                  "aip_tpu_torch.gs.train", "aip_tpu_torch.gs.checkpoint",
-                 "aip_tpu_torch.cli.run_3dgs", "aip_tpu_torch.config"):
+                 "aip_tpu_torch.cli.run_3dgs", "aip_tpu_torch.config",
+                 "aip_tpu_torch.kernels.tvl1", "aip_tpu_torch.ops.flow",
+                 "aip_tpu_torch.ops.farneback", "aip_tpu_torch.pipelines.video",
+                 "aip_tpu_torch.models.magenta", "aip_tpu_torch.models.mobilenet",
+                 "aip_tpu_torch.cli.run_video", "aip_tpu_torch.cli.adain_video"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
