@@ -1,8 +1,9 @@
-"""Stylized 3D Gaussian Splatting, inference: port of ``aip_tpu.gs``.
+"""Stylized 3D Gaussian Splatting: port of ``aip_tpu.gs``.
 
-Scene IO (Blender / COLMAP readers, cameras; host numpy, copied), the
-compressed model loader, the neural colour field, the rasterizer with the
-two macro-block CUDA compositors, the render wrappers and
-``pipeline.run_3dgs_rendering``. Training, the save path and the other
-renderers come with later slices (ROADMAP queue 1).
+Scene IO (Blender / COLMAP readers, cameras, novel-view pose paths; host
+numpy, copied), the compressed model's load and save paths, the neural
+colour field, the rasterizer with its five CUDA compositors, the render
+wrappers, training, ``pipeline.run_3dgs_rendering`` and the novel-view
+video renderer (``render_video``). Multi-GPU rendering and training come
+with a later slice (ROADMAP queue 1).
 """

@@ -15,11 +15,20 @@ radius, the opacity-aware selection extent, and two renderers:
   Function's plain versions. ``screenspace_offset`` is added to the
   projected means so callers read dL/d mean2d from its gradient;
 * ``rasterize_matmul`` (:1055), inference: (block, depth) pair-sort
-  selection into macro blocks (``select_macro_pairsort``), then either the
-  plain ``composite_raw_blocks`` (backend ``"matmul"``) or one of the two
-  hand-written CUDA compositors of ``kernels/composite.py`` (backend
-  ``"mxu"``): the segment walk when the pair table is small enough, else
-  the windowed walk, by the JAX package's own static rule.
+  selection into macro blocks (``select_macro_pairsort``), then the plain
+  ``composite_raw_blocks`` (backend ``"matmul"``), one of the two packed-row
+  compositors of ``kernels/composite.py`` (backend ``"mxu"``: the segment
+  walk when the pair table is small enough, else the windowed walk, by the
+  JAX package's own static rule), or the coefficient walk
+  ``composite_macro_blocks`` on the windowed selection (backend
+  ``"pallas"``, through ``_macro_coeffs``);
+* ``rasterize_fused`` (:1134), inference: macro-block selection, then
+  ``composite_from_macro``, each 16 px tile walking its block's list;
+* ``rasterize_fast`` (:1181), inference: the per-tile selection of
+  ``rasterize``, then ``composite_tiles`` (``composite_tiles_fast``).
+
+Every compositor wrapper launches its CUDA kernel on a CUDA tensor and
+runs its plain version on a CPU tensor.
 
 Selection order is the selection: the pair sort is ``torch.sort(...,
 stable=True)`` on the same packed int32 key the JAX package sorts with the
@@ -28,15 +37,11 @@ depth quantisation is float32 arithmetic truncated toward zero, so equal
 quantised depths composite in the same order in both packages. Top-k
 merges are stable sorts (ties to the lower index, as ``lax.top_k``).
 
-``rasterize_matmul`` names its stages for ``torch.profiler`` with
-``record_function`` spans: ``gs.project``, ``gs.select`` (pair emission
-and sort), ``gs.gather`` (packed-table gather) and ``gs.composite`` (the
-compositor kernel); ``rasterize`` uses the same four names.
-``chip_smoke.py``'s breakdowns read them.
-
-``composite_backend="pallas"``, ``rasterize_fused`` and ``rasterize_fast``
-raise ``NotImplementedError``: they come with slice 2b of the port
-(ROADMAP queue 1), with the other three compositor kernels.
+Every renderer names its stages for ``torch.profiler`` with
+``record_function`` spans: ``gs.project``, ``gs.select`` (selection),
+``gs.gather`` (gathers of the selected attributes, and the coefficients of
+``"pallas"``) and ``gs.composite`` (the compositor). ``chip_smoke.py``'s
+breakdowns read them.
 """
 
 from __future__ import annotations
@@ -51,9 +56,6 @@ from aip_tpu_torch.kernels import composite as K
 from aip_tpu_torch.kernels import composite_ad as KAD
 
 TILE = 16
-
-_NEXT_SLICE = ("comes with slice 2b of the port (the per-tile and macro-walk inference "
-               "compositor kernels; ROADMAP queue 1)")
 
 
 class RasterSettings(NamedTuple):
@@ -553,6 +555,21 @@ def _tiles_to_image(tiles, settings: RasterSettings):
     return img.reshape(th * TILE, tw * TILE, 3)[: settings.image_height, : settings.image_width]
 
 
+def composite_tiles_fast(sel_idx, mean2d, conics, colors, opacities, bg_color,
+                         settings: RasterSettings):
+    """Inference composite of the per-tile lists through ``composite_tiles``
+    (not differentiable): each tile's slots gathered, then walked. Returns
+    the [H, W, 3] image."""
+    _, tw = _tile_grid(settings)
+    with record_function("gs.gather"):
+        safe = torch.clamp(sel_idx, min=0).long()
+        slot_valid = (sel_idx >= 0).to(torch.float32)
+        gathered = [t.to(torch.float32)[safe] for t in (mean2d, conics, colors, opacities)]
+    with record_function("gs.composite"):
+        tiles = K.composite_tiles(*gathered, slot_valid, bg_color, tw)
+    return _tiles_to_image(tiles, settings)
+
+
 def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmatrix,
               bg_color, settings: RasterSettings, tanfovx=1.0, tanfovy=1.0,
               scale_modifier=1.0, screenspace_offset=None):
@@ -645,12 +662,58 @@ def _composite_macro_mxu(macro_idx, mean2d, conics, colors, opacities, bg_color,
     return _planes_to_image(planes, mth, mtw, bs)
 
 
+def _macro_coeffs(macro_idx, mean2d, conics, colors, opacities, n_blocks, mtw, bs):
+    """Per-candidate quadratic log-density coefficients ``[c0, cx, cy, cxx,
+    cyy, cxy]`` in block-local pixel coordinates, in the JAX package's
+    float32 expression order, with the gathered colours, the opacities (0 in
+    empty slots) and each block's valid count."""
+    valid = macro_idx >= 0
+    safe = torch.clamp(macro_idx, min=0).long()
+    gm, gc, gcol = mean2d[safe], conics[safe], colors[safe]
+    gop = torch.where(valid, opacities[safe], torch.zeros((), device=mean2d.device))
+    blocks = torch.arange(n_blocks, device=mean2d.device)
+    bx0 = ((blocks % mtw) * bs).to(torch.float32)
+    by0 = ((blocks // mtw) * bs).to(torch.float32)
+    mx = gm[..., 0] - bx0[:, None]
+    my = gm[..., 1] - by0[:, None]
+    ca, cb, cc = gc[..., 0], gc[..., 1], gc[..., 2]
+    coeff = torch.stack([
+        -0.5 * (ca * mx * mx + cc * my * my) - cb * mx * my,
+        ca * mx + cb * my,
+        cc * my + cb * mx,
+        -0.5 * ca,
+        -0.5 * cc,
+        -cb,
+    ], dim=-1)                                                  # [M, Kc, 6]
+    return coeff, gcol, gop, valid.sum(dim=1).to(torch.int32)
+
+
+def _composite_macro_pallas(macro_idx, mean2d, conics, colors, opacities, bg_color, m, mth,
+                            mtw):
+    """Macro-block composite through the coefficient walk: the coefficients
+    packed with the opacity as ``[M, Kc, 8]``, the colours as ``[M, Kc,
+    4]``; valid slots are a prefix of each block's list."""
+    bs = m * TILE
+    with record_function("gs.gather"):
+        coeff, gcol, gop, counts = _macro_coeffs(macro_idx, mean2d, conics, colors, opacities,
+                                                 mth * mtw, mtw, bs)
+        zero = torch.zeros_like(gop[..., None])
+        coeff8 = torch.cat([coeff, gop[..., None], zero], dim=-1)
+        col4 = torch.cat([gcol, zero], dim=-1)
+    with record_function("gs.composite"):
+        planes = K.composite_macro_blocks(coeff8, col4, counts, bg_color, bs=bs)
+    return _planes_to_image(planes, mth, mtw, bs)
+
+
 # Seg-vs-windowed crossover, kept as the JAX package's static dispatch rule
 # so that both packages take the same branch for a configuration: the
 # segment path while the pair table has at most 3x the windowed volume
 # (blocks x capacity) of rows, else the windowed path. Not re-tuned for
 # this card.
 _SEG_SLOT_RATIO = 3.0
+
+_MACRO_COMPOSITES = {"mxu": _composite_macro_mxu, "pallas": _composite_macro_pallas,
+                     "matmul": _composite_macro_matmul}
 
 
 def _pairsort_slots(n: int, settings: RasterSettings, mth: int, mtw: int) -> int:
@@ -697,13 +760,16 @@ def rasterize_matmul(means3d, scales, rotations, opacities, colors, viewmatrix, 
                      bg_color, settings: RasterSettings, tanfovx=1.0, tanfovy=1.0,
                      scale_modifier=1.0):
     """Inference rasterization with macro-block compositing. Requires
-    settings.macro > 1. Backend ``"mxu"`` runs the CUDA compositors on CUDA
+    settings.macro > 1. Backends ``"mxu"`` (the packed-row walks) and
+    ``"pallas"`` (the coefficient walk) run their CUDA compositors on CUDA
     tensors (their plain versions on CPU tensors); ``"matmul"`` runs the
-    plain composite everywhere. Returns (image [H, W, 3], radii [N])."""
+    plain composite everywhere; any other name raises ValueError. Returns
+    (image [H, W, 3], radii [N])."""
     assert settings.macro > 1, "rasterize_matmul requires hierarchical settings"
-    if settings.composite_backend not in ("mxu", "matmul"):
-        raise NotImplementedError(
-            f"composite_backend={settings.composite_backend!r} {_NEXT_SLICE}")
+    composite = _MACRO_COMPOSITES.get(settings.composite_backend)
+    if composite is None:
+        raise ValueError(f"composite_backend must be one of {sorted(_MACRO_COMPOSITES)}, "
+                         f"got {settings.composite_backend!r}")
     with record_function("gs.project"):
         mean2d, depths, conics, radii, valid = project_gaussians(
             means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
@@ -725,15 +791,55 @@ def rasterize_matmul(means3d, scales, rotations, opacities, colors, viewmatrix, 
         return img[: settings.image_height, : settings.image_width], radii
     with record_function("gs.select"):
         macro_idx, _ = _macro_select(mean2d, depths, radii_sel, valid, settings, mth, mtw)
-    composite = _composite_macro_mxu if settings.composite_backend == "mxu" \
-        else _composite_macro_matmul
     img = composite(macro_idx, mean2d, conics, colors, opacities, bg, m, mth, mtw)
     return img[: settings.image_height, : settings.image_width], radii
 
 
-def rasterize_fused(*args, **kwargs):
-    raise NotImplementedError(f"rasterize_fused (composite_from_macro) {_NEXT_SLICE}")
+@torch.no_grad()
+def rasterize_fused(means3d, scales, rotations, opacities, colors, viewmatrix, projmatrix,
+                    bg_color, settings: RasterSettings, tanfovx=1.0, tanfovy=1.0,
+                    scale_modifier=1.0):
+    """Inference rasterization that fuses the per-tile refinement into the
+    walk: macro-block selection, then ``composite_from_macro``, each 16 px
+    tile walking its block's depth-sorted list (non-overlapping splats drop
+    out at the 1/255 cutoff). Requires settings.macro > 1. Returns (image
+    [H, W, 3], radii [N])."""
+    assert settings.macro > 1, "rasterize_fused requires hierarchical settings"
+    with record_function("gs.project"):
+        mean2d, depths, conics, radii, valid = project_gaussians(
+            means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
+            settings, scale_modifier)
+        opacities = opacities.to(torch.float32)
+        valid = valid & (opacities > (1.0 / 255.0))
+        radii_sel = cull_radii(radii, opacities, settings)
+    th, tw = _tile_grid(settings)
+    m = settings.macro
+    mth, mtw = math.ceil(th / m), math.ceil(tw / m)
+    with record_function("gs.select"):
+        macro_idx, _ = _macro_select(mean2d, depths, radii_sel, valid, settings, mth, mtw)
+    with record_function("gs.gather"):
+        safe = torch.clamp(macro_idx, min=0).long()
+        slot_valid = (macro_idx >= 0).to(torch.float32)
+        gathered = [t.to(torch.float32)[safe] for t in (mean2d, conics, colors, opacities)]
+    with record_function("gs.composite"):
+        tiles = K.composite_from_macro(*gathered, slot_valid, bg_color, n_tiles=th * tw,
+                                       tile_w=tw, macro=m, macro_tile_w=mtw)
+    return _tiles_to_image(tiles, settings), radii
 
 
-def rasterize_fast(*args, **kwargs):
-    raise NotImplementedError(f"rasterize_fast (composite_tiles kernel) {_NEXT_SLICE}")
+@torch.no_grad()
+def rasterize_fast(means3d, scales, rotations, opacities, colors, viewmatrix, projmatrix,
+                   bg_color, settings: RasterSettings, tanfovx=1.0, tanfovy=1.0,
+                   scale_modifier=1.0):
+    """Inference rasterization with the per-tile compositor: the selection
+    of ``rasterize`` (flat, or hierarchical when settings.macro > 1), then
+    ``composite_tiles_fast``. The same image as ``rasterize``; not
+    differentiable. Returns (image [H, W, 3], radii [N])."""
+    with record_function("gs.project"):
+        mean2d, depths, conics, radii, valid = project_gaussians(
+            means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
+            settings, scale_modifier)
+    with record_function("gs.select"):
+        sel_idx, _ = _select(mean2d, depths, radii, valid, settings, opacities=opacities)
+    img = composite_tiles_fast(sel_idx, mean2d, conics, colors, opacities, bg_color, settings)
+    return img, radii

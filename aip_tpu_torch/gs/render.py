@@ -13,9 +13,10 @@ each frame runs the view-dependent SH evaluation and ``rasterize_matmul``.
 ``fit_selection`` is the JAX package's host-side fit, copied, on top of the
 port's ``project_gaussians``.
 
-``renderer="pallas"`` in inference mode (training modes rasterize, as in
-the JAX package) and ``mesh`` raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+In inference mode ``renderer="pallas"`` (or ``"auto"`` with
+``use_pallas=True``) takes ``rasterize_fast``, the per-tile compositor;
+training modes always rasterize, as in the JAX package. ``mesh`` raises
+``NotImplementedError`` naming the multi-GPU slice of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from aip_tpu_torch.gs import gaussians as G
 from aip_tpu_torch.gs import rvq as rvq_mod
 from aip_tpu_torch.gs.colorfield import ColorFieldParams, predict_sh
 from aip_tpu_torch.gs.rasterizer import (TILE, RasterSettings, project_gaussians, rasterize,
-                                         rasterize_matmul, selection_radii)
+                                         rasterize_fast, rasterize_matmul, selection_radii)
 from aip_tpu_torch.ops.sh import eval_sh
 
 
@@ -244,8 +245,9 @@ def make_inference_frame_fn(state: G.GaussianState, field: ColorFieldParams | No
     coefficients and the activations are computed here, once; the returned
     ``frame(vm, pm, campos, tanfovx, tanfovy) -> [H, W, 3]`` evaluates the
     view-dependent colour and runs ``rasterize_matmul`` (macro 4 and the
-    ``"mxu"`` compositors unless the settings already name a macro grid).
-    Tensors live on the state's device."""
+    ``"mxu"`` compositors unless the settings already name a macro grid,
+    whose ``composite_backend`` is then kept: ``"pallas"`` takes the
+    coefficient walk). Tensors live on the state's device."""
     if settings.macro <= 1:
         settings = settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
                                      composite_backend="mxu")
@@ -285,20 +287,19 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
            sh_override: torch.Tensor | None = None, mesh=None,
            mesh_axis: str = "dp") -> RenderOutput:
     """One view. ``mode`` is ``"train"``, ``"train_rvq"`` or ``"inference"``;
-    renderer ``auto`` takes ``matmul`` for inference from 512^2 up, else
-    ``xla`` (the differentiable ``rasterize``). The camera is a Camera, or
-    any object with tensor ``world_view_transform``, ``full_proj_transform``
-    and ``camera_center`` when ``settings`` and the tangents are given.
-    Tensors live on the state's device."""
+    renderer ``auto`` takes ``pallas`` when ``use_pallas``, else ``matmul``
+    for inference from 512^2 up, else ``xla`` (the differentiable
+    ``rasterize``). In inference ``pallas`` is ``rasterize_fast``. The
+    camera is a Camera, or any object with tensor ``world_view_transform``,
+    ``full_proj_transform`` and ``camera_center`` when ``settings`` and the
+    tangents are given. Tensors live on the state's device."""
     if mode not in ("train", "train_rvq", "inference"):
         raise ValueError(f"unknown render mode {mode!r}")
     if mesh is not None:
         raise NotImplementedError(
             "render(mesh=...) is the multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
-    if (use_pallas or renderer == "pallas") and mode == "inference":
-        raise NotImplementedError(
-            "render(renderer='pallas') comes with slice 2b of the port (the per-tile "
-            "inference compositor kernel; ROADMAP queue 1)")
+    if renderer == "auto" and use_pallas:
+        renderer = "pallas"
     if mode == "inference":
         with torch.no_grad():
             return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
@@ -359,6 +360,10 @@ def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
         img, radii = rasterize_matmul(xyz, scales, rotations, opacity, colors, vm, pm, bg,
                                       settings, tanfovx=tanfovx, tanfovy=tanfovy,
                                       scale_modifier=scaling_modifier)
+    elif renderer == "pallas" and mode == "inference":
+        img, radii = rasterize_fast(xyz, scales, rotations, opacity, colors, vm, pm, bg,
+                                    settings, tanfovx=tanfovx, tanfovy=tanfovy,
+                                    scale_modifier=scaling_modifier)
     elif renderer in ("xla", "matmul", "pallas"):   # training always rasterizes
         img, radii = rasterize(xyz, scales, rotations, opacity, colors, vm, pm, bg, settings,
                                tanfovx=tanfovx, tanfovy=tanfovy,

@@ -1,14 +1,16 @@
-"""Macro-block Gaussian compositors: wrappers and plain versions.
+"""Gaussian compositors of the inference render: wrappers and plain versions.
 
-Port of ``aip_tpu/ops/pallas/composite.py``'s two compositors on the
-inference render path. The CUDA kernels are in
-``aip_tpu_torch/csrc/composite.cu`` (its header note says what bounds them
-on the H100 and how they are laid out). Here:
+Port of the five compositors of ``aip_tpu/ops/pallas/composite.py``. The
+CUDA kernels are in ``aip_tpu_torch/csrc/composite.cu`` (the two macro-block
+walks on packed rows) and ``aip_tpu_torch/csrc/composite_walk.cu`` (the
+per-tile walk, the fused macro-to-tile walk and the coefficient walk); the
+header note of each says what bounds its kernels on the H100 and how they
+are laid out. Every wrapper launches its kernel for a CUDA tensor or
+raises, runs its plain version for a CPU tensor, and counts its launches
+in ``.launches``. Here:
 
 * ``composite_macro_mxu_seg`` (replaces ``composite_macro_mxu_seg_pallas``)
-  and ``composite_macro_mxu`` (replaces ``composite_macro_mxu_pallas``):
-  for a CUDA tensor each launches its kernel or raises; for a CPU tensor
-  it runs its plain version. Each counts its launches in ``.launches``.
+  and ``composite_macro_mxu`` (replaces ``composite_macro_mxu_pallas``);
 * ``composite_macro_mxu_reference``: the windowed composite in plain
   torch, ``composite_raw_blocks``'s math (transmittance as
   ``exp(cumsum(log1p(-alpha)))``), over chunks of blocks so the
@@ -19,11 +21,32 @@ on the H100 and how they are laid out). Here:
 * ``composite_macro_mxu_seg_reference``: gathers each segment into a
   window and calls the windowed reference;
 * ``walked_rows``: the rows the kernels walk before their early exit, as
-  the plain version counts them (the work behind the kernels' bound).
+  the plain version counts them (the work behind the kernels' bound);
+* ``composite_tiles`` (replaces ``composite_tiles_pallas``) and
+  ``composite_from_macro`` (replaces ``composite_from_macro_pallas``): the
+  per-tile front-to-back walk of the TPU kernels' shared body
+  (``_make_kernel``) over gathered slots, of the tile's own ``[T, K]`` list
+  or of its macro block's ``[M, Kc]`` list. No early exit: the
+  transmittance keeps falling after 1e-4 and weights the background, as in
+  the JAX package. Plain versions ``composite_tiles_reference`` and
+  ``composite_from_macro_reference``, both kernel A's plain forward
+  (``composite_ad_fwd_reference``) without its final transmittance. The
+  kernels find the end of each list's valid slots themselves;
+* ``composite_macro_blocks`` (replaces ``composite_macro_blocks_pallas``):
+  per macro block, the walk on quadratic coefficients ``[c0, cx, cy, cxx,
+  cyy, cxy, opacity, 0]`` in block-local pixel coordinates, evaluated left
+  to right as the TPU kernel does, bounded by the block's count and left
+  at the first 32-row group start where no pixel of the block has T >
+  1e-4. Plain version ``composite_macro_blocks_reference``.
 
-Rows are ``[mx, my, conic a, b, c, log(opacity), r, g, b, pad x7]``
-(``gs.rasterizer.pack_raw_table``). Outputs are ``[M, 3, 1, bs*bs]``
-planes, pixel (y, x) of block m at ``[m, c, 0, y * bs + x]``.
+The plain walks repeat the kernels' float32 operations one by one in the
+same order, so on the card the two agree bit for bit.
+
+Rows of the packed walks are ``[mx, my, conic a, b, c, log(opacity), r, g,
+b, pad x7]`` (``gs.rasterizer.pack_raw_table``). Macro-block outputs are
+``[M, 3, 1, bs*bs]`` planes, pixel (y, x) of block m at ``[m, c, 0, y * bs
++ x]``; per-tile outputs are ``[T, 3, 16, 16]``, tile t's origin at ((t %
+tile_w) * 16, (t // tile_w) * 16).
 """
 
 from __future__ import annotations
@@ -34,10 +57,12 @@ import functools
 import torch
 
 from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels.composite_ad import TILE, composite_ad_fwd_reference
 
 GROUP = 64            # rows per early-exit check, as in the kernels
 BLOCK_SIZES = (16, 32, 64)
 T_CUTOFF = 1e-4
+WALK_GROUP = 32       # composite_macro_blocks' rows per early-exit test
 
 
 @functools.cache
@@ -48,6 +73,19 @@ def _lib() -> ctypes.CDLL:
     lib.aip_composite_window.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.aip_composite_segment.restype = ctypes.c_int
     lib.aip_composite_window.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _walk_lib() -> ctypes.CDLL:
+    lib = library("composite_walk")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.aip_composite_tiles.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.aip_composite_from_macro.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.aip_composite_macro_blocks.argtypes = [p, p, p, p, p, i, i, i, p]
+    for fn in (lib.aip_composite_tiles, lib.aip_composite_from_macro,
+               lib.aip_composite_macro_blocks):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -147,6 +185,103 @@ def walked_rows(raw, counts, bg_color, bs: int, mtw: int, chunk_bytes: int = 1 <
     return int(_windowed(raw, counts, bg_color, bs, mtw, 0, chunk_bytes)[1].sum())
 
 
+def valid_ends(valid):
+    """One past the last valid slot of each row of ``valid`` [R, K] (0 for
+    a row with none), int32 [R]. Slots past it have alpha 0 and change
+    nothing, so a walk may stop there exactly."""
+    r, k = valid.shape
+    if k == 0:
+        return torch.zeros(r, dtype=torch.int32, device=valid.device)
+    pos = torch.arange(1, k + 1, dtype=torch.int32, device=valid.device)
+    return torch.where(valid > 0, pos, torch.zeros((), dtype=torch.int32,
+                                                   device=valid.device)).amax(1)
+
+
+def composite_tiles_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
+                              tile_w: int):
+    """Plain per-tile walk: mean [T, K, 2], conic [T, K, 3], colour [T, K,
+    3], opacity [T, K], valid [T, K] -> [T, 3, 16, 16]. The TPU kernels'
+    walk is kernel A's forward without its final transmittance, so this is
+    ``composite_ad_fwd_reference`` over the slots up to the last valid one
+    (later slots have alpha 0 and change nothing)."""
+    n = int(valid_ends(slot_valid).max()) if g_mean.shape[0] else 0
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=g_mean.device)
+    cols = [t[:, :n].float() for t in (g_mean, g_conic, g_color, g_op[..., None],
+                                        slot_valid[..., None])]
+    return composite_ad_fwd_reference(*cols, bg, tile_w)[0]
+
+
+def macro_of_tile(n_tiles: int, tile_w: int, macro: int, macro_tile_w: int, device=None):
+    """The macro block of each 16 px tile, as the TPU kernel's index map
+    (``composite_from_macro_pallas``'s ``macro_of``)."""
+    i = torch.arange(n_tiles, device=device)
+    return (i // tile_w // macro) * macro_tile_w + (i % tile_w) // macro
+
+
+def composite_from_macro_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
+                                   n_tiles: int, tile_w: int, macro: int, macro_tile_w: int):
+    """Plain fused walk: each of the n_tiles tiles walks its macro block's
+    list, mean [M, Kc, 2], conic [M, Kc, 3], colour [M, Kc, 3], opacity [M,
+    Kc], valid [M, Kc] -> [n_tiles, 3, 16, 16]: the per-tile walk on the
+    rows gathered by ``macro_of_tile``."""
+    rows = macro_of_tile(n_tiles, tile_w, macro, macro_tile_w, g_mean.device)
+    n = int(valid_ends(slot_valid).max()) if g_mean.shape[0] else 0
+    gathered = [t[:, :n][rows] for t in (g_mean, g_conic, g_color, g_op, slot_valid)]
+    return composite_tiles_reference(*gathered, bg_color, tile_w)
+
+
+def composite_macro_blocks_reference(coeff, colors, counts, bg_color, bs: int):
+    """Plain coefficient walk: coeff [M, Kc, 8] (``[c0, cx, cy, cxx, cyy,
+    cxy, opacity, 0]`` in block-local pixel coordinates), colours [M, Kc, 4]
+    (rgb, pad), counts [M] (valid rows are a prefix, clipped to Kc) ->
+    [M, 3, 1, bs*bs]. Rows are walked in groups of 32; a block stops at the
+    first group start where none of its bs*bs pixels has T > 1e-4."""
+    return _macro_blocks_walk(coeff, colors, counts, bg_color, bs)[0]
+
+
+def blocks_walked_rows(coeff, colors, counts, bs: int) -> int:
+    """Rows the coefficient walk evaluates, summed over blocks: each block's
+    count, or fewer when it leaves at a group start (the work behind the
+    kernel's bound, bs^2 pixels a row)."""
+    return int(_macro_blocks_walk(coeff, colors, counts, (0.0, 0.0, 0.0), bs)[1].sum())
+
+
+def _macro_blocks_walk(coeff, colors, counts, bg_color, bs):
+    """The coefficient walk: ([M, 3, 1, bs*bs] planes, [M] rows walked)."""
+    m, kc, _ = coeff.shape
+    dev = coeff.device
+    flat = torch.arange(bs * bs, device=dev)
+    px = (flat % bs).float()[None]
+    py = (flat // bs).float()[None]
+    bxx, byy, bxy = px * px, py * py, px * py
+    counts = counts.long().clamp(0, kc)
+    walked = torch.zeros_like(counts)
+    zero = torch.zeros((), device=dev)
+    trans = torch.ones((m, bs * bs), device=dev)
+    r, g, b = torch.zeros_like(trans), torch.zeros_like(trans), torch.zeros_like(trans)
+    for g0 in range(0, int(counts.max()) if m else 0, WALK_GROUP):
+        live = (g0 < counts) & (trans.amax(1) > T_CUTOFF)
+        if not bool(live.any()):   # neither test can become true again
+            break
+        walked += torch.where(live, torch.clamp(counts - g0, max=WALK_GROUP), 0)
+        for i in range(g0, min(g0 + WALK_GROUP, kc)):
+            ok = (live & (i < counts))[:, None]
+            c = coeff[:, i].float()
+            power = (c[:, 0:1] + c[:, 1:2] * px + c[:, 2:3] * py + c[:, 3:4] * bxx
+                     + c[:, 4:5] * byy + c[:, 5:6] * bxy)
+            alpha = torch.clamp(c[:, 6:7] * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+            alpha = torch.where(ok & (alpha >= 1.0 / 255.0), alpha, zero)
+            contrib = torch.where(trans > T_CUTOFF, alpha * trans, zero)
+            col = colors[:, i].float()
+            r = r + contrib * col[:, 0:1]
+            g = g + contrib * col[:, 1:2]
+            b = b + contrib * col[:, 2:3]
+            trans = trans * (1.0 - alpha)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    out = torch.stack([r + trans * bg[0], g + trans * bg[1], b + trans * bg[2]], dim=1)
+    return out[:, :, None, :], walked
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -232,15 +367,115 @@ def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int):
     return out
 
 
-composite_macro_mxu_seg.launches = 0
-composite_macro_mxu.launches = 0
+def _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg):
+    """The gathered slot arrays of the per-tile walks: float32, contiguous,
+    on one card, [R, K, 2/3/3] and [R, K]. Returns (R, K)."""
+    rows, k = g_mean.shape[:2]
+    for t, name, shape in ((g_mean, "mean", (rows, k, 2)), (g_conic, "conic", (rows, k, 3)),
+                           (g_color, "color", (rows, k, 3)), (g_op, "opacity", (rows, k)),
+                           (slot_valid, "valid", (rows, k))):
+        _check(t, name, torch.float32, len(shape), g_mean.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    _check(bg, "bg_color", torch.float32, 1, g_mean.device)
+    if bg.shape[0] != 3:
+        raise ValueError(f"bg_color must be [3], got {tuple(bg.shape)}")
+    return rows, k
+
+
+def _slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid):
+    return tuple(t.data_ptr() for t in (g_mean, g_conic, g_color, g_op, slot_valid))
+
+
+def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w: int):
+    """Per-tile walk (replaces ``composite_tiles_pallas``): each tile walks
+    its own K gathered slots. mean [T, K, 2], conic [T, K, 3], colour [T, K,
+    3], opacity [T, K], valid [T, K] (1.0 where the slot holds a Gaussian),
+    all float32. Returns [T, 3, 16, 16] float32."""
+    if g_mean.device.type == "cpu":
+        return composite_tiles_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
+                                         tile_w)
+    dev = g_mean.device
+    bg = _bg(bg_color, dev)
+    n_tiles, k = _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg)
+    out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=dev)
+    if n_tiles:
+        _launch(_walk_lib().aip_composite_tiles, dev,
+                (*_slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid), bg.data_ptr(),
+                 out.data_ptr(), n_tiles, k, tile_w))
+        composite_tiles.launches += 1
+    return out
+
+
+def composite_from_macro(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, n_tiles: int,
+                         tile_w: int, macro: int, macro_tile_w: int):
+    """Fused macro-to-tile walk (replaces ``composite_from_macro_pallas``):
+    each of the n_tiles 16 px tiles walks its macro block's depth-sorted
+    list (``macro_of_tile``). mean [M, Kc, 2], conic [M, Kc, 3], colour [M,
+    Kc, 3], opacity [M, Kc], valid [M, Kc], all float32. Returns [n_tiles,
+    3, 16, 16] float32."""
+    if g_mean.device.type == "cpu":
+        return composite_from_macro_reference(g_mean, g_conic, g_color, g_op, slot_valid,
+                                              bg_color, n_tiles, tile_w, macro, macro_tile_w)
+    dev = g_mean.device
+    bg = _bg(bg_color, dev)
+    n_blocks, kc = _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg)
+    if n_tiles and int(macro_of_tile(n_tiles, tile_w, macro, macro_tile_w).max()) >= n_blocks:
+        raise ValueError(f"{n_tiles} tiles of a {tile_w}-tile row in macro blocks of {macro} "
+                         f"(a {macro_tile_w}-block row) need more than {n_blocks} blocks")
+    out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=dev)
+    if n_tiles:
+        _launch(_walk_lib().aip_composite_from_macro, dev,
+                (*_slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid), bg.data_ptr(),
+                 out.data_ptr(), n_tiles, kc, tile_w, macro, macro_tile_w))
+        composite_from_macro.launches += 1
+    return out
+
+
+def composite_macro_blocks(coeff, colors, counts, bg_color, bs: int):
+    """Coefficient walk (replaces ``composite_macro_blocks_pallas``): coeff
+    [M, Kc, 8] and colours [M, Kc, 4] float32, counts [M] int32 (valid rows
+    are a prefix). Returns [M, 3, 1, bs*bs] float32. The kernel takes macro
+    blocks of 16, 32 and 64 px (macro 1, 2 and 4)."""
+    if coeff.device.type == "cpu":
+        return composite_macro_blocks_reference(coeff, colors, counts, bg_color, bs)
+    dev = coeff.device
+    bg = _bg(bg_color, dev)
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"the coefficient walk kernel takes macro blocks of {BLOCK_SIZES} px, "
+                         f"got bs={bs} (macro {bs // TILE}); the plain version takes any size "
+                         f"on a CPU tensor")
+    n_blocks, kc = coeff.shape[:2]
+    for t, name, shape in ((coeff, "coeff", (n_blocks, kc, 8)),
+                           (colors, "colors", (n_blocks, kc, 4))):
+        _check(t, name, torch.float32, 3, dev)
+        if tuple(t.shape) != shape or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a 16-byte aligned {shape}, got {tuple(t.shape)}")
+    _check(counts, "counts", torch.int32, 1, dev)
+    _check(bg, "bg_color", torch.float32, 1, dev)
+    if counts.shape[0] != n_blocks or bg.shape[0] != 3:
+        raise ValueError(f"counts must be [{n_blocks}] and bg_color [3], got "
+                         f"{tuple(counts.shape)} and {tuple(bg.shape)}")
+    out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=dev)
+    if n_blocks:
+        _launch(_walk_lib().aip_composite_macro_blocks, dev,
+                (coeff.data_ptr(), colors.data_ptr(), counts.data_ptr(), bg.data_ptr(),
+                 out.data_ptr(), n_blocks, kc, bs))
+        composite_macro_blocks.launches += 1
+    return out
+
+
+_WRAPPERS = (composite_macro_mxu_seg, composite_macro_mxu, composite_tiles,
+             composite_from_macro, composite_macro_blocks)
 
 
 def reset_launch_counts() -> None:
-    composite_macro_mxu_seg.launches = 0
-    composite_macro_mxu.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"composite_macro_mxu_seg": composite_macro_mxu_seg.launches,
-            "composite_macro_mxu": composite_macro_mxu.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+reset_launch_counts()

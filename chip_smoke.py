@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: CUDA is required; the card's name and power limit as nvidia-smi
    reports them are printed on a line of their own.
-2. build: ``aip_tpu_torch/csrc/adain_head.cu`` and ``composite.cu``
-   compiled with nvcc for sm_90a, both at once, with ptxas's register and
+2. build: every source in ``SOURCES`` (``aip_tpu_torch/csrc/*.cu``)
+   compiled with nvcc for sm_90a, all at once, with ptxas's register and
    spill report.
 3. kernel vs plain, for each AdaIN kernel wrapper, with TF32 off for fp32
    convs and matmuls: fp32 (max abs <= 1e-4 * max|ref|) and bf16 against
@@ -127,6 +127,34 @@ iterations), blend 0.7:
     share. Then the CLI, ``cli.run_video.main`` on 4 frames, where cv2
     imports (the card's machine has none: a line says it did not run).
 
+The other 3DGS render paths and the novel-view video, on the committed
+model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
+
+26. the three walk kernels against their plain versions, max abs <= 1e-5
+    (both round every per-pixel operation alike): on the inputs the paths
+    below hand them (captured from one frame of each) and on edge cases
+    (empty tiles and blocks, saturation, the 0.99 clamp, opacity below
+    1/255, invalid slots between valid ones, K = 1, lists longer than one
+    staged chunk, counts that are no multiple of 32, blocks of 16, 32 and
+    64 px).
+27. main path, per-tile walk: ``run_3dgs_rendering(renderer="pallas")``
+    over the 8 views at 800^2; the GIF and 8 PNGs exist, > 10 % of pixels
+    differ from the background, ``composite_tiles`` ran >= 8 times and no
+    other compositor ran.
+28. main paths at 1088x1920 under ``fit_selection(..., hi=8192)``, macro 4:
+    ``make_inference_frame_fn`` with ``composite_backend="pallas"`` (the
+    coefficient walk alone) and ``rasterize_fused`` (the fused walk alone);
+    then the three paths at 256^2 on the card against the port on the CPU,
+    mean abs <= 1e-4.
+29. ``gs.render_video.render_video``: 16 frames of the ellipse path, read
+    back from the mp4; then ``cli.render_video.main`` with ``--circular``
+    (4 frames) and ``--gaussians``.
+30. times: ms per frame of the three paths at 800^2 and 1088x1920 (fitted
+    selection, macro 4; CUDA events, median of 10), a torch.profiler
+    breakdown of one 1088x1920 frame of each with the busy share, and each
+    kernel's ms (100 calls in one window), launches per frame, plain ms and
+    bound.
+
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
@@ -153,12 +181,15 @@ PEAK_FLOPS = 989e12
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad", "tvl1")
+SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad", "tvl1", "composite_walk")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:278"),
     "composite_macro_mxu_seg": ("composite", "aip_tpu/ops/pallas/composite.py:442"),
     "composite_macro_mxu": ("composite", "aip_tpu/ops/pallas/composite.py:509"),
+    "composite_macro_blocks": ("composite_walk", "aip_tpu/ops/pallas/composite.py:253"),
+    "composite_from_macro": ("composite_walk", "aip_tpu/ops/pallas/composite.py:102"),
+    "composite_tiles": ("composite_walk", "aip_tpu/ops/pallas/composite.py:154"),
     "composite_ad_fwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:184"),
     "composite_ad_bwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:211"),
     "hash_grad": ("hashgrad", "aip_tpu/ops/pallas/hashgrad.py:74"),
@@ -345,10 +376,12 @@ def main():
     lines += gs_lines
     # 15-20. stylized 3DGS training ----------------------------------------------
     lines += _train_phases(torch, dev, bed)
-    del bed
     torch.cuda.empty_cache()
     # 21-25. video style transfer -----------------------------------------------
     lines += _video_phases(torch, dev)
+    torch.cuda.empty_cache()
+    # 26-30. the other 3DGS render paths and the novel-view video -----------------
+    lines += _walk_phases(torch, dev, bed)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -692,9 +725,9 @@ def _gs_phases(torch, dev):
     cams_1080 = [Camera(colmap_id=0, R=c.R, T=c.T, FoVx=c.FoVx,
                         FoVy=focal2fov(fov2focal(c.FoVx, 1920), 1088), image=blank,
                         image_name=c.image_name, uid=0) for c in cams]
-    fitted_fns = {}
+    fitted_fns, fitted_sel = {}, {}
     for label, cs in (("bed_0037_800", cams), ("bed_0037_1088x1920", cams_1080)):
-        fsel = GR.fit_selection(state, cs, hi=8192)
+        fsel = fitted_sel[label] = GR.fit_selection(state, cs, hi=8192)
         fn = bed_fn(GR.settings_from_selection(
             fsel, cs[0].image_height, cs[0].image_width, max_per_tile=fsel["max_per_tile"],
             macro=4, composite_backend="mxu"))
@@ -744,7 +777,8 @@ def _gs_phases(torch, dev):
                    GS_SPANS, named=(("gs.composite", "composite_macro_kernel"),), calls=3,
                    scene="bed_0037_1088x1920")
     return lines, dict(cams=cams, fn_800=fn_800, state=state, style_f=style_f,
-                       style_png=style_png)
+                       style_png=style_png, field=field, enc=enc, model_dir=model_dir, sel=sel,
+                       cams_1080=cams_1080, fitted_sel=fitted_sel)
 
 
 def _write_bed_scene(np, Image, size=800, n_cams=8, fov=0.8):
@@ -1613,6 +1647,365 @@ def _video_cli(torch, np, Image, KT, styles_dir):
          exists=Path(out).is_file(), launches=KT.launch_counts())
     if not (Path(out).is_file() and KT.launch_counts()["tvl1"] >= TVL1_FLOW_LAUNCHES):
         raise AssertionError("the video CLI wrote no video or launched no tvl1 kernel")
+
+
+# ---------------------------------------------------------------------------
+# The other 3DGS render paths and the novel-view video (phases 26-30)
+# ---------------------------------------------------------------------------
+
+WALK_TOL = 1e-5
+# Path -> the kernel it runs: the coefficient walk (make_inference_frame_fn
+# with composite_backend="pallas"), the fused walk (rasterize_fused), the
+# per-tile walk (rasterize_fast, render(renderer="pallas")).
+WALK_PATHS = {"pallas": "composite_macro_blocks", "fused": "composite_from_macro",
+              "fast": "composite_tiles"}
+WALK_KERNEL_NAMES = {"composite_macro_blocks": "macro_blocks_kernel",
+                     "composite_from_macro": "walk_tiles_kernel",
+                     "composite_tiles": "walk_tiles_kernel"}
+TILE_PAIR_FLOPS = 17    # kernels 6, 7 per (walked slot, pixel): offsets, power, exp, clamps, tests
+BLOCK_PAIR_FLOPS = 12   # kernel 5 per (walked row, pixel): 3 products, 4 sums, exp, clamps, test
+SLOT_BYTES = 40         # a gathered slot: mean 2, conic 3, colour 3, opacity, valid (float32)
+COEFF_ROW_BYTES = 48    # a coefficient row (8 float32) and its colour (4)
+VIDEO_FRAMES_3DGS = 16
+
+
+def _walk_phases(torch, dev, bed):
+    """Phases 26-30. Returns the lines of kernels 5, 6 and 7."""
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.cli import render_video as cli_render_video
+    from aip_tpu_torch.gs import pipeline
+    from aip_tpu_torch.gs import render as GR
+    from aip_tpu_torch.gs import render_video as RV
+    from aip_tpu_torch.gs.cameras import Camera
+    from aip_tpu_torch.gs.colorfield import precompute_features
+    from aip_tpu_torch.kernels import composite as KC
+
+    plain = {"composite_macro_blocks": KC.composite_macro_blocks_reference,
+             "composite_from_macro": KC.composite_from_macro_reference,
+             "composite_tiles": KC.composite_tiles_reference}
+    state, field, style_f, enc = bed["state"], bed["field"], bed["style_f"], bed["enc"]
+    cams, cams_1080, sel = bed["cams"], bed["cams_1080"], bed["sel"]
+    bg = torch.zeros(3, device=dev)
+    model_dir, style_png = bed["model_dir"], bed["style_png"]
+
+    def fitted(label):
+        fsel = bed["fitted_sel"][label]
+        c = (cams if label == "bed_0037_800" else cams_1080)[0]
+        return GR.settings_from_selection(fsel, c.image_height, c.image_width,
+                                          max_per_tile=fsel["max_per_tile"], macro=4)
+
+    # 26. kernels 5-7 against their plain versions ---------------------------------
+    s800 = GR.settings_from_selection(sel, 800, 800, max_per_tile=sel["max_per_tile"])
+    f1080 = _walk_frames(torch, GR, state, field, style_f, enc, bg, fitted("bed_0037_1088x1920"))
+    served = {}
+    with _capture(KC, "composite_tiles", served):   # what run_3dgs_rendering renders per view
+        GR.render(cams[0], state, field, bg, style_f=style_f, mode="inference", settings=s800,
+                  renderer="pallas", precomputed_enc=enc)
+    for path in ("pallas", "fused"):
+        with _capture(KC, WALK_PATHS[path], served):
+            f1080[path](cams_1080[0])
+    torch.cuda.synchronize()
+    main_err = {name: _walk_check(torch, name, getattr(KC, name), plain[name], *served[name],
+                                  "served") for name in WALK_KERNEL_NAMES}
+    for name, (args, kw), case in _walk_edge_cases(np, torch, dev):
+        _walk_check(torch, name, getattr(KC, name), plain[name], args, kw, case)
+
+    # 27. main path, per-tile walk: run_3dgs_rendering(renderer="pallas") ------------
+    out_dir = GS_WORK / "renders_pallas"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    KC.reset_launch_counts()
+    t0 = time.perf_counter()
+    gif = Path(pipeline.run_3dgs_rendering(str(style_png), str(model_dir), output_dir=str(out_dir),
+                                           renderer="pallas", device=dev))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    tile_launches = KC.launch_counts()
+    pngs = sorted(out_dir.glob("*.png"))
+    drawn = [float((np.abs(np.asarray(Image.open(p), np.int16)).max(axis=-1) > 1).mean())
+             for p in pngs]
+    emit("gs_main_per_tile", entry="aip_tpu_torch.gs.pipeline.run_3dgs_rendering",
+         renderer="pallas", gif=str(gif.relative_to(ROOT)), gif_exists=gif.is_file(),
+         pngs=len(pngs), drawn_fraction_min=min(drawn, default=0.0), wall_s=wall_s,
+         launches=tile_launches)
+    others = sum(tile_launches.values()) - tile_launches["composite_tiles"]
+    if not (gif.is_file() and len(pngs) == len(cams) == 8 and min(drawn) > 0.1
+            and tile_launches["composite_tiles"] >= 8 and others == 0):
+        raise AssertionError("run_3dgs_rendering(renderer='pallas') did not render the model "
+                             "through the per-tile kernel alone")
+
+    # 28. main paths at 1088x1920: the coefficient walk and the fused walk ----------
+    main_launches = {"composite_tiles": tile_launches["composite_tiles"]}
+    for path in ("pallas", "fused"):
+        kernel = WALK_PATHS[path]
+        KC.reset_launch_counts()
+        img = f1080[path](cams_1080[0])
+        torch.cuda.synchronize()
+        counts = KC.launch_counts()
+        main_launches[kernel] = counts[kernel]
+        emit("gs_main_" + path, entry=("make_inference_frame_fn(composite_backend='pallas')"
+                                       if path == "pallas" else "rasterize_fused"),
+             scene="bed_0037_1088x1920", out_shape=list(img.shape),
+             finite=bool(torch.isfinite(img).all()), mean=img.mean().item(), launches=counts)
+        size = (cams_1080[0].image_height, cams_1080[0].image_width, 3)
+        if not (img.shape == size and torch.isfinite(img).all() and counts[kernel] > 0
+                and sum(counts.values()) == counts[kernel]):
+            raise AssertionError(f"the {path} path did not render through {kernel} alone")
+    c0 = cams[0]
+    cam256 = Camera(colmap_id=0, R=c0.R, T=c0.T, FoVx=c0.FoVx, FoVy=c0.FoVy,
+                    image=np.zeros((256, 256, 3), np.float32), image_name="c256", uid=0)
+    s256 = GR.settings_from_selection(sel, 256, 256, max_per_tile=sel["max_per_tile"], macro=4)
+    st_cpu, fd_cpu = state.to("cpu"), field.to("cpu")
+    on_cpu = _walk_frames(torch, GR, st_cpu, fd_cpu, style_f.cpu(),
+                          precompute_features(fd_cpu, st_cpu.xyz), bg.cpu(), s256)
+    on_card = _walk_frames(torch, GR, state, field, style_f, enc, bg, s256)
+    for path, kernel in WALK_PATHS.items():
+        KC.reset_launch_counts()
+        card = on_card[path](cam256).cpu()
+        launched = KC.launch_counts()[kernel]
+        diff = (card - on_cpu[path](cam256)).abs()
+        emit("gs_card_vs_cpu", path=path, size=256, mean_abs=diff.mean().item(),
+             max_abs=diff.max().item(), tol_mean_abs=1e-4, launches_on_card={kernel: launched})
+        if not (diff.mean().item() <= 1e-4 and launched > 0):
+            raise AssertionError(f"card and CPU disagree on the {path} path")
+    del st_cpu, fd_cpu, on_cpu, on_card
+
+    # 29. the novel-view video and its CLI ------------------------------------------
+    _render_video_phase(torch, KC, RV, cli_render_video, model_dir, style_png, len(cams), dev)
+
+    # 30. times ---------------------------------------------------------------------
+    for label, cs in (("bed_0037_800", cams), ("bed_0037_1088x1920", cams_1080)):
+        fns = f1080 if label.endswith("1920") else _walk_frames(
+            torch, GR, state, field, style_f, enc, bg, fitted(label))
+        for path, fn in fns.items():
+            frame = _cycle(lambda f, c: f(c), fn, cs)
+            for _ in cs:  # warm every pose
+                frame()
+            KC.reset_launch_counts()
+            ms = _time_ms(torch, frame)
+            emit("gs_frame_time", scene=label, path=path, kernel=WALK_PATHS[path],
+                 fitted_selection=bed["fitted_sel"][label], ms=ms, fps=1e3 / ms,
+                 launches_per_frame={k: v / 12 for k, v in KC.launch_counts().items() if v})
+    for path, fn in f1080.items():
+        kernel = WALK_PATHS[path]
+        _stage_profile(torch, "gs_profile", _cycle(lambda f, c: f(c), fn, cams_1080), GS_SPANS,
+                       named=(("gs.composite", WALK_KERNEL_NAMES[kernel]),), calls=3,
+                       scene="bed_0037_1088x1920", path=path)
+    lines = []
+    per_frame = {"composite_tiles": main_launches["composite_tiles"] / len(pngs),
+                 "composite_macro_blocks": main_launches["composite_macro_blocks"],
+                 "composite_from_macro": main_launches["composite_from_macro"]}
+    for name in ("composite_macro_blocks", "composite_from_macro", "composite_tiles"):
+        args, kw = served[name]
+        flops, nbytes, pairs = _walk_work(KC, name, args, kw)
+        t_comp, t_mem = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+        lines.append({
+            "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+            "replaces": KERNELS[name][1], "launches": main_launches[name],
+            "max_abs_err": main_err[name],
+            "ms": _time_many_ms(torch, lambda: getattr(KC, name)(*args, **kw), MANY_CALLS),
+            "plain_ms": _time_ms(torch, lambda: plain[name](*args, **kw), 2, 1),
+            "bound_ms": max(t_comp, t_mem) * 1e3,
+            "bound_by": "operations" if t_comp >= t_mem else "bytes",
+            "library_ms": None,
+        })
+        emit("gs_walk_kernel_work", kernel=name,
+             served_by="bed_0037_800 per-tile" if name == "composite_tiles"
+             else "bed_0037_1088x1920 fitted, macro 4",
+             in_shape=list(args[0].shape), launches_per_frame=per_frame[name], pairs=pairs,
+             flops=flops, bytes=nbytes, ms_many_calls=lines[-1]["ms"], calls_in_window=MANY_CALLS,
+             definition=_WALK_BOUND_NOTES[name],
+             library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
+    return lines
+
+
+_WALK_BOUND_NOTES = {
+    "composite_macro_blocks": (
+        "pairs = sum over blocks of the rows walked up to the 32-row early exit (counted by the "
+        "plain version) x bs^2; operations = 12 float32 per pair at 67 TFLOP/s (H100 SXM, CUDA "
+        "cores; the contribution's 10 more only where alpha >= 1/255 are not counted); bytes = "
+        "the walked 48-byte rows, the counts and the planes once, at 3.35 TB/s"),
+    "composite_from_macro": (
+        "pairs = sum over tiles of their block's slots up to its last valid one x 256; "
+        "operations = 17 float32 per pair at 67 TFLOP/s (the contribution's 10 more only where "
+        "alpha >= 1/255 are not counted); bytes = each block's walked 40-byte slots, its whole "
+        "valid row (scanned for the end) and the tiles once, at 3.35 TB/s"),
+    "composite_tiles": (
+        "pairs = sum over tiles of their slots up to the last valid one x 256; operations = 17 "
+        "float32 per pair at 67 TFLOP/s (the contribution's 10 more only where alpha >= 1/255 "
+        "are not counted); bytes = the walked 40-byte slots, the whole valid array (scanned "
+        "for the end) and the tiles once, at 3.35 TB/s"),
+}
+
+
+def _walk_frames(torch, GR, state, field, style_f, enc, bg, settings):
+    """frame(cam) -> [H, W, 3] of each path of phases 26-30 at ``settings``
+    (macro > 1), on the state's device: the serving frame function with
+    composite_backend="pallas", and the serving frame's colours and
+    activations through rasterize_fused and rasterize_fast."""
+    from aip_tpu_torch.gs import rasterizer as R
+    from aip_tpu_torch.gs.colorfield import predict_sh
+
+    fn = GR.make_inference_frame_fn(state, field, settings._replace(composite_backend="pallas"),
+                                    bg, style_f=style_f, precomputed_enc=enc)
+    with torch.no_grad():
+        sh = predict_sh(field, state.xyz, style_f, precomputed_enc=enc)
+        scales, rotations, opacity = GR._inference_activations(state)
+
+    def through(raster):
+        @torch.no_grad()
+        def frame(cam):
+            vm, pm, campos = GR._camera_tensors(cam, state.xyz.device)
+            colors = GR._sh_colors(sh, state.xyz, campos)
+            return raster(state.xyz, scales, rotations, opacity, colors, vm, pm, bg, settings,
+                          tanfovx=math.tan(cam.FoVx * 0.5), tanfovy=math.tan(cam.FoVy * 0.5))[0]
+        return frame
+
+    return {"pallas": lambda cam: GR.render_frame(fn, cam), "fused": through(R.rasterize_fused),
+            "fast": through(R.rasterize_fast)}
+
+
+def _walk_check(torch, name, kernel, plain, args, kw, case):
+    """A walk kernel against its plain version on one input: max abs <=
+    WALK_TOL (both round every per-pixel operation alike). Returns the
+    error."""
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    err = (out - ref).abs().max().item()
+    emit("gs_walk_vs_plain", kernel=name, case=case, in_shape=list(args[0].shape),
+         out_shape=list(out.shape), max_abs_err=err, tol_max_abs=WALK_TOL)
+    if not (out.shape == ref.shape and err <= WALK_TOL):
+        raise AssertionError(f"{name} ({case}) is {err} off its plain version")
+    return err
+
+
+def _walk_edge_cases(np, torch, dev):
+    """Per-tile slots with an empty tile, a tile saturating below T = 1e-4,
+    a splat at the 0.99 clamp, one below 1/255 and invalid slots between
+    valid ones (K 40 and K 1); a 5 x 7 tile grid of 2 x 2-tile blocks with
+    an empty block, a list that ends early and lists of 700 slots; blocks
+    of 16, 32 and 64 px with count 0, a count of 37, a block opaque within
+    its first 32-row group and one drawn near its origin only."""
+    g = np.random.default_rng(26)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    bg = f([0.2, 0.1, 0.3])
+
+    def slots(rows, k, x0, y0, spread=20.0):
+        mean = np.stack([x0[:, None] + g.random((rows, k)) * spread - 2,
+                         y0[:, None] + g.random((rows, k)) * spread - 2], -1)
+        sig = g.random((rows, k)) * 4 + 1.5
+        conic = np.stack([1 / sig ** 2, (g.random((rows, k)) - 0.5) * 0.3 / sig ** 2,
+                          1 / (sig * (g.random((rows, k)) + 0.6)) ** 2], -1)
+        valid = np.ones((rows, k))
+        valid[:, k - k // 4:] = 0.0
+        return [mean, conic, g.random((rows, k, 3)), g.random((rows, k)) * 0.7 + 0.1, valid]
+
+    cases = []
+    t = np.arange(8)
+    for k in (40, 1):
+        mean, conic, color, op, valid = slots(8, k, (t % 4) * 16.0, (t // 4) * 16.0)
+        if k > 1:
+            valid[1] = 0.0
+            conic[2, :, 0] = conic[2, :, 2] = 1e-3
+            conic[2, :, 1] = 0.0
+            op[2], valid[2] = 0.98, 1.0
+            mean[3, 0] = [55.5, 7.5]   # the centre of tile 3
+            op[3, 0], op[3, 1] = 1.0, 0.003
+            valid[4, ::3] = 0.0
+        cases.append(("composite_tiles", ([f(a) for a in (mean, conic, color, op, valid)]
+                                          + [bg, 4], {}), f"edge K={k}"))
+    b = np.arange(12)
+    arrays = slots(12, 700, (b % 4) * 32.0, (b // 4) * 32.0, spread=36.0)
+    arrays[4][3] = 0.0
+    arrays[4][5, 7:] = 0.0
+    cases.append(("composite_from_macro", ([f(a) for a in arrays] + [bg],
+                                           dict(n_tiles=35, tile_w=7, macro=2, macro_tile_w=4)),
+                  "edge 5x7 tiles, Kc=700"))
+    for bs, kc in ((16, 40), (32, 100), (64, 1000)):
+        m = 6
+        mx, my = g.random((m, kc)) * bs, g.random((m, kc)) * bs
+        mx[3], my[3] = g.random(kc) * bs * 0.2, g.random(kc) * bs * 0.2
+        sig = g.random((m, kc)) * 6 + 1.5
+        ca, cc = 1 / sig ** 2, 1 / (sig * (g.random((m, kc)) + 0.6)) ** 2
+        cb = (g.random((m, kc)) - 0.5) * 0.3 / sig ** 2
+        ca[2, :10], cc[2, :10], cb[2, :10] = 1e-4, 1e-4, 0.0
+        op = g.random((m, kc)) * 0.8 + 0.1
+        op[2, :10] = 0.99
+        coeff = np.stack([-0.5 * (ca * mx * mx + cc * my * my) - cb * mx * my, ca * mx + cb * my,
+                          cc * my + cb * mx, -0.5 * ca, -0.5 * cc, -cb, op, 0 * op], -1)
+        colors = np.concatenate([g.random((m, kc, 3)), np.zeros((m, kc, 1))], -1)
+        counts = torch.tensor([0, min(37, kc), kc, kc, kc, kc // 2], dtype=torch.int32,
+                              device=dev)
+        cases.append(("composite_macro_blocks", ([f(coeff), f(colors), counts, bg], dict(bs=bs)),
+                      f"edge bs={bs}, Kc={kc}"))
+    return cases
+
+
+def _walk_work(KC, name, args, kw):
+    """(operations, bytes, pairs) of one walk-kernel call, counted from this
+    call's data: the slots or rows the kernel walks."""
+    if name == "composite_macro_blocks":
+        coeff, colors, counts, _ = args
+        bs = kw["bs"]
+        rows = KC.blocks_walked_rows(coeff, colors, counts, bs)
+        pairs = rows * bs * bs
+        return (pairs * BLOCK_PAIR_FLOPS,
+                rows * COEFF_ROW_BYTES + 4 * counts.numel() + counts.numel() * 3 * bs * bs * 4,
+                pairs)
+    valid = args[4]
+    ends = KC.valid_ends(valid).long()
+    if name == "composite_tiles":
+        n_tiles, walked = valid.shape[0], ends
+    else:
+        n_tiles = kw["n_tiles"]
+        walked = ends[KC.macro_of_tile(n_tiles, kw["tile_w"], kw["macro"], kw["macro_tile_w"],
+                                       valid.device)]
+    pairs = int(walked.sum()) * 256
+    # The walked slots, and the whole valid array (the kernel scans it for the end).
+    nbytes = int(ends.sum()) * (SLOT_BYTES - 4) + valid.numel() * 4 + n_tiles * 3 * 256 * 4
+    return pairs * TILE_PAIR_FLOPS, nbytes, pairs
+
+
+def _render_video_phase(torch, KC, RV, cli_render_video, model_dir, style_png, n_views, dev):
+    """Phase 29: ``render_video`` of the committed model, 16 frames on the
+    ellipse path through the orbit cameras, read back from the mp4; then
+    ``cli.render_video.main`` with ``--circular`` (4 frames) and
+    ``--gaussians`` (each view and 10 jittered ones)."""
+    import cv2
+
+    KC.reset_launch_counts()
+    t0 = time.perf_counter()
+    mp4 = RV.render_video(str(model_dir), str(style_png), n_frames=VIDEO_FRAMES_3DGS, fps=8,
+                          device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = KC.launch_counts()
+    cap = cv2.VideoCapture(mp4)
+    n, shape = 0, None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        n, shape = n + 1, list(frame.shape)
+    cap.release()
+    emit("gs_render_video", entry="aip_tpu_torch.gs.render_video.render_video",
+         mp4=str(Path(mp4).relative_to(ROOT)), frames=n, frame_shape=shape, wall_s=wall_s,
+         launches=launches)
+    if not (n == VIDEO_FRAMES_3DGS and sum(launches.values()) >= VIDEO_FRAMES_3DGS):
+        raise AssertionError(f"render_video wrote {n} frames, launched {launches}")
+    t0 = time.perf_counter()
+    outs = cli_render_video.main(["-m", str(model_dir), "--style", str(style_png), "--circular",
+                                  "--gaussians", "--n_frames", "4", "--device", str(dev)])
+    torch.cuda.synchronize()
+    circular = len(list(Path(outs[0]).glob("*.png")))
+    jittered = len(list(Path(outs[1]).glob("view_*/jitter/*.png")))
+    emit("gs_render_video_cli", entry="aip_tpu_torch.cli.render_video.main",
+         outputs=[str(Path(o).relative_to(ROOT)) for o in outs], circular_pngs=circular,
+         jittered_pngs=jittered, wall_s=time.perf_counter() - t0)
+    if not (circular == 4 and jittered == 10 * n_views):
+        raise AssertionError("the render_video CLI did not write its frames")
 
 
 if __name__ == "__main__":

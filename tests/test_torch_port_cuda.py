@@ -11,6 +11,8 @@ kernel against the plain version run in fp32 on the same bf16-rounded
 inputs and weights, 1e-2 (the kernel rounds its output to bf16).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -179,7 +181,9 @@ def test_composite_kernels_match_plain_on_edge_cases(cuda, bs):
     _assert_composite_close(out_w, C.composite_macro_mxu_reference(window, win_counts, bg, bs,
                                                                    mtw))
     _assert_composite_close(out_w, out)
-    assert C.launch_counts() == {"composite_macro_mxu_seg": 1, "composite_macro_mxu": 1}
+    assert C.launch_counts() == {"composite_macro_mxu_seg": 1, "composite_macro_mxu": 1,
+                                 "composite_tiles": 0, "composite_from_macro": 0,
+                                 "composite_macro_blocks": 0}
     walked = C.walked_rows(window, win_counts, bg, bs, mtw)
     assert walked < int(win_counts.sum())  # block 4 stopped early
 
@@ -199,6 +203,195 @@ def test_composite_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         C.composite_macro_mxu_seg(raw[0], counts.cpu(), counts, torch.zeros(3), n_blocks=2,
                                   kc=64, bs=64, mtw=2)
+
+
+# ---------------------------------------------------------------------------
+# Per-tile, fused and coefficient walks (kernels/composite.py,
+# csrc/composite_walk.cu): bit for bit with their plain versions
+# ---------------------------------------------------------------------------
+
+def _walk_slots(g, rows, k, x0, y0, spread=20.0):
+    """Slot arrays [rows, k, .] around each row's origin (x0, y0), float32:
+    mean, conic, colour, opacity [rows, k], valid [rows, k] (a prefix)."""
+    mean = np.stack([x0[:, None] + g.random((rows, k)) * spread - 2,
+                     y0[:, None] + g.random((rows, k)) * spread - 2], -1)
+    sig = g.random((rows, k)) * 4 + 1.5
+    conic = np.stack([1 / sig ** 2, (g.random((rows, k)) - 0.5) * 0.3 / sig ** 2,
+                      1 / (sig * (g.random((rows, k)) + 0.6)) ** 2], -1)
+    op = g.random((rows, k)) * 0.7 + 0.1
+    valid = np.ones((rows, k))
+    valid[:, k - k // 4:] = 0.0
+    return [a.astype(np.float32) for a in (mean, conic, g.random((rows, k, 3)), op, valid)]
+
+
+def _walk_edge_tiles(g, k, tile_w=4, n_tiles=8):
+    """Tile 1 empty, tile 2 saturating below T = 1e-4, tile 3 a splat at the
+    0.99 clamp and one of opacity below 1/255, tile 4 invalid slots between
+    valid ones, tile 5 only its first slot valid."""
+    t = np.arange(n_tiles)
+    x0, y0 = (t % tile_w) * 16.0, (t // tile_w) * 16.0
+    mean, conic, color, op, valid = _walk_slots(g, n_tiles, k, x0, y0)
+    valid[1] = 0.0
+    conic[2, :, 0] = conic[2, :, 2] = 1e-3
+    conic[2, :, 1] = 0.0
+    op[2], valid[2] = 0.98, 1.0
+    mean[3, 0] = [x0[3] + 7.5, y0[3] + 7.5]
+    op[3, 0], op[3, 1] = 1.0, 0.003
+    valid[4, ::3] = 0.0
+    valid[5, 1:] = 0.0
+    return mean, conic, color, op, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 40, 300])
+def test_composite_tiles_kernel_matches_plain(cuda, k):
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(20 + k)
+    arrays = [torch.from_numpy(a).to(cuda) for a in _walk_edge_tiles(g, k)] if k > 1 else \
+        [torch.from_numpy(a).to(cuda) for a in _walk_slots(g, 8, 1, np.zeros(8), np.zeros(8))]
+    bg = torch.tensor([0.2, 0.5, 0.1], device=cuda)
+    C.reset_launch_counts()
+    out = C.composite_tiles(*arrays, bg, 4)
+    torch.cuda.synchronize()
+    assert C.launch_counts()["composite_tiles"] == 1
+    ref = C.composite_tiles_reference(*arrays, bg, 4)
+    assert out.shape == ref.shape == (8, 3, 16, 16)
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [64, 700])
+def test_composite_from_macro_kernel_matches_plain(cuda, kc):
+    """5 x 7 tiles in blocks of 2 x 2 tiles, an empty block, a block whose
+    list ends early, a saturating block, a splat at the 0.99 clamp next to
+    one below 1/255, invalid slots between valid ones, lists longer than
+    one 256-slot chunk."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(21)
+    th, tw, macro = 5, 7, 2
+    mth, mtw = 3, 4
+    b = np.arange(mth * mtw)
+    arrays = _walk_slots(g, mth * mtw, kc, (b % mtw) * 32.0, (b // mtw) * 32.0, spread=36.0)
+    mean, conic, _, op, valid = arrays
+    valid[3] = 0.0
+    valid[5, 7:] = 0.0
+    conic[2, :, 0] = conic[2, :, 2] = 1e-3
+    conic[2, :, 1] = 0.0
+    op[2], valid[2] = 0.98, 1.0
+    mean[6, 0] = [2 * 32 + 7.5, 32 + 7.5]
+    op[6, 0], op[6, 1] = 1.0, 0.003
+    valid[7, ::3] = 0.0
+    arrays = [torch.from_numpy(a).to(cuda) for a in arrays]
+    bg = torch.tensor([0.05, 0.05, 0.1], device=cuda)
+    kw = dict(n_tiles=th * tw, tile_w=tw, macro=macro, macro_tile_w=mtw)
+    C.reset_launch_counts()
+    out = C.composite_from_macro(*arrays, bg, **kw)
+    torch.cuda.synchronize()
+    assert C.launch_counts()["composite_from_macro"] == 1
+    ref = C.composite_from_macro_reference(*arrays, bg, **kw)
+    assert out.shape == ref.shape == (th * tw, 3, 16, 16)
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,kc", [(16, 40), (32, 100), (64, 70), (64, 1000)])
+def test_composite_macro_blocks_kernel_matches_plain(cuda, bs, kc):
+    """Count 0, a count of 37, a block opaque within its first 32-row
+    group, a block drawn near its origin only (its far pixels keep T = 1 and
+    hold the block in the walk) and full blocks, sharp splats included."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(22 + bs)
+    m = 6
+    mx, my = g.random((m, kc)) * bs, g.random((m, kc)) * bs
+    mx[3], my[3] = g.random(kc) * bs * 0.2, g.random(kc) * bs * 0.2
+    sig = g.random((m, kc)) * 6 + 1.5
+    ca, cc = 1 / sig ** 2, 1 / (sig * (g.random((m, kc)) + 0.6)) ** 2
+    cb = (g.random((m, kc)) - 0.5) * 0.3 / sig ** 2
+    ca[2, :10], cc[2, :10], cb[2, :10] = 1e-4, 1e-4, 0.0
+    op = g.random((m, kc)) * 0.8 + 0.1
+    op[2, :10] = 0.99
+    counts = np.array([0, min(37, kc), kc, kc, kc, kc // 2], np.int32)
+    coeff = np.stack([-0.5 * (ca * mx * mx + cc * my * my) - cb * mx * my, ca * mx + cb * my,
+                      cc * my + cb * mx, -0.5 * ca, -0.5 * cc, -cb, op, 0 * op], -1)
+    colors = np.concatenate([g.random((m, kc, 3)), np.zeros((m, kc, 1))], -1)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (coeff, colors)]
+    args.append(torch.from_numpy(counts).to(cuda))
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    C.reset_launch_counts()
+    out = C.composite_macro_blocks(*args, bg, bs=bs)
+    torch.cuda.synchronize()
+    assert C.launch_counts()["composite_macro_blocks"] == 1
+    ref = C.composite_macro_blocks_reference(*args, bg, bs=bs)
+    assert out.shape == ref.shape == (m, 3, 1, bs * bs)
+    assert float((out - ref).abs().max()) == 0.0
+    torch.testing.assert_close(out[0, :, 0].cpu(), bg.cpu()[:, None].expand(3, bs * bs))
+
+
+@pytest.mark.cuda
+def test_walk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(23)
+    arrays = [torch.from_numpy(a).to(cuda) for a in _walk_slots(g, 4, 8, np.zeros(4),
+                                                                 np.zeros(4))]
+    bg = torch.zeros(3, device=cuda)
+    with pytest.raises(TypeError):
+        C.composite_tiles(arrays[0].double(), *arrays[1:], bg, 2)
+    with pytest.raises(ValueError):
+        C.composite_tiles(*arrays[:3], arrays[3][:, :4].contiguous(), arrays[4], bg, 2)
+    with pytest.raises(ValueError):
+        C.composite_tiles(*arrays[:4], arrays[4].cpu(), bg, 2)
+    with pytest.raises(ValueError):
+        C.composite_tiles(arrays[0], arrays[1].transpose(0, 1), *arrays[2:], bg, 2)
+    with pytest.raises(ValueError):   # 16 tiles of a 4-tile row need 4 blocks of 2 x 2 tiles
+        C.composite_from_macro(*[a[:2] for a in arrays], bg, n_tiles=16, tile_w=4, macro=2,
+                               macro_tile_w=2)
+    coeff = torch.zeros(2, 8, 8, device=cuda)
+    colors = torch.zeros(2, 8, 4, device=cuda)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="macro 8"):
+        C.composite_macro_blocks(coeff, colors, counts, bg, bs=128)
+    with pytest.raises(TypeError):
+        C.composite_macro_blocks(coeff, colors, counts.long(), bg, bs=64)
+    with pytest.raises(ValueError):
+        C.composite_macro_blocks(coeff[:, :, :6].contiguous(), colors, counts, bg, bs=64)
+
+
+@pytest.mark.cuda
+def test_walk_paths_on_the_card_launch_their_kernels_and_match_the_cpu(cuda):
+    """rasterize_fast, rasterize_fused and rasterize_matmul("pallas") on a
+    40-splat 64^2 scene, macro 2: one launch of their kernel each, and the
+    image of the same call on the CPU (plain versions) within 1e-5 mean abs
+    (the projection's exp and divisions may round otherwise on the card,
+    and a hard threshold can then flip at a pixel)."""
+    from aip_tpu_torch.gs import rasterizer as R
+    from aip_tpu_torch.gs.cameras import Camera
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(24)
+    n = 40
+    scene = [(g.random((n, 3)) * 2 - 1), g.random((n, 3)) * 0.15 + 0.05,
+             g.standard_normal((n, 4)), g.random(n) * 0.8 + 0.1, g.random((n, 3))]
+    cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), FoVx=np.pi / 3,
+                 FoVy=np.pi / 3, image=np.zeros((64, 64, 3), np.float32), image_name="t", uid=0)
+    cpu = [torch.from_numpy(np.asarray(a, np.float32)) for a in
+           scene + [cam.world_view_transform, cam.full_proj_transform, [0.05, 0.1, 0.2]]]
+    tan = math.tan(cam.FoVx * 0.5)
+    s = R.RasterSettings(64, 64, max_per_tile=40, chunk=16, macro=2, macro_capacity=64)
+    for fn, settings, kernel in ((R.rasterize_fast, s, "composite_tiles"),
+                                 (R.rasterize_fused, s, "composite_from_macro"),
+                                 (R.rasterize_matmul, s._replace(composite_backend="pallas"),
+                                  "composite_macro_blocks")):
+        C.reset_launch_counts()
+        on_card, _ = fn(*[a.to(cuda) for a in cpu], settings, tanfovx=tan, tanfovy=tan)
+        torch.cuda.synchronize()
+        counts = C.launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1, counts
+        on_cpu, _ = fn(*cpu, settings, tanfovx=tan, tanfovy=tan)
+        assert float((on_card.cpu() - on_cpu).abs().mean()) <= 1e-5, kernel
 
 
 # ---------------------------------------------------------------------------

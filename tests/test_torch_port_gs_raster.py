@@ -267,7 +267,9 @@ def test_rasterize_matmul_matches_jax(rng, case):
     img, _ = TR.rasterize_matmul(_t(means), _t(scales), _t(quats), _t(opac), _t(colors),
                                  _t(vm).float(), _t(pm).float(), _t(bg), ts,
                                  tanfovx=tx, tanfovy=ty)
-    assert TK.launch_counts() == {"composite_macro_mxu_seg": 0, "composite_macro_mxu": 0}
+    assert TK.launch_counts() == {"composite_macro_mxu_seg": 0, "composite_macro_mxu": 0,
+                                  "composite_tiles": 0, "composite_from_macro": 0,
+                                  "composite_macro_blocks": 0}
     np.testing.assert_allclose(img.numpy(), np.asarray(ref), atol=2e-4)
     assert np.abs(np.asarray(ref) - bg).max() > 0.1  # splats drawn
 
@@ -338,6 +340,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(rng):
     TK.reset_launch_counts()
     out = TK.composite_macro_mxu(raw, counts, torch.zeros(3), bs=32, mtw=1)
     assert out.shape == (1, 3, 1, 1024)
-    assert TK.launch_counts() == {"composite_macro_mxu_seg": 0, "composite_macro_mxu": 0}
+    assert TK.launch_counts() == {"composite_macro_mxu_seg": 0, "composite_macro_mxu": 0,
+                                  "composite_tiles": 0, "composite_from_macro": 0,
+                                  "composite_macro_blocks": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK._check(raw, "raw", torch.float32, 3)

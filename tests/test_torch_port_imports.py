@@ -59,7 +59,9 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.kernels.tvl1", "aip_tpu_torch.ops.flow",
                  "aip_tpu_torch.ops.farneback", "aip_tpu_torch.pipelines.video",
                  "aip_tpu_torch.models.magenta", "aip_tpu_torch.models.mobilenet",
-                 "aip_tpu_torch.cli.run_video", "aip_tpu_torch.cli.adain_video"):
+                 "aip_tpu_torch.cli.run_video", "aip_tpu_torch.cli.adain_video",
+                 "aip_tpu_torch.gs.pose_paths", "aip_tpu_torch.gs.render_video",
+                 "aip_tpu_torch.cli.render_video"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
