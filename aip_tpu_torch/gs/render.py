@@ -295,6 +295,8 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
     tangents are given. Tensors live on the state's device."""
     if mode not in ("train", "train_rvq", "inference"):
         raise ValueError(f"unknown render mode {mode!r}")
+    if renderer not in ("auto", "xla", "matmul", "pallas"):
+        raise ValueError(f"unknown renderer {renderer!r}")
     if mesh is not None:
         raise NotImplementedError(
             "render(mesh=...) is the multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
@@ -364,11 +366,9 @@ def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
         img, radii = rasterize_fast(xyz, scales, rotations, opacity, colors, vm, pm, bg,
                                     settings, tanfovx=tanfovx, tanfovy=tanfovy,
                                     scale_modifier=scaling_modifier)
-    elif renderer in ("xla", "matmul", "pallas"):   # training always rasterizes
+    else:   # "xla", and training always rasterizes
         img, radii = rasterize(xyz, scales, rotations, opacity, colors, vm, pm, bg, settings,
                                tanfovx=tanfovx, tanfovy=tanfovy,
                                scale_modifier=scaling_modifier,
                                screenspace_offset=screenspace_offset)
-    else:
-        raise ValueError(f"unknown renderer {renderer!r}")
     return RenderOutput(render=img, radii=radii, visibility=(radii > 0) & state.active)

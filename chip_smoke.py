@@ -8,26 +8,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device: CUDA is required; the card's name and power limit as nvidia-smi
    reports them are printed on a line of their own.
 2. build: every source in ``SOURCES`` (``aip_tpu_torch/csrc/*.cu``)
-   compiled with nvcc for sm_90a, all at once, with ptxas's register and
-   spill report.
+   compiled with nvcc for sm_90a, all at once, with ptxas's register,
+   spill and shared-memory report.
 3. kernel vs plain, for each AdaIN kernel wrapper, with TF32 off for fp32
-   convs and matmuls: fp32 (max abs <= 1e-4 * max|ref|) and bf16 against
-   the plain version in fp32 on the same bf16-rounded inputs and weights
-   (<= 1e-2 * max|ref|), at batch 2 on 512^2 and 37x45 (tail: 256^2 and
-   19x23 in), and in bf16 at the serving shape, batch 32 x 512^2.
+   convs and matmuls: fp32 (the CUDA-core kernels, max abs <= 1e-4 *
+   max|ref|) and bf16 (the tensor-core kernels) against the plain version
+   in fp32 on the same bf16-rounded inputs and weights (<= 1e-2 *
+   max|ref|) and against the bf16 plain version, which rounds where the
+   TPU kernel does (max abs <= 2^-7 * max|ref|, one bf16 ulp at the largest
+   value, and mean abs <= 1e-4 * max|ref|), at batch 2 on
+   512^2 and 37x45 (tail: 256^2 and 19x23 in), and in bf16 at the serving
+   shape, batch 32 x 512^2; each launch took its dtype's route.
 4. AdaIN serving path (a main path): ``precompute_style_stats`` +
    ``stylize_with_stats``, batch 32, 512^2, bf16, alpha 0.5, with every
-   launch count set to 0 just before and read just after.
-5. end to end in fp32 on one 256^2 image: the card (kernels) against the
-   port on the CPU (plain path), mean abs <= 1e-3.
+   launch count set to 0 just before and read just after; every launch
+   took the tensor-core route.
+5. end to end in fp32 on one 256^2 image (the fp32 kernels' path): the
+   card (kernels) against the port on the CPU (plain path), mean abs <=
+   1e-3, with no tensor-core launch.
 6. CLI: ``aip_tpu_torch.cli.run_depth.main`` on PNGs written from a seed,
    plain and ``--use_depth``.
-7. times at batch 32 x 512^2 bf16 (CUDA events, median of 10 after a
-   warm-up): the serving path's images/s, and for each kernel its time,
-   its plain version's, the same chain as cuDNN calls (``library_ms``,
-   timed here only) and its bound.
+7. times at batch 32 x 512^2 (CUDA events): the serving path's images/s
+   (median of 10 after a warm-up); each tensor-core kernel in bf16 over 100
+   calls in one window, each fp32 kernel on fp32 inputs (median of 10), with
+   its plain version's time, the same chain as cuDNN calls
+   (``library_ms``, timed here only), its bound, achieved TFLOP/s and share
+   of the bound; and one cuDNN 64->64 3x3 conv alone on channels_last bf16
+   (``conv64_cudnn_ms``, a yardstick for the dominant conv).
 8. profile: torch.profiler over three serving calls, device time by kernel
-   and the device's busy share.
+   and the device's busy share; the calls repack no weights (the cached
+   packs of the tensor-core kernels are the same objects after them).
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -110,10 +120,11 @@ iterations), blend 0.7:
 22. main path: ``pipelines.video.apply_style_transfer_multi_ada`` on the
     frame directory, with the launch counts set to 0 just before and read
     just after (tvl1 300 launches per level and warp, encode_head,
-    decode_tail); the 96 PNGs exist; the flows' mean endpoint error
-    against the known step over the interior <= 0.25 px. encode_head and
-    decode_tail are then held against their plain versions, by phase 3's
-    rule, on the arguments this call gave them (captured at each shape).
+    decode_tail, every one of these two on the tensor-core route); the 96
+    PNGs exist; the flows' mean endpoint error against the known step over
+    the interior <= 0.25 px. encode_head and decode_tail are then held
+    against their plain versions, by phase 3's rule, on the arguments this
+    call gave them (captured at each shape).
 23. fast-stylizer path: ``use_magenta_stylizer(load_magenta_npz(...))``
     on the committed distilled checkpoint, then ``apply_style_transfer``
     on the same frames.
@@ -181,10 +192,13 @@ PEAK_FLOPS = 989e12
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("adain_head", "composite", "composite_ad", "hashgrad", "tvl1", "composite_walk")
+SOURCES = ("adain_head", "adain_head_tc", "composite", "composite_ad", "hashgrad", "tvl1",
+           "composite_walk")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "encode_head": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:174"),
-    "decode_tail": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:278"),
+    "encode_head": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:174"),
+    "decode_tail": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:278"),
+    "encode_head_fp32": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:174"),
+    "decode_tail_fp32": ("adain_head", "aip_tpu/ops/pallas/adain_head.py:278"),
     "composite_macro_mxu_seg": ("composite", "aip_tpu/ops/pallas/composite.py:442"),
     "composite_macro_mxu": ("composite", "aip_tpu/ops/pallas/composite.py:509"),
     "composite_macro_blocks": ("composite_walk", "aip_tpu/ops/pallas/composite.py:253"),
@@ -243,7 +257,11 @@ def main():
         emit("build", source=f"aip_tpu_torch/csrc/{name}.cu", seconds=build_s,
              compiled=bool(report),
              registers=[l.strip() for l in report.splitlines()
-                        if "registers" in l or "spill" in l])
+                        if "registers" in l or "spill" in l or "Compiling entry" in l])
+    tc = _build.library("adain_head_tc")
+    emit("build_smem", source="aip_tpu_torch/csrc/adain_head_tc.cu",
+         dynamic_smem_bytes={"encode_head_tc_kernel": tc.aip_adain_head_tc_smem(0),
+                             "decode_tail_tc_kernel": tc.aip_adain_head_tc_smem(1)})
 
     # Model and inputs, from seeds --------------------------------------------
     vgg = weights.get_vgg_params(device=dev)
@@ -260,16 +278,17 @@ def main():
 
     # 3. kernel vs plain ----------------------------------------------------
     cases = {
-        "encode_head": (K.encode_head, K.encode_head_reference, head_w, rand,
-                        [(2, 512, 512, 3), (2, 37, 45, 3)], (32, 512, 512, 3)),
-        "decode_tail": (K.decode_tail, K.decode_tail_reference, tail_w, relu_randn,
-                        [(2, 256, 256, 64), (2, 19, 23, 64)], (32, 256, 256, 64)),
+        "encode_head": (head_w, rand, [(2, 512, 512, 3), (2, 37, 45, 3)], (32, 512, 512, 3)),
+        "decode_tail": (tail_w, relu_randn, [(2, 256, 256, 64), (2, 19, 23, 64)],
+                        (32, 256, 256, 64)),
     }
     main_err = {}
-    for name, (kernel, plain, ws, make, shapes, serving) in cases.items():
-        runs = [(s, dt) for dt in (f32, bf16) for s in shapes] + [(serving, bf16)]
-        for shape, dt in runs:
-            err = _adain_check(torch, name, kernel, plain, make(*shape, dtype=dt), ws, "random")
+    for name, (ws, make, shapes, serving) in cases.items():
+        main_err[f"{name}_fp32"] = max(
+            _adain_check(torch, K, name, make(*shape, dtype=f32), ws, "random")
+            for shape in shapes)
+        for shape in shapes + [serving]:
+            err = _adain_check(torch, K, name, make(*shape, dtype=bf16), ws, "random")
         main_err[name] = err  # the serving-shape case, run last
     torch.cuda.empty_cache()
 
@@ -282,12 +301,16 @@ def main():
                                          compute_dtype=bf16, device=dev)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    tc_launches = K.tensor_core_launch_counts()
     emit("serving_path", batch=32, size=512, dtype="bfloat16", alpha=0.5,
-         out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), launches=launches)
+         out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), launches=launches,
+         tensor_core_launches=tc_launches)
     if not (out.shape == (32, 512, 512, 3) and torch.isfinite(out).all()):
         raise AssertionError("serving path output is not finite or has the wrong shape")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    if tc_launches != launches:
+        raise AssertionError(f"a bf16 launch missed the tensor-core route: {tc_launches}")
     del out
 
     # 5. end to end, card vs CPU, fp32 --------------------------------------
@@ -297,6 +320,7 @@ def main():
     on_card = adain_infer.stylize_with_stats(vgg, dec, img, m, s, compute_dtype=f32,
                                              device=dev).cpu()
     card_launches = K.launch_counts()
+    card_tc = K.tensor_core_launch_counts()
     vgg_cpu = weights.from_jax_params(_hwio(vgg), "cpu")
     dec_cpu = weights.from_jax_params(_hwio(dec), "cpu")
     m, s = adain_infer.precompute_style_stats(vgg_cpu, sty, compute_dtype=f32, device="cpu")
@@ -304,9 +328,11 @@ def main():
                                             device="cpu")
     diff = (on_card - on_cpu).abs()
     emit("end_to_end_fp32", size=256, mean_abs=diff.mean().item(), max_abs=diff.max().item(),
-         launches_on_card=card_launches, tol_mean_abs=1e-3)
-    if not (diff.mean().item() <= 1e-3 and min(card_launches.values()) > 0):
-        raise AssertionError("card and CPU disagree end to end")
+         launches_on_card=card_launches, tensor_core_launches=card_tc, tol_mean_abs=1e-3)
+    if not (diff.mean().item() <= 1e-3 and min(card_launches.values()) > 0
+            and max(card_tc.values()) == 0):
+        raise AssertionError("card and CPU disagree end to end, or fp32 missed its kernels")
+    launches.update({f"{k}_fp32": n for k, n in card_launches.items()})
 
     # 6. CLI ----------------------------------------------------------------
     from PIL import Image
@@ -338,36 +364,70 @@ def main():
 
     x = content.to(bf16)
     y = relu_randn(32, 256, 256, 64, dtype=bf16)
+    x32, y32 = content, y.float()
     w_eff, b_eff = K.fold_rgb_conv(*[w.to(bf16).float() for w in head_w[:4]])
     lib_head = [w.to(bf16) for w in (w_eff, b_eff, head_w[4], head_w[5])]
     lib_tail = [w.to(bf16) for w in tail_w]
-    timed = {
+    w_eff32, b_eff32 = K.fold_rgb_conv(*head_w[:4])
+    timed = {  # name -> (kernel, plain, library, its input, ms of the kernel)
         "encode_head": (lambda: K.encode_head(x, *head_w),
-                        lambda: K.encode_head_reference(x, *head_w),
-                        lambda: _library_head(F, x, *lib_head), _head_work(x)),
+                        lambda: K.encode_head_bf16_reference(x, *head_w),
+                        lambda: _library_head(F, x, *lib_head), x,
+                        lambda f: _time_many_ms(torch, f, 100)),
         "decode_tail": (lambda: K.decode_tail(y, *tail_w),
-                        lambda: K.decode_tail_reference(y, *tail_w),
-                        lambda: _library_tail(F, y, *lib_tail), _tail_work(y)),
+                        lambda: K.decode_tail_bf16_reference(y, *tail_w),
+                        lambda: _library_tail(F, y, *lib_tail), y,
+                        lambda f: _time_many_ms(torch, f, 100)),
+        "encode_head_fp32": (lambda: K.encode_head(x32, *head_w),
+                             lambda: K.encode_head_reference(x32, *head_w),
+                             lambda: _library_head(F, x32, w_eff32, b_eff32, *head_w[4:]), x32,
+                             lambda f: _time_ms(torch, f)),
+        "decode_tail_fp32": (lambda: K.decode_tail(y32, *tail_w),
+                             lambda: K.decode_tail_reference(y32, *tail_w),
+                             lambda: _library_tail(F, y32, *tail_w), y32,
+                             lambda f: _time_ms(torch, f)),
     }
     lines = []
-    for name, (kern, plain, lib, (flops, nbytes)) in timed.items():
-        t_comp, t_mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-        lines.append({
+    for name, (kern, plain, lib, arg, time_kernel) in timed.items():
+        flops, nbytes = (_head_work if name.startswith("encode") else _tail_work)(arg)
+        peak = PEAK_FLOPS if arg.dtype == bf16 else PEAK_FLOPS_F32
+        t_comp, t_mem = flops / peak, nbytes / PEAK_BYTES
+        line = {
             "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
             "replaces": KERNELS[name][1], "launches": launches[name],
             "max_abs_err": main_err[name],
-            "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
+            "ms": time_kernel(kern), "plain_ms": _time_ms(torch, plain),
             "bound_ms": max(t_comp, t_mem) * 1e3,
             "bound_by": "operations" if t_comp >= t_mem else "bytes",
             "library_ms": _time_ms(torch, lib),
-        })
-        emit("kernel_work", kernel=name, shape=list((x if name == "encode_head" else y).shape),
-             dtype="bfloat16", flops=flops, bytes=nbytes, peak_flops=PEAK_FLOPS,
-             peak_bytes_per_s=PEAK_BYTES)
+        }
+        lines.append(line)
+        emit("kernel_work", kernel=name, shape=list(arg.shape), dtype=str(arg.dtype)[6:],
+             flops=flops, bytes=nbytes, peak_flops=peak, peak_bytes_per_s=PEAK_BYTES,
+             ms=line["ms"], timing="100 calls in one window" if arg.dtype == bf16
+             else "median of 10 calls", achieved_tflops=flops / line["ms"] / 1e9,
+             bound_share=line["bound_ms"] / line["ms"])
+    torch.cuda.empty_cache()
+    z = relu_randn(32, 512, 512, 64, dtype=bf16).permute(0, 3, 1, 2)  # channels_last
+    w_conv = head_w[4].to(bf16).contiguous(memory_format=torch.channels_last)
+    b_conv = head_w[5].to(bf16)
+    conv_ms = _time_ms(torch, lambda: F.conv2d(z, w_conv, b_conv, padding=1))
+    conv_flops = 2 * z.numel() * 64 * 9
+    emit("conv64_cudnn", shape=list(z.shape), layout="channels_last", dtype="bfloat16",
+         conv64_cudnn_ms=conv_ms, achieved_tflops=conv_flops / conv_ms / 1e9,
+         definition="F.conv2d 64->64 3x3, zero padding 1, cuDNN; a yardstick for the "
+                    "kernels' dominant conv, not their library_ms")
+    del z, y32
 
     # 8. profile ------------------------------------------------------------
+    packs = [K.packed_weights("encode_head", *head_w), K.packed_weights("decode_tail", *tail_w)]
     _profile(torch, lambda: adain_infer.stylize_with_stats(
         vgg, dec, content, style_mean, style_std, alpha=0.5, compute_dtype=bf16, device=dev))
+    repacked = [K.packed_weights("encode_head", *head_w) is not packs[0],
+                K.packed_weights("decode_tail", *tail_w) is not packs[1]]
+    emit("serving_packs", repacked_during_profile=repacked)
+    if any(repacked):
+        raise AssertionError("a steady-state serving call repacked the kernels' weights")
     del content, x, y
     torch.cuda.empty_cache()
 
@@ -388,22 +448,41 @@ def main():
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _adain_check(torch, name, kernel, plain, x, ws, case):
-    """An AdaIN kernel wrapper against its plain version in fp32 on the same
-    inputs and weights rounded to x's dtype: max abs <= 1e-4 (fp32) or 1e-2
-    (bf16) of the reference's largest value. Returns the error."""
+def _adain_check(torch, K, name, x, ws, case):
+    """The AdaIN kernel wrapper ``name`` against its plain version in fp32 on
+    the same inputs and weights rounded to x's dtype: max abs <= 1e-4 (fp32)
+    or 1e-2 (bf16) of the reference's largest value; a bf16 x also against
+    the bf16 plain version (max abs <= 2^-7 of its largest value, one bf16
+    ulp there, and mean abs <= 1e-4 of it). The launch must take x's route:
+    tensor cores for bf16 alone.
+    Returns the error against the route's own plain version."""
     ws = [w.detach() for w in ws]
-    out = kernel(x, *ws)
+    tc_before = K.tensor_core_launch_counts()[name]
+    out = getattr(K, name)(x, *ws)
     torch.cuda.synchronize()
-    ref = plain(x.float(), *[w.to(x.dtype).float() for w in ws])
+    tc = K.tensor_core_launch_counts()[name] - tc_before == 1
+    ref = getattr(K, f"{name}_reference")(x.float(), *[w.to(x.dtype).float() for w in ws])
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
-    tol = (1e-4 if x.dtype == torch.float32 else 1e-2) * scale
+    bf16 = x.dtype == torch.bfloat16
+    tol = (1e-2 if bf16 else 1e-4) * scale
+    ok = out.shape == ref.shape and err <= tol and tc == bf16
+    fields = {}
+    if bf16:
+        ref = getattr(K, f"{name}_bf16_reference")(x, *ws).float()
+        diff, scale16 = (out.float() - ref).abs(), ref.abs().max().item()
+        fields = {"bf16_plain_max_abs_err": diff.max().item(), "bf16_plain_tol": 2 ** -7 * scale16,
+                  "bf16_plain_mean_abs_err": diff.mean().item(),
+                  "bf16_plain_mean_tol": 1e-4 * scale16}
+        ok = (ok and fields["bf16_plain_max_abs_err"] <= fields["bf16_plain_tol"]
+              and fields["bf16_plain_mean_abs_err"] <= fields["bf16_plain_mean_tol"])
     emit("kernel_vs_plain", kernel=name, case=case, shape=list(x.shape), dtype=str(x.dtype)[6:],
-         out_shape=list(out.shape), max_abs_err=err, max_abs_ref=scale, tol=tol)
-    if not (out.shape == ref.shape and err <= tol):
-        raise AssertionError(f"{name} {list(x.shape)} {x.dtype} ({case}): error {err} > {tol}")
-    return err
+         route="tensor_core" if tc else "fp32", out_shape=list(out.shape), max_abs_err=err,
+         max_abs_ref=scale, tol=tol, **fields)
+    if not ok:
+        raise AssertionError(f"{name} {list(x.shape)} {x.dtype} ({case}) failed: "
+                             f"error {err} > {tol}, {fields} or the wrong route")
+    return fields["bf16_plain_max_abs_err"] if bf16 else err
 
 
 def _hwio(module):
@@ -570,7 +649,8 @@ def _tail_work(y):
 
 
 def _library_head(F, x, w_eff, b_eff, w2, b2):
-    """The head as cuDNN calls on channels_last bf16, RGB conv folded."""
+    """The head as cuDNN calls on x's NHWC memory (channels_last), in x's
+    dtype, RGB conv folded."""
     t = x.permute(0, 3, 1, 2)
     t = F.relu(F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), w_eff, b_eff))
     t = F.relu(F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), w2, b2))
@@ -578,7 +658,8 @@ def _library_head(F, x, w_eff, b_eff, w2, b2):
 
 
 def _library_tail(F, y, w2, b2, w1, b1):
-    """The tail as cuDNN calls on channels_last bf16."""
+    """The tail as cuDNN calls on y's NHWC memory (channels_last), in y's
+    dtype."""
     u = F.interpolate(y.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
     z = F.relu(F.conv2d(F.pad(u, (1, 1, 1, 1), mode="reflect"), w2, b2))
     return F.conv2d(F.pad(z, (1, 1, 1, 1), mode="reflect"), w1, b1)
@@ -1426,24 +1507,25 @@ def _video_phases(torch, dev):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {**KT.launch_counts(), **KA.launch_counts()}
+    adain_tc = KA.tensor_core_launch_counts()
     epe = _endpoint_error(np, trace["flows"])
     emit("video_main", entry="aip_tpu_torch.pipelines.video.apply_style_transfer_multi_ada",
          frames=len(paths), pngs_exist=all(p.is_file() for p in paths),
          out_size=list(np.asarray(Image.open(paths[0])).shape), launches=launches,
-         flow_epe_px=epe, epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
+         adain_tensor_core_launches=adain_tc, flow_epe_px=epe, epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
          stage_ms_first_call=trace["stage_ms"])
     if not (len(paths) == VIDEO_FRAMES and all(p.is_file() for p in paths)):
         raise AssertionError("the video call did not write every frame")
     if not (launches["tvl1"] >= TVL1_FLOW_LAUNCHES and launches["encode_head"] > 0
             and launches["decode_tail"] > 0):
         raise AssertionError(f"a kernel of the video path was not launched: {launches}")
+    if adain_tc != KA.launch_counts():
+        raise AssertionError(f"a bf16 AdaIN launch missed the tensor-core route: {adain_tc}")
     if not epe <= EPE_BOUND:
         raise AssertionError(f"flows are {epe} px off the known step")
     # The AdaIN kernels at the shapes this call gave them, with phase 3's rule.
-    adain = {"encode_head": (KA.encode_head, KA.encode_head_reference),
-             "decode_tail": (KA.decode_tail, KA.decode_tail_reference)}
     for (name, _, _), (a, _) in adain_served.items():
-        _adain_check(torch, name, *adain[name], a[0], a[1:], "video served")
+        _adain_check(torch, KA, name, a[0], a[1:], "video served")
     del adain_served
 
     # 23. fast-stylizer path --------------------------------------------------------
@@ -1617,7 +1699,8 @@ VIDEO_STAGES = ("video.load", "video.depth", "video.stylize", "video.flows", "vi
                 "video.save")
 # The ctypes-launched kernels' stages, by kernel name (_stage_profile).
 VIDEO_NAMED = (("video.flows", "tvl1_iter_kernel"), ("video.stylize", "encode_head_kernel"),
-               ("video.stylize", "decode_tail_kernel"))
+               ("video.stylize", "decode_tail_kernel"), ("video.stylize", "encode_head_tc_kernel"),
+               ("video.stylize", "decode_tail_tc_kernel"))
 
 
 def _video_cli(torch, np, Image, KT, styles_dir):

@@ -8,7 +8,12 @@ The file imports no JAX, so it also runs on a machine that has none:
 Tolerances, relative to the largest reference value: fp32 kernel against
 the fp32 plain version with TF32 off, 1e-4 (sums in another order); bf16
 kernel against the plain version run in fp32 on the same bf16-rounded
-inputs and weights, 1e-2 (the kernel rounds its output to bf16).
+inputs and weights, 1e-2 (the kernel rounds its output to bf16); the
+bf16 (tensor-core) kernels against their bf16 plain versions, 2^-7 (one
+bf16 ulp at the largest value) with a mean of at most 1e-4: both round their
+output to bf16, so an fp32 sum in another order can land one ulp away, and
+a bf16 tie of the intermediate can flip (one such flip among the 180 values
+of a 6x10 output is a mean of 1.1e-5).
 """
 
 import math
@@ -69,6 +74,48 @@ def test_kernels_match_plain(cuda, weights, dtype, tol, hw):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (2, 2 * y.shape[1], 2 * y.shape[2], 3)
     assert _max_rel_err(out, K.decode_tail_reference(y.float(), *map(rnd, dw))) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 64, 96), (2, 37, 45), (2, 2, 2), (2, 3, 5), (3, 17, 33)])
+def test_tensor_core_kernels_match_bf16_plain(cuda, weights, b, h, w):
+    """The head on x [b,h,w,3] and the tail on y [b,h,w,64], each one
+    tensor-core launch, within one bf16 ulp of the largest value of the
+    bf16 plain version (2^-7 of it), with a mean error of at most 1e-4 of
+    it."""
+    ew, dw = weights
+    g = np.random.default_rng(3)
+    x = torch.from_numpy(g.random((b, h, w, 3)).astype(np.float32)).to(cuda).bfloat16()
+    y = torch.relu(_randn(g, (b, h, w, 64), 1.0)).to(cuda).bfloat16()
+    K.reset_launch_counts()
+    enc = K.encode_head(x, *ew)
+    dec = K.decode_tail(y, *dw)
+    torch.cuda.synchronize()
+    assert K.tensor_core_launch_counts() == K.launch_counts() == {"encode_head": 1,
+                                                                  "decode_tail": 1}
+    for out, ref in ((enc, K.encode_head_bf16_reference(x, *ew)),
+                     (dec, K.decode_tail_bf16_reference(y, *dw))):
+        assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
+        err = (out.float() - ref.float()).abs()
+        scale = float(ref.float().abs().max())
+        assert float(err.max()) <= 2 ** -7 * scale and float(err.mean()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_bf16_models_on_the_card_take_the_tensor_core_route(cuda):
+    """vgg_encode + decoder_apply in bf16 raise tensor_core_launch_counts()
+    by one each; in fp32 they launch the fp32 kernels and leave it alone."""
+    vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
+    x = torch.rand(2, 40, 56, 3, generator=torch.Generator().manual_seed(4)).to(cuda)
+    for dtype, step in ((torch.bfloat16, 1), (torch.float32, 0)):
+        tc, total = K.tensor_core_launch_counts(), K.launch_counts()
+        out = tdec.decoder_apply(dec, tvgg.vgg_encode(vgg, x, compute_dtype=dtype),
+                                 compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert K.tensor_core_launch_counts() == {k: n + step for k, n in tc.items()}
+        assert K.launch_counts() == {k: n + 1 for k, n in total.items()}
+        assert out.dtype == dtype and out.shape == (2, 40, 56, 3)
+        assert bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.cuda

@@ -231,3 +231,14 @@ def test_run_3dgs_rendering_matches_jax(tmp_path, rng, monkeypatch):
         assert a.max() > 10  # something was drawn
     with pytest.raises(NotImplementedError, match="slice 6"):
         t_render(str(tmp_path / "style.png"), str(model), mesh_dp=2, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(renderer="rasterize"), dict(mode="eval")])
+def test_render_refuses_an_unknown_renderer_or_mode(kw):
+    """A deliberate difference: the port's ``render`` raises ValueError on a
+    renderer or a mode it does not name, before any work. aip_tpu's
+    ``render`` runs ``rasterize`` for any renderer but "matmul" and
+    "pallas" (aip_tpu/gs/render.py:477-483) and renders any mode but
+    "inference" as training (:398-413)."""
+    with pytest.raises(ValueError, match="unknown render"):
+        TRN.render(None, None, None, None, **kw)

@@ -338,3 +338,26 @@ def test_config_copy_matches_jax(tmp_path):
         merged = mod.get_combined_args(parser, ["--model_path", str(tmp_path)])
         out.append((vars(args), [g.extract(args).to_dict() for g in groups], vars(merged)))
     assert out[0] == out[1]
+
+
+def test_run_3dgs_cli_adds_three_flags_with_the_trainers_defaults(monkeypatch):
+    """A deliberate difference: the port's ``run_3dgs`` CLI takes
+    ``--capacity``, ``--log2_hashmap`` and ``--img_size``, which aip_tpu's
+    CLI refuses (argparse exits). Their defaults equal
+    ``run_3dgs_training``'s, so a run without them trains as aip_tpu's
+    does."""
+    import inspect
+
+    from aip_tpu.cli import run_3dgs as jcli
+    from aip_tpu_torch.cli import run_3dgs as tcli
+    from aip_tpu_torch.gs import pipeline as tpipe
+
+    defaults = inspect.signature(tpipe.run_3dgs_training).parameters
+    seen = {}
+    monkeypatch.setattr(tpipe, "run_3dgs_training", lambda *a, **kw: seen.update(kw) or "m")
+    monkeypatch.setattr(tpipe, "run_3dgs_rendering", lambda *a, **kw: "render.gif")
+    assert tcli.main(["--content", "scene", "--style", "style.png"]) == "render.gif"
+    for flag in ("capacity", "log2_hashmap", "img_size"):
+        assert seen[flag] == defaults[flag].default
+        with pytest.raises(SystemExit):
+            jcli.main(["--content", "scene", "--style", "style.png", f"--{flag}", "8"])
