@@ -114,13 +114,16 @@ iterations), blend 0.7:
 
 21. ``tvl1`` kernel vs plain, float32: on the inputs the 96-frame flow call
     hands each pyramid level (95 pairs at 256^2, 128^2, 64^2 and 32^2,
-    captured from the first warp), 300 iterations, and on edge cases (H or
-    W = 2, 37x45, grad2 = 0 everywhere, iters 0 and 1, B = 1); max abs
-    <= 1e-5.
+    captured from the first warp), 300 iterations, on random 128^2 and
+    64^2 fields at 95 pairs and 300 iterations, and on edge cases (H or
+    W = 2, H smaller than the tile form's halo, 37x45, frames just above
+    the whole-frame limit, grad2 = 0 everywhere, iters 0, 1 and not a
+    multiple of the tile form's k, B = 1); max abs 0: both round alike.
 22. main path: ``pipelines.video.apply_style_transfer_multi_ada`` on the
     frame directory, with the launch counts set to 0 just before and read
-    just after (tvl1 300 launches per level and warp, encode_head,
-    decode_tail, every one of these two on the tensor-core route); the 96
+    just after (tvl1 at least 300 iterations per level and warp on the
+    kernel, in fewer launches; encode_head, decode_tail, every one of
+    these two on the tensor-core route); the 96
     PNGs exist; the flows' mean endpoint error against the known step over
     the interior <= 0.25 px. encode_head and decode_tail are then held
     against their plain versions, by phase 3's rule, on the arguments this
@@ -132,11 +135,14 @@ iterations), blend 0.7:
     card (kernels) against the port on the CPU (plain versions): frames
     mean abs <= 1e-3, flows mean abs <= 1e-4 px.
 25. times: frames/s of the phase-22 call (host clock, median of 3) with its
-    stages (CUDA events), the ``tvl1`` kernel's ms per (level, warp) call
-    at each level, per iteration, its launches, plain ms and bound, and a
-    torch.profiler breakdown of one video call by stage with the busy
-    share. Then the CLI, ``cli.run_video.main`` on 4 frames, where cv2
-    imports (the card's machine has none: a line says it did not run).
+    stages (CUDA events); per pyramid level the ``tvl1`` kernel's form
+    (whole frame, or tile and k), ms per (level, warp) call, ms per
+    iteration, launches per call and bound; the tile form's k in {4, 8,
+    12, 16} at 256^2 and 128^2; its SASS instructions per pixel and
+    iteration (cuobjdump); its plain ms; and a torch.profiler breakdown of
+    one video call by stage with the busy share. Then the CLI,
+    ``cli.run_video.main`` on 4 frames, where cv2 imports (the card's
+    machine has none: a line says it did not run).
 
 The other 3DGS render paths and the novel-view video, on the committed
 model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
@@ -175,6 +181,7 @@ the run writes goes under ``build/chip_smoke/`` in the checkout.
 import json
 import math
 import os
+import re
 import statistics
 import shutil
 import subprocess
@@ -1436,10 +1443,10 @@ VIDEO_WORK = WORK / "video"
 VIDEO_FRAMES, VIDEO_SIZE = 96, 256
 VIDEO_STEP = (0.6, -0.35)        # (dx, dy) px a frame: the flows are -VIDEO_STEP
 EPE_MARGIN, EPE_BOUND = 16, 0.25  # tests/test_torch_port_flow.py's bound, in px
-TVL1_TOL = 1e-5
+TVL1_TOL = 0.0                   # the kernel rounds every operation as the plain loop does
 TVL1_PIXEL_ITER_FLOPS = 55       # float32 operations per pixel and iteration
 TVL1_PIXEL_BYTES = 64            # 10 fields read, 6 written, float32
-TVL1_FLOW_LAUNCHES = 4 * 5 * 300  # kernel launches of one flow call: levels x warps x iterations
+TVL1_FLOW_ITERATIONS = 4 * 5 * 300  # kernel iterations of one flow call: levels x warps x iters
 DISTILLED = ROOT / "docs" / "examples" / "magenta" / "magenta_distilled.npz"
 
 
@@ -1478,12 +1485,17 @@ def _video_phases(torch, dev):
     main_err = max(_tvl1_check(torch, KT, a, f"served {hw}^2") for hw, (a, _) in served.items())
     args = served[VIDEO_SIZE][0]
     gen = torch.Generator(device=dev).manual_seed(21)
-    for case, b, h, w, iters, flat in (("H=2", 4, 2, 64, 30, False), ("W=2", 4, 64, 2, 30, False),
-                                       ("37x45", 2, 37, 45, 30, False),
-                                       ("grad2=0", 2, 64, 64, 30, True),
-                                       ("iters=0", 2, 32, 32, 0, False),
-                                       ("iters=1", 2, 32, 32, 1, False),
-                                       ("B=1", 1, VIDEO_SIZE, VIDEO_SIZE, 300, False)):
+    above = KT.FRAME_SIDE + 1  # the smallest side that takes the tile form
+    for case, b, h, w, iters, flat in (
+            ("H=2", 4, 2, 200, 30, False), ("W=2", 4, 200, 2, 30, False),
+            ("H=3 < halo", 4, 3, 200, 300, False), ("37x45", 2, 37, 45, 30, False),
+            ("H above the whole-frame limit", 4, above, KT.FRAME_SIDE, 300, False),
+            ("W above the whole-frame limit", 4, KT.FRAME_SIDE, above, 300, False),
+            ("grad2=0", 2, 100, 100, 30, True), ("iters=0", 2, 32, 32, 0, False),
+            ("iters=1", 2, 100, 100, 1, False),
+            ("iters not a multiple of k", 2, 100, 100, 3 * KT.form(100, 100) + 1, False),
+            ("B=1", 1, VIDEO_SIZE, VIDEO_SIZE, 300, False),
+            ("random 128^2", 95, 128, 128, 300, False), ("random 64^2", 95, 64, 64, 300, False)):
         _tvl1_check(torch, KT, _tvl1_random(torch, gen, dev, b, h, w, iters, flat), case)
 
     # 22. main path: the 96-frame multi-style depth-aware video call -------------------
@@ -1507,16 +1519,18 @@ def _video_phases(torch, dev):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {**KT.launch_counts(), **KA.launch_counts()}
+    tvl1_iters = KT.iteration_counts()["tvl1"]
     adain_tc = KA.tensor_core_launch_counts()
     epe = _endpoint_error(np, trace["flows"])
     emit("video_main", entry="aip_tpu_torch.pipelines.video.apply_style_transfer_multi_ada",
          frames=len(paths), pngs_exist=all(p.is_file() for p in paths),
          out_size=list(np.asarray(Image.open(paths[0])).shape), launches=launches,
-         adain_tensor_core_launches=adain_tc, flow_epe_px=epe, epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
+         tvl1_iterations=tvl1_iters, adain_tensor_core_launches=adain_tc, flow_epe_px=epe,
+         epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
          stage_ms_first_call=trace["stage_ms"])
     if not (len(paths) == VIDEO_FRAMES and all(p.is_file() for p in paths)):
         raise AssertionError("the video call did not write every frame")
-    if not (launches["tvl1"] >= TVL1_FLOW_LAUNCHES and launches["encode_head"] > 0
+    if not (_tvl1_ran(launches["tvl1"], tvl1_iters) and launches["encode_head"] > 0
             and launches["decode_tail"] > 0):
         raise AssertionError(f"a kernel of the video path was not launched: {launches}")
     if adain_tc != KA.launch_counts():
@@ -1541,12 +1555,14 @@ def _video_phases(torch, dev):
     finally:
         video.register_fast_stylizer(None)
     fast_launches = KT.launch_counts()
+    fast_iters = KT.iteration_counts()["tvl1"]
     emit("video_fast_stylizer", entry="aip_tpu_torch.pipelines.video.apply_style_transfer",
          checkpoint=str(DISTILLED.relative_to(ROOT)), frames=len(fast), launches=fast_launches,
+         tvl1_iterations=fast_iters,
          flow_epe_px=_endpoint_error(np, fast_trace["flows"]),
          stage_ms_first_call=fast_trace["stage_ms"])
     if not (len(fast) == VIDEO_FRAMES and all(p.is_file() for p in fast)
-            and fast_launches["tvl1"] >= TVL1_FLOW_LAUNCHES):
+            and _tvl1_ran(fast_launches["tvl1"], fast_iters)):
         raise AssertionError("the fast-stylizer video call failed")
 
     # 24. card vs CPU, fp32, 6 frames at 64^2 --------------------------------------------
@@ -1570,22 +1586,35 @@ def _video_phases(torch, dev):
 
     per_level = {}
     for hw, (a, _) in sorted(served.items()):
-        per_level[hw] = {"shape": list(a[0].shape),
-                         "ms_per_call": _time_many_ms(torch, lambda: KT.tvl1_inner(*a), 5, 1),
-                         "ms_per_call_single": _time_ms(torch, lambda: KT.tvl1_inner(*a), 3, 1)}
-    one = (*args[:7], 1, *args[8:])
-    ms_iter = _time_many_ms(torch, lambda: KT.tvl1_inner(*one), 300, 3)
+        b, h, w = a[0].shape
+        iters, k = a[7], KT.form(h, w)
+        KT.reset_launch_counts()
+        KT.tvl1_inner(*a)
+        launches_per_call = KT.launch_counts()["tvl1"]
+        ms = _time_many_ms(torch, lambda: KT.tvl1_inner(*a), 5, 1)
+        t_comp, t_mem = _tvl1_bound_s(b, h, w, iters)
+        per_level[hw] = {"shape": [b, h, w], "iters": iters,
+                         "form": "whole frame" if k == 0 else
+                                 f"tiles of {KT.TILE_SIDE - 2 * k}^2 with a {k}-px halo",
+                         "k": k if k else iters, "launches_per_call": launches_per_call,
+                         "ms_per_call": ms, "ms_per_iteration": ms / iters,
+                         "ms_per_call_single": _time_ms(torch, lambda: KT.tvl1_inner(*a), 3, 1),
+                         "bound_ms": max(t_comp, t_mem) * 1e3}
+    # The tile form's k: iterations a launch, each on a (64 - 2k)^2 tile.
+    k_sweep = {hw: {k: _time_many_ms(torch, lambda: KT._launch(*served[hw][0], k=k), 5, 1)
+                    for k in KT.TILE_KS} for hw in (VIDEO_SIZE, VIDEO_SIZE // 2)}
     plain_ms = _time_ms(torch, lambda: KT.tvl1_inner_reference(*args), 3, 1)
     b, h, w = args[0].shape
     iters = args[7]
-    flops = TVL1_PIXEL_ITER_FLOPS * b * h * w * iters
-    nbytes = TVL1_PIXEL_BYTES * b * h * w
-    t_comp, t_mem = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+    t_comp, t_mem = _tvl1_bound_s(b, h, w, iters)
     call_ms = per_level[VIDEO_SIZE]["ms_per_call"]
     emit("tvl1_kernel_work", served_shape=[b, h, w], iters=iters, per_level=per_level,
-         ms_per_iteration_in_call=call_ms / iters, ms_per_iteration_one_iteration_calls=ms_iter,
-         launches_per_video_call=launches["tvl1"],
-         calls_per_video_call=launches["tvl1"] // iters, flops=flops, bytes=nbytes,
+         k_sweep_ms_per_call=k_sweep,
+         k_chosen={hw: KT.form(hw, hw) for hw in k_sweep},
+         sass_per_pixel_iteration=_tvl1_sass_per_pixel_iteration(),
+         launches_per_video_call=launches["tvl1"], iterations_per_video_call=tvl1_iters,
+         calls_per_video_call=tvl1_iters // iters,
+         flops=TVL1_PIXEL_ITER_FLOPS * b * h * w * iters, bytes=TVL1_PIXEL_BYTES * b * h * w,
          flow_stage_kernel_ms=sum(5 * v["ms_per_call"] for v in per_level.values()),
          definition=("operations = 55 float32 per pixel and iteration (a division and a square "
                      "root as one each) at 67 TFLOP/s (H100 SXM, CUDA cores); bytes = the ten "
@@ -1596,6 +1625,7 @@ def _video_phases(torch, dev):
         frames=VIDEO_FRAMES)
     _video_cli(torch, np, Image, KT, styles_dir)
     return [{"name": "tvl1", "route": "cuda", "source": "aip_tpu_torch/csrc/tvl1.cu",
+             "iterations": tvl1_iters,
              "replaces": KERNELS["tvl1"][1], "launches": launches["tvl1"],
              "max_abs_err": main_err, "ms": call_ms, "plain_ms": plain_ms,
              "bound_ms": max(t_comp, t_mem) * 1e3,
@@ -1632,6 +1662,48 @@ def _endpoint_error(np, flows):
     c = EPE_MARGIN
     inner = flows[:, c:-c, c:-c].float().cpu().numpy()
     return float(np.linalg.norm(inner + np.asarray(VIDEO_STEP), axis=-1).mean())
+
+
+def _tvl1_ran(launches, iterations):
+    """A flow call's tvl1 counts: every iteration of its 4 levels x 5 warps
+    x 300 ran on the kernel, in fewer launches than iterations."""
+    return iterations >= TVL1_FLOW_ITERATIONS and 0 < launches < iterations
+
+
+def _tvl1_bound_s(b, h, w, iters):
+    """(operations, bytes) over the card's peaks, in seconds, of one call."""
+    return (TVL1_PIXEL_ITER_FLOPS * b * h * w * iters / PEAK_FLOPS_F32,
+            TVL1_PIXEL_BYTES * b * h * w / PEAK_BYTES)
+
+
+def _tvl1_sass_per_pixel_iteration():
+    """SASS instructions of each tvl1 kernel instantiation's iteration loop
+    (the backward branch spanning the most instructions), per pixel a thread
+    holds, read with cuobjdump from the built library; None where the
+    toolkit has no cuobjdump. Keyed "RWxRH/PPT/K"."""
+    from aip_tpu_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_build._target("tvl1"))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        params = re.search(r"tvl1_blocked_kernel\D*?ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
+        if params is None:
+            continue
+        rw, rh, ppt, k = (int(v) for v in params.groups())
+        ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loop = 0
+        for at, text in ins:
+            m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < at:
+                start = int(m.group(1), 16)
+                loop = max(loop, sum(1 for a, _ in ins if start <= a <= at))
+        out[f"{rw}x{rh}/{ppt}/{k}"] = {"loop_instructions": loop, "per_pixel": loop / ppt,
+                                       "kernel_instructions": len(ins)}
+    return out
 
 
 def _tvl1_random(torch, gen, dev, b, h, w, iters, flat):
@@ -1682,23 +1754,25 @@ def _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, card):
             target_resolution=(64, 64), compute_dtype=torch.float32, vgg_params=v,
             dec_params=d, device=dev, trace=trace)
         imgs = np.stack([np.asarray(Image.open(p), np.float64) for p in paths]) / 255.0
-        res[torch.device(dev).type] = (imgs, trace["flows"].cpu(), KT.launch_counts()["tvl1"])
-    (i_gpu, f_gpu, n_gpu), (i_cpu, f_cpu, n_cpu) = res["cuda"], res["cpu"]
+        res[torch.device(dev).type] = (imgs, trace["flows"].cpu(), KT.launch_counts()["tvl1"],
+                                       KT.iteration_counts()["tvl1"])
+    (i_gpu, f_gpu, n_gpu, it_gpu), (i_cpu, f_cpu, n_cpu, it_cpu) = res["cuda"], res["cpu"]
     img_err = np.abs(i_gpu - i_cpu)
     flow_err = (f_gpu - f_cpu).abs()
     emit("video_card_vs_cpu", frames=6, size=64, frames_mean_abs=float(img_err.mean()),
          frames_max_abs=float(img_err.max()), flows_mean_abs_px=flow_err.mean().item(),
          flows_max_abs_px=flow_err.max().item(), tol_frames_mean_abs=1e-3,
-         tol_flows_mean_abs_px=1e-4, tvl1_launches_on_card=n_gpu, tvl1_launches_on_cpu=n_cpu)
+         tol_flows_mean_abs_px=1e-4, tvl1_launches_on_card=n_gpu, tvl1_iterations_on_card=it_gpu,
+         tvl1_launches_on_cpu=n_cpu, tvl1_iterations_on_cpu=it_cpu)
     if not (img_err.mean() <= 1e-3 and flow_err.mean().item() <= 1e-4
-            and n_gpu >= TVL1_FLOW_LAUNCHES and n_cpu == 0):
+            and _tvl1_ran(n_gpu, it_gpu) and n_cpu == it_cpu == 0):
         raise AssertionError("the video call on the card disagrees with the CPU")
 
 
 VIDEO_STAGES = ("video.load", "video.depth", "video.stylize", "video.flows", "video.blend",
                 "video.save")
 # The ctypes-launched kernels' stages, by kernel name (_stage_profile).
-VIDEO_NAMED = (("video.flows", "tvl1_iter_kernel"), ("video.stylize", "encode_head_kernel"),
+VIDEO_NAMED = (("video.flows", "tvl1_blocked_kernel"), ("video.stylize", "encode_head_kernel"),
                ("video.stylize", "decode_tail_kernel"), ("video.stylize", "encode_head_tc_kernel"),
                ("video.stylize", "decode_tail_tc_kernel"))
 
@@ -1727,8 +1801,10 @@ def _video_cli(torch, np, Image, KT, styles_dir):
                           "--styled_dir", str(cli / "styled")])
     torch.cuda.synchronize()
     emit("video_cli", ran=True, entry="aip_tpu_torch.cli.run_video.main", output=out,
-         exists=Path(out).is_file(), launches=KT.launch_counts())
-    if not (Path(out).is_file() and KT.launch_counts()["tvl1"] >= TVL1_FLOW_LAUNCHES):
+         exists=Path(out).is_file(), launches=KT.launch_counts(),
+         iterations=KT.iteration_counts())
+    if not (Path(out).is_file()
+            and _tvl1_ran(KT.launch_counts()["tvl1"], KT.iteration_counts()["tvl1"])):
         raise AssertionError("the video CLI wrote no video or launched no tvl1 kernel")
 
 

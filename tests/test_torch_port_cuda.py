@@ -611,11 +611,16 @@ def _tvl1_inputs(g, b, h, w, cuda, flat=False):
 @pytest.mark.parametrize("shape,iters,flat", [
     ((3, 64, 96), 1, False), ((3, 64, 96), 30, False), ((2, 256, 256), 300, False),
     ((2, 2, 9), 30, False), ((2, 11, 2), 30, False), ((1, 37, 45), 30, False),
-    ((2, 33, 40), 30, True), ((1, 16, 16), 0, False)])
+    ((2, 33, 40), 30, True), ((1, 16, 16), 0, False),
+    ((2, 65, 64), 300, False), ((2, 64, 65), 300, False),    # just above the whole frame
+    ((2, 3, 150), 30, False), ((2, 150, 5), 30, False),      # H or W below the halo
+    ((2, 100, 100), 29, False),                              # iters not a multiple of k
+    ((95, 128, 128), 300, False), ((95, 64, 64), 300, False)])
 def test_tvl1_kernel_matches_plain(cuda, shape, iters, flat):
     """tvl1_inner against tvl1_inner_reference on the card. Both round every
     operation alike (the kernel with _rn intrinsics in the plain version's
-    order), so they agree to 1e-5 absolute even after 300 iterations."""
+    order), so they agree to the bit even after 300 iterations. Frames up to
+    FRAME_SIDE take one launch a call, larger ones ceil(iters / k)."""
     from aip_tpu_torch.kernels import tvl1 as KT
 
     g = np.random.default_rng(9)
@@ -624,11 +629,12 @@ def test_tvl1_kernel_matches_plain(cuda, shape, iters, flat):
     KT.reset_launch_counts()
     got = KT.tvl1_inner(*args, p, *consts)
     torch.cuda.synchronize()
-    assert KT.launch_counts() == {"tvl1": iters}       # one launch an iteration
+    assert KT.launch_counts() == {"tvl1": KT.launches_per_call(*shape[1:], iters)}
+    assert KT.iteration_counts() == {"tvl1": iters}
     want = KT.tvl1_inner_reference(*args, p, *consts)
     for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
         assert a.shape == b.shape == shape
-        assert float((a - b).abs().max()) <= 1e-5
+        assert torch.equal(a, b)
     for a, b in zip(args[4:] + list(p), (got[0], got[1], *got[2])):   # inputs untouched
         assert a.data_ptr() != b.data_ptr()
 
@@ -645,7 +651,8 @@ def test_tvl1_flow_on_the_card_matches_the_cpu(cuda):
     b = torch.roll(a, shifts=(1, 1), dims=(1, 2))
     KT.reset_launch_counts()
     on_card = estimate_flow_tvl1(a.to(cuda), b.to(cuda), iters=50).cpu()
-    assert KT.launch_counts() == {"tvl1": 4 * 5 * 50}  # levels x warps x iterations
+    assert KT.iteration_counts() == {"tvl1": 4 * 5 * 50}  # levels x warps x iterations
+    assert KT.launch_counts() == {"tvl1": 4 * 5}          # 48^2 and below: the whole frame
     on_cpu = estimate_flow_tvl1(a, b, iters=50)
     assert float((on_card - on_cpu).abs().mean()) <= 1e-4
 
@@ -666,3 +673,8 @@ def test_tvl1_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         KT.tvl1_inner(*args[:5], args[5].transpose(1, 2), p, *consts)
     with pytest.raises(ValueError):
         KT.tvl1_inner(*args, p[:3], *consts)
+    with pytest.raises(ValueError):   # a k the kernel is not built for
+        KT._launch(*args, p, *consts, k=5)
+    big, big_p = _tvl1_inputs(np.random.default_rng(12), 1, 80, 8, cuda)
+    with pytest.raises(ValueError):   # more than FRAME_SIDE rows cannot run whole
+        KT._launch(*big, big_p, *consts, k=0)
