@@ -8,8 +8,8 @@ radius, the opacity-aware selection extent, and two renderers:
   (``select_per_tile``, or ``select_per_tile_hierarchical`` when
   ``settings.macro > 1``; selection sees stop-gradient depths, radii and
   opacities, as at :816-821), then the composite. On a CUDA tensor the
-  composite is always ``kernels.composite_ad.composite_tiles_ad`` (kernel A
-  forward, kernel B backward), the way the reference's CUDA rasterizer
+  composite is always ``kernels.composite_ad.composite_tiles_ad_packed``
+  (kernel A forward, kernel B backward), the way the reference's CUDA rasterizer
   streams; on a CPU tensor ``ad_backend="xla"`` takes the dense
   ``[tiles, K, 256]`` autograd of ``composite_tiles`` and ``"pallas"`` the
   Function's plain versions. ``screenspace_offset`` is added to the
@@ -605,8 +605,9 @@ def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmat
             table = torch.cat([mean2d, conics, colors, opacities[:, None]], dim=1)
             g = torch.index_select(table, 0, flat).reshape(n_tiles, k, 9)
         with record_function("gs.composite"):
-            tiles = KAD.composite_tiles_ad(g[..., 0:2], g[..., 2:5], g[..., 5:8], g[..., 8:9],
-                                           slot_valid, tw, bg)
+            # The packed rows reach kernel A where they lie, and kernel B's
+            # [T, K, 9] gradient is index_select's cotangent as it is.
+            tiles = KAD.composite_tiles_ad_packed(g, slot_valid, tw, bg)
         return _tiles_to_image(tiles, settings), radii
     with record_function("gs.composite"):
         img = composite_tiles(sel_idx, sel_depth, mean2d, conics, colors, opacities, bg,

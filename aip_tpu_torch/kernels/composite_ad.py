@@ -1,50 +1,83 @@
 """Differentiable per-tile compositor: wrappers of kernels A and B, their
-plain versions and the autograd Function.
+plain versions, the emulation of the kernels' walks and the autograd
+Function.
 
 Port of ``aip_tpu/ops/pallas/composite_ad.py`` (``composite_tiles_ad``, a
 ``jax.custom_vjp`` over two Pallas kernels). The CUDA kernels are in
 ``aip_tpu_torch/csrc/composite_ad.cu`` (its header note gives the gradient
-identities, what bounds the kernels and how they are laid out). Here:
+identities, what bounds the kernels, the cull and how they are laid out).
+Here:
 
-* ``composite_ad_fwd`` (kernel A, replaces ``_pallas_fwd``) and
-  ``composite_ad_bwd`` (kernel B, replaces ``_pallas_bwd``): for a CUDA
-  tensor each launches its kernel or raises; for a CPU tensor it runs its
-  plain version. Each counts its launches in ``.launches``.
+* ``composite_ad_fwd_packed`` (kernel A, replaces ``_pallas_fwd``) and
+  ``composite_ad_bwd_packed`` (kernel B, replaces ``_pallas_bwd``) on the
+  packed per-tile rows [T, K, 9] (mean x, y, conic a, b, c, colour r, g, b,
+  opacity), the rasterizer's gather: for a CUDA tensor each launches its
+  kernel or raises; for a CPU tensor it runs its plain version. B returns
+  one [T, K, 9] gradient. ``launch_counts()`` counts the launches.
+  ``composite_ad_fwd`` / ``composite_ad_bwd`` take the four arrays apart,
+  as the JAX kernels do, and pack them (the tests' form).
 * ``composite_ad_fwd_reference`` / ``composite_ad_bwd_reference``: the same
   walks in plain torch, vectorised over tiles and pixels with a Python loop
   over the K slots (front to back, then back to front with the suffix
   accumulators).
-* ``composite_tiles_ad``: the ``torch.autograd.Function`` the rasterizer
-  calls on the gathered per-tile arrays; returns [T, 3, 16, 16].
+* ``live_slots``: the kernels' cull, a conservative proof per (tile, slot)
+  that alpha < 1/255 at every pixel of the tile; and
+  ``composite_ad_fwd_culled_reference`` /
+  ``composite_ad_bwd_culled_reference``: the kernels' walks emulated in
+  plain torch (each tile's live list only; B's sums per thread of P pixels,
+  then the warp's butterfly, then across warps; B's one suffix division).
+* ``composite_tiles_ad_packed``: the ``torch.autograd.Function`` the
+  rasterizer calls on its packed gather, returning [T, 3, 16, 16] and, in
+  the backward, one [T, K, 9] gradient; ``composite_tiles_ad`` keeps the
+  JAX package's signature (four arrays).
 
 Inputs are the gathered per-tile arrays: mean [T, K, 2], conic [T, K, 3],
-colour [T, K, 3], opacity [T, K, 1], valid [T, K, 1] (1.0 where the slot
-holds a Gaussian), bg [3]; tile t's origin is ((t % tile_w) * 16,
-(t // tile_w) * 16).
+colour [T, K, 3], opacity [T, K, 1] (packed: [T, K, 9] in that order),
+valid [T, K, 1] (1.0 where the slot holds a Gaussian), bg [3]; tile t's
+origin is ((t % tile_w) * 16, (t // tile_w) * 16).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from aip_tpu_torch.kernels._build import library
 
 TILE = 16
-MAX_SMEM = 227 * 1024
+SLOT = 9                      # packed row: mean 2, conic 3, colour 3, opacity 1
+MAX_SMEM = 227 * 1024         # dynamic shared memory a block may take on the H100
+PIXELS_PER_THREAD = (1, 2, 4, 8)
+FWD_P = 2                     # P of each kernel (the sweep in PERF.md)
+BWD_P = 2
+# The cull's threshold and margin (csrc/composite_ad.cu, header note).
+ALPHA_MIN = float(torch.tensor(1.0 / 255.0, dtype=torch.float32))
+ROUNDING_MARGIN = 16 * 2.0 ** -24   # of rho q / 2: more than twice the power's rounding
+EXP_MARGIN = 1e-6                   # expf's 2 ulp and the opacity product, as log
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = library("composite_ad")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_composite_ad_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.aip_composite_ad_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.aip_composite_ad_fwd.restype = ctypes.c_int
-    lib.aip_composite_ad_bwd.restype = ctypes.c_int
+    lib.aip_composite_ad_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.aip_composite_ad_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.aip_composite_ad_smem.argtypes = [i, i, i]
+    for fn in (lib.aip_composite_ad_fwd, lib.aip_composite_ad_bwd, lib.aip_composite_ad_smem):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def pack(mean, conic, color, op):
+    """The packed rows [T, K, 9] of the four gathered arrays."""
+    return torch.cat([mean, conic, color, op], dim=-1)
+
+
+def _unpack(g):
+    return g[..., 0:2], g[..., 2:5], g[..., 5:8], g[..., 8:9]
 
 
 # ---------------------------------------------------------------------------
@@ -131,13 +164,180 @@ def composite_ad_bwd_reference(mean, conic, color, op, valid, bg, t_final, g_out
     return grads[..., 0:2], grads[..., 2:5], grads[..., 5:8], grads[..., 8:9]
 
 
+
+
+# ---------------------------------------------------------------------------
+# The kernels' walks, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def live_slots(g, valid, tile_w: int):
+    """[T, K] bool: the slots each tile's walk keeps, as kernels A and B
+    decide while staging a tile. A slot goes when it is invalid, when its
+    opacity is <= 0, or when its conic is positive definite and a test in
+    float64 proves alpha < 1/255 at every pixel of the tile: the least
+    q = a X^2 + 2 b X Y + c Y^2 over the tile's pixel box (X, Y from the
+    mean; the exact minimum of a convex quadratic, on the box's edges unless
+    the mean is inside) against 2 ln(255 op), with a margin for the kernel's
+    float32 rounding of the power, in proportion to q (the rounding is at
+    most 6 u rho q / 2 at a pixel), and for expf's error. Every other slot stays, so a culled
+    slot has alpha 0 at every pixel and skipping it is exact."""
+    n_tiles = g.shape[0]
+    d = g.to(torch.float64)
+    mx, my, a, b, c, op = (d[..., i] for i in (0, 1, 2, 3, 4, 8))
+    t = torch.arange(n_tiles, device=g.device)
+    x0 = ((t % tile_w) * TILE).to(torch.float64)[:, None]
+    y0 = ((t // tile_w) * TILE).to(torch.float64)[:, None]
+    xa, xb = x0 - mx, (x0 + (TILE - 1)) - mx
+    ya, yb = y0 - my, (y0 + (TILE - 1)) - my
+    pd = (a > 0) & (c > 0) & (a * c - b * b > 0)
+
+    def q(x, y):
+        return ((a * x) * x + 2.0 * ((b * x) * y)) + (c * y) * y
+
+    def on_x(x):      # the edge X = x: the least q at Y = -b x / c, clamped
+        return q(x, torch.clamp(-(b * x) / c, ya, yb))
+
+    def on_y(y):
+        return q(torch.clamp(-(b * y) / a, xa, xb), y)
+
+    q_min = torch.minimum(torch.minimum(on_x(xa), on_x(xb)), torch.minimum(on_y(ya), on_y(yb)))
+    inside = (xa <= 0) & (xb >= 0) & (ya <= 0) & (yb >= 0)
+    q_min = torch.where(inside, torch.zeros_like(q_min), q_min)
+    # rho bounds (a X^2 + c Y^2 + 2 |b X Y|) / q everywhere: 1 + 2 |b| / lambda_min.
+    half_d = 0.5 * (a - c)
+    l_max = 0.5 * (a + c) + torch.sqrt(half_d * half_d + b * b)
+    rho = 1.0 + (2.0 * b.abs()) / ((a * c - b * b) / l_max)
+    bound = (torch.log(op) - (0.5 * q_min) * (1.0 - ROUNDING_MARGIN * rho)) + EXP_MARGIN
+    invisible = (op <= 0) | (pd & (bound < math.log(ALPHA_MIN)))
+    return (valid[..., 0] > 0) & ~invisible
+
+
+def _live_order(keep):
+    """Each tile's live list: the kept slots first, in their order, then
+    the rest; and the list's length. [T, K] int64, [T]."""
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    return order, keep.sum(1)
+
+
+def _row_terms(r, px, py):
+    """One staged row r [T, 9] at every pixel: (alpha, raw, live, dx, dy,
+    power), [T, 256], the plain version's expressions in its order."""
+    dx = px - r[:, 0:1]
+    dy = py - r[:, 1:2]
+    power = -0.5 * (r[:, 2:3] * dx * dx + r[:, 4:5] * dy * dy) - r[:, 3:4] * dx * dy
+    raw = r[:, 8:9] * torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.clamp(raw, max=0.99)
+    live = alpha >= 1.0 / 255.0
+    alpha = torch.where(live, alpha, torch.zeros((), dtype=alpha.dtype, device=alpha.device))
+    return alpha, raw, live, dx, dy, power
+
+
+def _thread_sums(v, p: int):
+    """Per-pixel terms v [T, n, 256] (pixel row * 16 + column) summed as
+    kernel B sums them: thread j of a tile holds column j % 16, rows
+    (j // 16) * P + i for i < P, and adds its P values in that order; each
+    warp's butterfly (xor 16, 8, 4, 2, 1) sums its 32 threads; the warps'
+    sums are added in warp order. Returns [T, n]."""
+    n_tiles, n = v.shape[:2]
+    x = v.reshape(n_tiles, n, TILE // p, p, TILE).permute(0, 1, 2, 4, 3)
+    x = x.reshape(n_tiles, n, TILE * TILE // p, p)
+    acc = x[..., 0]
+    for i in range(1, p):
+        acc = acc + x[..., i]
+    acc = acc.reshape(n_tiles, n, -1, 32)
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    tot = acc[..., 0, 0]
+    for w in range(1, acc.shape[2]):
+        tot = tot + acc[..., w, 0]
+    return tot
+
+
+def composite_ad_fwd_culled_reference(g, valid, bg, tile_w: int):
+    """Kernel A's walk in plain torch: each tile walks its live list
+    (``live_slots``) only. A pixel's walk is its own, so P does not enter;
+    the per-pixel arithmetic is the plain version's. (out [T, 3, 16, 16],
+    t_final [T, 16, 16]), equal to ``composite_ad_fwd_reference``."""
+    n_tiles = g.shape[0]
+    order, n_live = _live_order(live_slots(g, valid, tile_w))
+    rows = torch.gather(g, 1, order[..., None].expand(-1, -1, SLOT))
+    px, py = (x.to(g.dtype) for x in _pixels(n_tiles, tile_w, g.device))
+    trans = torch.ones_like(px)
+    acc = torch.zeros((n_tiles, 3, TILE * TILE), dtype=g.dtype, device=g.device)
+    for j in range(int(n_live.max()) if n_tiles else 0):
+        on = (n_live > j)[:, None]
+        r = rows[:, j]
+        alpha = _row_terms(r, px, py)[0]
+        w = torch.where(trans > 1e-4, alpha * trans, torch.zeros_like(trans))
+        acc = torch.where(on[:, None], acc + w[:, None, :] * r[:, 5:8, None], acc)
+        trans = torch.where(on, trans * (1.0 - alpha), trans)
+    out = acc + trans[:, None, :] * bg.to(g.dtype)[None, :, None]
+    return out.reshape(n_tiles, 3, TILE, TILE), trans.reshape(n_tiles, TILE, TILE)
+
+
+def composite_ad_bwd_culled_reference(g, valid, bg, t_final, g_out, tile_w: int, p: int = BWD_P):
+    """Kernel B's walk in plain torch: each tile's live list back to front,
+    the suffix term's one division (sum over c of g_c (S_c + T_final bg_c),
+    over 1 - alpha, where the plain version divides each channel), the
+    sums per thread of P pixels, per warp and across warps
+    (``_thread_sums``), zero for every slot not walked. Returns the packed
+    gradient [T, K, 9]."""
+    n_tiles, k, _ = g.shape
+    order, n_live = _live_order(live_slots(g, valid, tile_w))
+    rows = torch.gather(g, 1, order[..., None].expand(-1, -1, SLOT))
+    px, py = (x.to(g.dtype) for x in _pixels(n_tiles, tile_w, g.device))
+    gq = g_out.reshape(n_tiles, 3, TILE * TILE)
+    tf = t_final.reshape(n_tiles, TILE * TILE)
+    bg_t = tf[:, None, :] * bg.to(g.dtype)[None, :, None]
+    t_after = tf
+    s = torch.zeros_like(gq)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    walked = torch.zeros((n_tiles, k, SLOT), dtype=g.dtype, device=g.device)
+    for j in range((int(n_live.max()) if n_tiles else 0) - 1, -1, -1):
+        on = n_live > j
+        r = rows[:, j]
+        alpha, raw, live_f, dx, dy, power = _row_terms(r, px, py)
+        one_m = 1.0 - alpha
+        t_exc = t_after / one_m
+        live = t_exc > 1e-4
+        w = torch.where(live, alpha * t_exc, zero)
+        c = r[:, 5:8, None]
+        tc = t_exc[:, None, :] * c
+        num = gq * (s + bg_t)
+        dalpha = (gq[:, 0] * tc[:, 0] + gq[:, 1] * tc[:, 1]) + gq[:, 2] * tc[:, 2] \
+            - ((num[:, 0] + num[:, 1]) + num[:, 2]) / one_m
+        dalpha = torch.where(live, dalpha, zero)
+        d_raw = torch.where(live_f & (raw < 0.99), dalpha, zero)
+        opk = r[:, 8:9]
+        exp_pow = torch.where(opk != 0, raw / torch.where(opk != 0, opk, 1.0), zero)
+        d_power = torch.where(power < 0, d_raw * raw, zero)
+        ca, cb, cc = r[:, 2:3], r[:, 3:4], r[:, 4:5]
+        v = torch.stack([
+            d_power * (ca * dx + cb * dy),
+            d_power * (cc * dy + cb * dx),
+            d_power * (-0.5 * dx * dx),
+            d_power * (-dx * dy),
+            d_power * (-0.5 * dy * dy),
+            gq[:, 0] * w, gq[:, 1] * w, gq[:, 2] * w,
+            d_raw * exp_pow,
+        ], dim=1)
+        walked[:, j] = torch.where(on[:, None], _thread_sums(v, p), zero)
+        s = torch.where(on[:, None, None], s + w[:, None, :] * c, s)
+        t_after = torch.where(on[:, None], t_exc, t_after)
+    return torch.zeros_like(walked).scatter(1, order[..., None].expand(-1, -1, SLOT), walked)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _check(t, name, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+_LAUNCHES = {"composite_ad_fwd": 0, "composite_ad_bwd": 0}
+
+
+def _check(t, name, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: the kernels take float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
@@ -145,14 +345,21 @@ def _check(t, name, shape):
                          f"got {tuple(t.shape)}")
 
 
-def _check_inputs(mean, conic, color, op, valid, bg):
-    n_tiles, k = mean.shape[0], mean.shape[1]
-    for t, name, w in ((mean, "mean", 2), (conic, "conic", 3), (color, "color", 3),
-                       (op, "opacity", 1), (valid, "valid", 1)):
-        _check(t, name, (n_tiles, k, w))
-    _check(bg, "bg", (3,))
-    if k * (10 + 8 * 9) * 4 > MAX_SMEM:
-        raise ValueError(f"K={k} slots exceed the kernels' shared memory")
+def _check_inputs(g, valid, bg, p, backward):
+    if g.device.type != "cuda":
+        raise ValueError(f"the kernels run on a CUDA or a CPU tensor, got {g.device}")
+    if g.ndim != 3:
+        raise ValueError(f"g must be [T, K, {SLOT}], got {tuple(g.shape)}")
+    n_tiles, k = g.shape[0], g.shape[1]
+    _check(g, "g", (n_tiles, k, SLOT), g.device)
+    _check(valid, "valid", (n_tiles, k, 1), g.device)
+    _check(bg, "bg", (3,), g.device)
+    if p not in PIXELS_PER_THREAD:
+        raise ValueError(f"P = {p}: the kernels are built for P in {PIXELS_PER_THREAD}")
+    smem = _lib().aip_composite_ad_smem(k, p, int(backward))
+    if smem > MAX_SMEM:
+        raise ValueError(f"K={k} slots exceed kernel {'B' if backward else 'A'}'s shared "
+                         f"memory at P={p} ({smem} > {MAX_SMEM} bytes)")
     return n_tiles, k
 
 
@@ -163,76 +370,92 @@ def _launch(fn, device, args):
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
 
-def composite_ad_fwd(mean, conic, color, op, valid, bg, tile_w: int):
-    """Kernel A: (out [T, 3, 16, 16], t_final [T, 16, 16])."""
-    if mean.device.type == "cpu":
-        return composite_ad_fwd_reference(mean, conic, color, op, valid, bg, tile_w)
-    n_tiles, k = _check_inputs(mean, conic, color, op, valid, bg)
-    out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=mean.device)
-    t_final = torch.empty((n_tiles, TILE, TILE), dtype=torch.float32, device=mean.device)
+def composite_ad_fwd_packed(g, valid, bg, tile_w: int, p: int = FWD_P):
+    """Kernel A on the packed rows g [T, K, 9]: (out [T, 3, 16, 16],
+    t_final [T, 16, 16]). ``p``: pixels a thread (the sweep)."""
+    if g.device.type == "cpu":
+        return composite_ad_fwd_reference(*_unpack(g), valid, bg, tile_w)
+    n_tiles, k = _check_inputs(g, valid, bg, p, backward=False)
+    out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=g.device)
+    t_final = torch.empty((n_tiles, TILE, TILE), dtype=torch.float32, device=g.device)
     if n_tiles:
-        _launch(_lib().aip_composite_ad_fwd, mean.device,
-                (mean.data_ptr(), conic.data_ptr(), color.data_ptr(), op.data_ptr(),
-                 valid.data_ptr(), bg.data_ptr(), out.data_ptr(), t_final.data_ptr(),
-                 n_tiles, k, tile_w))
-        composite_ad_fwd.launches += 1
+        _launch(_lib().aip_composite_ad_fwd, g.device,
+                (g.data_ptr(), valid.data_ptr(), bg.data_ptr(), out.data_ptr(),
+                 t_final.data_ptr(), n_tiles, k, tile_w, p))
+        _LAUNCHES["composite_ad_fwd"] += 1
     return out, t_final
 
 
+def composite_ad_bwd_packed(g, valid, bg, t_final, g_out, tile_w: int, p: int = BWD_P):
+    """Kernel B on the packed rows g [T, K, 9]: the packed gradient
+    [T, K, 9] (0 for every slot the walk did not take)."""
+    if g.device.type == "cpu":
+        return torch.cat(composite_ad_bwd_reference(*_unpack(g), valid, bg, t_final, g_out,
+                                                    tile_w), dim=-1)
+    n_tiles, k = _check_inputs(g, valid, bg, p, backward=True)
+    _check(t_final, "t_final", (n_tiles, TILE, TILE), g.device)
+    _check(g_out, "g_out", (n_tiles, 3, TILE, TILE), g.device)
+    d_g = torch.empty((n_tiles, k, SLOT), dtype=torch.float32, device=g.device)
+    if n_tiles:
+        _launch(_lib().aip_composite_ad_bwd, g.device,
+                (g.data_ptr(), valid.data_ptr(), bg.data_ptr(), t_final.data_ptr(),
+                 g_out.data_ptr(), d_g.data_ptr(), n_tiles, k, tile_w, p))
+        _LAUNCHES["composite_ad_bwd"] += 1
+    return d_g
+
+
+def composite_ad_fwd(mean, conic, color, op, valid, bg, tile_w: int):
+    """Kernel A on the four arrays (packed first on the card):
+    (out [T, 3, 16, 16], t_final [T, 16, 16])."""
+    if mean.device.type == "cpu":
+        return composite_ad_fwd_reference(mean, conic, color, op, valid, bg, tile_w)
+    return composite_ad_fwd_packed(pack(mean, conic, color, op), valid, bg, tile_w)
+
+
 def composite_ad_bwd(mean, conic, color, op, valid, bg, t_final, g_out, tile_w: int):
-    """Kernel B: (d mean [T, K, 2], d conic [T, K, 3], d colour [T, K, 3],
-    d opacity [T, K, 1])."""
+    """Kernel B on the four arrays: (d mean [T, K, 2], d conic [T, K, 3],
+    d colour [T, K, 3], d opacity [T, K, 1])."""
     if mean.device.type == "cpu":
         return composite_ad_bwd_reference(mean, conic, color, op, valid, bg, t_final, g_out,
                                           tile_w)
-    n_tiles, k = _check_inputs(mean, conic, color, op, valid, bg)
-    _check(t_final, "t_final", (n_tiles, TILE, TILE))
-    _check(g_out, "g_out", (n_tiles, 3, TILE, TILE))
-    dev = mean.device
-    outs = [torch.empty((n_tiles, k, w), dtype=torch.float32, device=dev) for w in (2, 3, 3, 1)]
-    if n_tiles:
-        _launch(_lib().aip_composite_ad_bwd, dev,
-                (mean.data_ptr(), conic.data_ptr(), color.data_ptr(), op.data_ptr(),
-                 valid.data_ptr(), bg.data_ptr(), t_final.data_ptr(), g_out.data_ptr(),
-                 *(o.data_ptr() for o in outs), n_tiles, k, tile_w))
-        composite_ad_bwd.launches += 1
-    return tuple(outs)
-
-
-composite_ad_fwd.launches = 0
-composite_ad_bwd.launches = 0
+    return _unpack(composite_ad_bwd_packed(pack(mean, conic, color, op), valid, bg, t_final,
+                                           g_out, tile_w))
 
 
 def reset_launch_counts() -> None:
-    composite_ad_fwd.launches = 0
-    composite_ad_bwd.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"composite_ad_fwd": composite_ad_fwd.launches,
-            "composite_ad_bwd": composite_ad_bwd.launches}
+    return dict(_LAUNCHES)
 
 
 class _CompositeTilesAD(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mean, conic, color, op, valid, bg, tile_w):
-        args = [t.contiguous() for t in (mean, conic, color, op, valid, bg)]
-        out, t_final = composite_ad_fwd(*args, tile_w)
-        ctx.save_for_backward(*args, t_final)
+    def forward(ctx, g, valid, bg, tile_w):
+        out, t_final = composite_ad_fwd_packed(g, valid, bg, tile_w)
+        ctx.save_for_backward(g, valid, bg, t_final)
         ctx.tile_w = tile_w
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        *args, t_final = ctx.saved_tensors
-        d_mean, d_conic, d_color, d_op = composite_ad_bwd(*args, t_final, g_out.contiguous(),
-                                                          ctx.tile_w)
-        return d_mean, d_conic, d_color, d_op, None, None, None
+        g, valid, bg, t_final = ctx.saved_tensors
+        d_g = composite_ad_bwd_packed(g, valid, bg, t_final, g_out.contiguous(), ctx.tile_w)
+        return d_g, None, None, None
+
+
+def composite_tiles_ad_packed(g, g_valid, tile_w: int, bg):
+    """Differentiable streamed compositing of the packed gather g
+    [T, K, 9] (contiguous on the card: the kernels read it where it lies);
+    returns [T, 3, 16, 16]. The gradient reaches g as one [T, K, 9] array
+    (none reaches valid or bg), as in the JAX package."""
+    bg = torch.as_tensor(bg, dtype=g.dtype, device=g.device).reshape(3)
+    return _CompositeTilesAD.apply(g, g_valid, bg, tile_w)
 
 
 def composite_tiles_ad(g_mean, g_conic, g_color, g_op, g_valid, tile_w: int, bg):
-    """Differentiable streamed compositing of the gathered per-tile arrays
-    ([T, K, .]); returns [T, 3, 16, 16]. Gradients flow to mean, conic,
-    colour and opacity (none to valid or bg), as in the JAX package."""
-    bg = torch.as_tensor(bg, dtype=g_mean.dtype, device=g_mean.device).reshape(3)
-    return _CompositeTilesAD.apply(g_mean, g_conic, g_color, g_op, g_valid, bg, tile_w)
+    """The JAX package's signature: the four gathered arrays ([T, K, .]),
+    packed, through ``composite_tiles_ad_packed``."""
+    return composite_tiles_ad_packed(pack(g_mean, g_conic, g_color, g_op), g_valid, tile_w, bg)

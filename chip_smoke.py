@@ -75,12 +75,14 @@ one view per step:
 
 15. a training scene (the 8 orbit cameras of phase 9 moved out to 1.5 times
     their distance, the port's own 800^2 renders of the committed model as
-    images, a 100k-point cloud from numpy seed 0); one photometric step captures the gathered
-    [2500, 128, .] arrays of the real 800^2 selection, on which kernels A
+    images, a 100k-point cloud from numpy seed 0); one photometric step captures the packed
+    [2500, 128, 9] gather of the real 800^2 selection, on which kernels A
     (forward) and B (backward) are held against their plain versions, and
     on edge tiles (empty, saturating, the 0.99 clamp, opacity 0, invalid
-    slots). Image and T_final at 1e-5 absolute, gradients at 1e-4 of each
-    one's largest value.
+    slots between valid ones, every slot valid and on top of each other).
+    Image and T_final equal (max abs 0), gradients at 1e-4 of each one's
+    largest value and 0 off the live list; the live share after the cull,
+    and B against its emulation in plain torch (reported).
 16. kernel C on the same step's x01 [131072, 3] and upstream gradient
     against its plain version (one ``index_add_``), at 1e-4 of the largest
     entry (atomics add thousands of contributions to the coarse levels'
@@ -93,7 +95,9 @@ one view per step:
     iterations with the schedule shortened so that every event fires
     (photometric then style steps, clone, split, prune, opacity reset,
     recompaction, the RVQ boundary, mask prunes), with the launch counts
-    set to 0 just before and read just after; then
+    set to 0 just before and read just after; A's and B's arguments at the
+    last photometric step (iteration 39, after the densify, prune and
+    opacity-reset events) are captured and held as in phase 15; then
     ``run_3dgs_rendering`` of the saved model. Prints the events, the loss
     curve (the mean of the last 5 photometric losses must be below the
     first 5), the median step ms per phase (CUDA events), launches per step
@@ -102,9 +106,13 @@ one view per step:
     trains and then renders.
 20. times of A, B and C on the served inputs (ms over 100 back-to-back
     calls in one CUDA-event window, beside the single-call figure; plain
-    ms, bound, ``index_add_`` as C's library call), and a torch.profiler
-    breakdown of one photometric and one style step by stage, with the
-    busy share.
+    ms, bound, ``index_add_`` as C's library call); A and B on the late
+    step's inputs too, and on both the P sweep (P = 1, 2, 4, 8 pixels a
+    thread; every P agreeing with the default one) with the live share and
+    ptxas's registers and spills; the device launches of one composite
+    forward and backward, packed against the four-array form; and a
+    torch.profiler breakdown of one photometric and one style step by
+    stage (device ms and launches), with the busy share.
 
 Video style transfer with TV-L1 temporal consistency, at the JAX package's
 video workload: 96 frames at 256^2 of a smooth texture (numpy seed 0) that
@@ -178,6 +186,7 @@ port's deterministic random init (no checkpoint is committed); everything
 the run writes goes under ``build/chip_smoke/`` in the checkout.
 """
 
+import itertools
 import json
 import math
 import os
@@ -596,6 +605,7 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
     device_us = dict.fromkeys(stages, 0.0)
+    launches = dict.fromkeys(stages, 0)
     credited, credited_us = set(), {}
 
     def walk(e, stage):
@@ -605,6 +615,7 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
             for k in e.kernels:
                 if not any(p in k.name for _, p in named):
                     device_us[stage] += k.duration
+                    launches[stage] += 1
                     credited_us[k.name] = credited_us.get(k.name, 0.0) + k.duration
         for c in e.cpu_children:
             walk(c, stage)
@@ -612,10 +623,11 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
     for e in events:
         if e.device_type == DeviceType.CPU and e.cpu_parent is None:
             walk(e, None)
-    for name, (us, _) in by_name.items():
+    for name, (us, n) in by_name.items():
         stage = next((s for s, p in named if p in name), None)
         if stage is not None:
             device_us[stage] += us
+            launches[stage] += n
     ms = {k: v / 1e3 / calls for k, v in device_us.items()}
     ms["rest"] = busy_us / 1e3 / calls - sum(ms.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -627,6 +639,8 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
          device_ms_per_call=busy_us / 1e3 / calls if busy_us else "not measured",
          device_busy_share=busy_us / wall_us if busy_us else "not measured",
          stage_device_ms_per_call=ms if measured else "not measured",
+         stage_launches_per_call={k: v / calls for k, v in launches.items()},
+         device_launches_per_call=sum(n for _, n in by_name.values()) / calls,
          over_credited_ms_per_call=over,
          kernels=[{"name": name[:100], "ms_per_call": us / 1e3 / calls,
                    "launches_per_call": n / calls} for name, (us, n) in top])
@@ -937,7 +951,8 @@ def _fog(torch, np, Camera, dev, n=100_000):
 class _capture:
     """Within the block, record the arguments of ``module.<name>`` (the
     kernel wrapper, which still runs): those of the first call for each
-    ``key(args)``, by default the name."""
+    ``key(args)``, by default the name; a call whose key is None is not
+    recorded."""
 
     def __init__(self, module, name, store, key=None):
         self.module, self.name, self.store = module, name, store
@@ -947,7 +962,9 @@ class _capture:
         orig = self.orig = getattr(self.module, self.name)
 
         def spy(*args, **kw):
-            self.store.setdefault(self.key(args), (args, kw))
+            key = self.key(args)
+            if key is not None:
+                self.store.setdefault(key, (args, kw))
             return orig(*args, **kw)
 
         spy.launches = 0  # the wrapper counts on its module's name, here the spy
@@ -1056,6 +1073,10 @@ ORBIT_SCALE = 1.5         # the training orbit's distance over phase 9's
 SCHEDULE = dict(iterations=60, freeze_iters=40, densify_from_iter=10, densification_interval=10,
                 densify_until_iter=45, opacity_reset_interval=25, mask_prune_iter=10,
                 net_lr_step=(20, 40, 55))
+# Phase 18's call of kernels A and B (from 0) captured a second time: that of
+# the last photometric step, iteration freeze_iters - 1, after the densify
+# and prune events of iterations 20 and 30 and the opacity reset of 25.
+LATE_CALL = SCHEDULE["freeze_iters"] - 2
 
 
 def _train_phases(torch, dev, bed):
@@ -1088,13 +1109,13 @@ def _train_phases(torch, dev, bed):
     step = T.make_train_step(cfg, ext, "photometric", TRAIN_SIZE, TRAIN_SIZE)
     arrays = T.camera_to_arrays(cams[0], device=dev)
     served = {}
-    with _capture(KAD, "composite_ad_fwd", served), _capture(KAD, "composite_ad_bwd", served), \
-            _capture(KH, "hash_grad", served):
+    with _capture(KAD, "composite_ad_fwd_packed", served), \
+            _capture(KAD, "composite_ad_bwd_packed", served), _capture(KH, "hash_grad", served):
         step(trainer, arrays, style_f, bg)
     torch.cuda.synchronize()
-    fwd_args, bwd_args = served["composite_ad_fwd"][0], served["composite_ad_bwd"][0]
+    fwd_args, bwd_args = served["composite_ad_fwd_packed"][0], served["composite_ad_bwd_packed"][0]
     n_tiles, k = fwd_args[0].shape[:2]
-    n_valid = int(fwd_args[4].sum().item())
+    n_valid = int(fwd_args[1].sum().item())
     emit("train_scene", scene=str(scene_dir.relative_to(ROOT)), cameras=len(cams),
          size=[cams[0].image_height, cams[0].image_width], points=len(pcd.points),
          capacity=cfg.capacity, table=[16, 1 << cfg.log2_hashmap, 2], style_dim=cfg.style_dim,
@@ -1123,12 +1144,16 @@ def _train_phases(torch, dev, bed):
     model_dir = TRAIN_WORK / "model"
     shutil.rmtree(model_dir, ignore_errors=True)
     trace = {}
+    late = {}  # A's and B's arguments at the last photometric step
     for mod in (KAD, KH, KC):
         mod.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipeline.run_3dgs_training(str(scene_dir), str(bed["style_png"]), model_path=str(model_dir),
-                               cfg=cfg, progress_every=0, device=dev, trace=trace)
+    with _capture(KAD, "composite_ad_fwd_packed", late, key=_nth_call(LATE_CALL, "fwd")), \
+            _capture(KAD, "composite_ad_bwd_packed", late, key=_nth_call(LATE_CALL, "bwd")):
+        pipeline.run_3dgs_training(str(scene_dir), str(bed["style_png"]),
+                                   model_path=str(model_dir), cfg=cfg, progress_every=0,
+                                   device=dev, trace=trace)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = {**KAD.launch_counts(), **KH.launch_counts()}
@@ -1158,6 +1183,8 @@ def _train_phases(torch, dev, bed):
         raise AssertionError("the photometric loss did not fall")
     if min(train_launches.values()) < len(steps):
         raise AssertionError(f"a training kernel was not launched every step: {train_launches}")
+    late_fwd, late_bwd = late["fwd"][0], late["bwd"][0]
+    late_checked = _ad_check(torch, KAD, late_fwd, late_bwd, f"late step {LATE_CALL + 1}")
     KC.reset_launch_counts()
     gif = Path(pipeline.run_3dgs_rendering(str(bed["style_png"]), str(model_dir),
                                            output_dir=str(model_dir / "renders"), device=dev))
@@ -1194,10 +1221,12 @@ def _train_phases(torch, dev, bed):
     lines = []
     bound = _ad_bound(fwd_args, n_valid)
     timed = {
-        "composite_ad_fwd": (lambda: KAD.composite_ad_fwd(*fwd_args),
-                             lambda: KAD.composite_ad_fwd_reference(*fwd_args), None),
-        "composite_ad_bwd": (lambda: KAD.composite_ad_bwd(*bwd_args),
-                             lambda: KAD.composite_ad_bwd_reference(*bwd_args), None),
+        "composite_ad_fwd": (lambda: KAD.composite_ad_fwd_packed(*fwd_args),
+                             lambda: KAD.composite_ad_fwd_reference(*_ad_plain_args(KAD, fwd_args)),
+                             None),
+        "composite_ad_bwd": (lambda: KAD.composite_ad_bwd_packed(*bwd_args),
+                             lambda: KAD.composite_ad_bwd_reference(*_ad_plain_args(KAD, bwd_args)),
+                             None),
     }
     idx, w = _encode_terms(shape, x01)
     vals = (w[..., None] * g_out.reshape(x01.shape[0], shape[0], 1, shape[2])).reshape(-1, shape[2])
@@ -1220,11 +1249,17 @@ def _train_phases(torch, dev, bed):
             "bound_by": "operations" if t_comp >= t_mem else "bytes",
             "library_ms": None if lib is None else _time_ms(torch, lib),
         })
-        emit("train_kernel_work", kernel=name, flops=t_comp * PEAK_FLOPS_F32,
+        emit("train_kernel_work", kernel=name, inputs="step 1", flops=t_comp * PEAK_FLOPS_F32,
              bytes=t_mem * PEAK_BYTES, launches_per_step=train_launches[name] / len(steps),
              ms_many_calls=lines[-1]["ms"], calls_in_window=MANY_CALLS,
-             ms_single_call=single_ms, definition=_BOUND_NOTES[name])
+             ms_single_call=single_ms, plain_ms=lines[-1]["plain_ms"],
+             bound_ms=lines[-1]["bound_ms"], definition=_BOUND_NOTES[name])
     del idx, w, vals, flat, table
+    # A and B on the late step's inputs, and the P sweep on both
+    _ad_late_times(torch, KAD, late_fwd, late_bwd, late_checked, f"step {LATE_CALL + 1}")
+    _ad_sweep(torch, KAD, {"step 1": (fwd_args, bwd_args), f"step {LATE_CALL + 1}":
+                           (late_fwd, late_bwd)}, checked, late_checked)
+    _ad_launches(torch, KAD, fwd_args)
 
     # 20. profile of one photometric and one style step --------------------------------
     guide = np.asarray(Image.open(model_dir / "stylized" / f"{cams[0].image_name}.jpg")
@@ -1305,35 +1340,61 @@ def _write_train_scene(np, Image, bed):
     return scene
 
 
+def _ad_plain_args(KAD, args):
+    """A packed wrapper's arguments (g, valid, ...) as the plain versions
+    take them (mean, conic, colour, opacity, valid, ...)."""
+    return (*KAD._unpack(args[0]), *args[1:])
+
+
+def _nth_call(n, key):
+    """A ``_capture`` key that records the n-th call (from 0) only."""
+    calls = itertools.count()
+    return lambda args: key if next(calls) == n else None
+
+
 def _ad_check(torch, KAD, fwd_args, bwd_args, case):
     """Kernels A and B against their plain versions on one input: the image
-    and T_final at 1e-5 absolute, each gradient at 1e-4 of its largest
-    value (the same float32 walks; B reduces the 256 pixels in another
-    order). Returns the largest absolute errors, {"fwd": .., "bwd": ..}."""
-    out, tf = KAD.composite_ad_fwd(*fwd_args)
-    grads = KAD.composite_ad_bwd(*bwd_args)
+    and T_final equal (max abs 0: the same float32 walk, rounded alike, and
+    the culled slots add exactly nothing), each gradient at 1e-4 of its
+    largest value (B sums the 256 pixels in another order, with one suffix
+    division), and 0 for every slot off the live list. Also B against its
+    emulation in plain torch on the card (reported, not gated) and the live
+    share. Returns {"fwd", "bwd": largest absolute errors, "valid", "live":
+    slot counts}."""
+    g, valid, bg, tile_w = fwd_args
+    out, tf = KAD.composite_ad_fwd_packed(*fwd_args)
+    d_g = KAD.composite_ad_bwd_packed(*bwd_args)
     torch.cuda.synchronize()
-    ref_out, ref_tf = KAD.composite_ad_fwd_reference(*fwd_args)
-    ref_grads = KAD.composite_ad_bwd_reference(*bwd_args)
+    ref_out, ref_tf = KAD.composite_ad_fwd_reference(*_ad_plain_args(KAD, fwd_args))
+    ref_grads = KAD.composite_ad_bwd_reference(*_ad_plain_args(KAD, bwd_args))
+    emulated = KAD.composite_ad_bwd_culled_reference(*bwd_args, p=KAD.BWD_P)
+    keep = KAD.live_slots(g, valid, tile_w)
     f_err = max((out - ref_out).abs().max().item(), (tf - ref_tf).abs().max().item())
+    grads = KAD._unpack(d_g)
     rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
            for a, b in zip(grads, ref_grads)]
     b_err = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
-    emit("composite_ad_vs_plain", case=case, in_shape=list(fwd_args[0].shape),
-         fwd_max_abs_err=f_err, fwd_tol=1e-5,
-         bwd_max_rel_err=dict(zip(("mean", "conic", "color", "opacity"), rel)), bwd_tol_rel=1e-4,
+    off_list = d_g[~keep].abs().sum().item()
+    n_valid, n_live = int(valid.sum().item()), int(keep.sum().item())
+    emit("composite_ad_vs_plain", case=case, in_shape=list(g.shape), fwd_max_abs_err=f_err,
+         fwd_tol=0.0, bwd_max_rel_err=dict(zip(("mean", "conic", "color", "opacity"), rel)),
+         bwd_tol_rel=1e-4, bwd_off_list_abs_sum=off_list,
+         bwd_vs_emulation_max_abs=(d_g - emulated).abs().max().item(), p={"A": KAD.FWD_P,
+                                                                         "B": KAD.BWD_P},
+         valid_slots=n_valid, live_slots=n_live, live_share=n_live / max(n_valid, 1),
          t_final_min=tf.min().item())
-    if not (f_err <= 1e-5 and max(rel) <= 1e-4):
+    if not (f_err == 0.0 and max(rel) <= 1e-4 and off_list == 0.0):
         raise AssertionError(f"composite_ad kernels disagree with the plain version ({case})")
-    return {"fwd": f_err, "bwd": b_err}
+    return {"fwd": f_err, "bwd": b_err, "valid": n_valid, "live": n_live}
 
 
 def _ad_edge_cases(np, torch, KAD, dev, k=128, tile_w=4):
     """8 tiles of K slots around each tile's pixels: tile 1 empty (every
     slot invalid), tile 2 saturating below T = 1e-4, tile 3 a splat at the
     0.99 clamp and one of opacity 0, tile 4 invalid slots between valid
-    ones, tile 5 only its first slot valid. Returns the forward's and the
-    backward's arguments, with an upstream gradient from seed 5."""
+    ones, tile 5 only its first slot valid, tile 6 every slot valid and on
+    top of each other. Returns the packed forward's and backward's
+    arguments, with an upstream gradient from seed 5."""
     g = np.random.default_rng(5)
     n = 8
     t = np.arange(n)
@@ -1355,11 +1416,160 @@ def _ad_edge_cases(np, torch, KAD, dev, k=128, tile_w=4):
     op[3, 1] = 0.0
     valid[4, ::3] = 0.0
     valid[5, 1:] = 0.0
-    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    mean[6] = [x0[6, 0] + 6.3, y0[6, 0] + 9.1]
+    conic[6] = [0.02, 0.004, 0.03]
+    op[6] = 0.05
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
     args = [f(a) for a in (mean, conic, color, op, valid)] + [f([0.2, 0.5, 0.1])]
     _, t_final = KAD.composite_ad_fwd_reference(*args, tile_w)
     g_out = f(g.standard_normal((n, 3, 16, 16)))
-    return (*args, tile_w), (*args, t_final, g_out, tile_w)
+    packed = KAD.pack(*args[:4])
+    return (packed, args[4], args[5], tile_w), (packed, args[4], args[5], t_final, g_out, tile_w)
+
+
+def _ad_late_times(torch, KAD, fwd_args, bwd_args, checked, label):
+    """Kernels A and B on the late step's inputs: ms over MANY_CALLS calls
+    in one window, one call alone, the plain versions and the bound."""
+    bound = _ad_bound(fwd_args, checked["valid"])
+    runs = {"composite_ad_fwd": (
+        lambda: KAD.composite_ad_fwd_packed(*fwd_args),
+        lambda: KAD.composite_ad_fwd_reference(*_ad_plain_args(KAD, fwd_args))),
+        "composite_ad_bwd": (
+        lambda: KAD.composite_ad_bwd_packed(*bwd_args),
+        lambda: KAD.composite_ad_bwd_reference(*_ad_plain_args(KAD, bwd_args)))}
+    for name, (kern, plain) in runs.items():
+        t_comp, t_mem = bound[name]
+        emit("train_kernel_work", kernel=name, inputs=label, flops=t_comp * PEAK_FLOPS_F32,
+             bytes=t_mem * PEAK_BYTES, ms_many_calls=_time_many_ms(torch, kern, MANY_CALLS),
+             calls_in_window=MANY_CALLS, ms_single_call=_time_ms(torch, kern),
+             plain_ms=_time_ms(torch, plain), bound_ms=max(t_comp, t_mem) * 1e3,
+             bound_by="operations" if t_comp >= t_mem else "bytes",
+             definition=_BOUND_NOTES[name])
+
+
+def _ad_ptxas():
+    """Registers and spills of each instance of kernels A and B, from the
+    build's ptxas report: {"A P=4": {"registers": .., ...}, ...}."""
+    path = WORK / "build_composite_ad.log"
+    report = path.read_text() if path.is_file() else ""
+    out, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"composite_ad_(fwd|bwd)_kernelILi(\d)E", line)
+            cur = f"{'A' if m[1] == 'fwd' else 'B'} P={m[2]}" if m else None
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(cur, {}).update(spill_stores=int(spill[1]),
+                                               spill_loads=int(spill[2]))
+            if regs:
+                out.setdefault(cur, {})["registers"] = int(regs[1])
+    return out or "not measured"
+
+
+def _ad_sweep(torch, KAD, captures, *checked):
+    """Kernels A and B at every P (pixels a thread) on each capture: ms over
+    MANY_CALLS calls in one window; A equal to the default P's image at
+    every P, B within 1e-4 of the default P's largest gradient; the
+    default P and the staging alone (empty lists) through raw launches;
+    with the live share and ptxas's registers and spills."""
+    regs = _ad_ptxas()
+    for (label, (fwd_args, bwd_args)), chk in zip(captures.items(), checked):
+        out0 = KAD.composite_ad_fwd_packed(*fwd_args)[0]
+        d0 = KAD.composite_ad_bwd_packed(*bwd_args)
+        ms, agree = {}, {}
+        for p in KAD.PIXELS_PER_THREAD:
+            same = torch.equal(KAD.composite_ad_fwd_packed(*fwd_args, p=p)[0], out0)
+            rel = ((KAD.composite_ad_bwd_packed(*bwd_args, p=p) - d0).abs().max()
+                   / d0.abs().max().clamp(min=1e-30)).item()
+            agree[p] = {"A_equal": same, "B_max_rel": rel}
+            if not (same and rel <= 1e-4):
+                raise AssertionError(f"composite_ad at P={p} disagrees ({label})")
+            ms[f"A P={p}"] = _time_many_ms(
+                torch, lambda: KAD.composite_ad_fwd_packed(*fwd_args, p=p), MANY_CALLS)
+            ms[f"B P={p}"] = _time_many_ms(
+                torch, lambda: KAD.composite_ad_bwd_packed(*bwd_args, p=p), MANY_CALLS)
+        # The staging alone: every mean moved 10^4 px off, so every valid
+        # slot takes the whole float64 test and the lists are empty. Launched
+        # through the C entry points (no wrapper checks or allocations, which
+        # take longer than such a short kernel), beside the whole kernels.
+        far = fwd_args[0].clone()
+        far[..., 0] += 1e4
+        if KAD.live_slots(far, fwd_args[1], fwd_args[3]).any():
+            raise AssertionError("a slot 10^4 px off its tile was kept")
+        fwd, bwd = _ad_raw_launches(torch, KAD, fwd_args, bwd_args)
+        for name, launch, g in (("A", fwd, fwd_args[0]), ("B", bwd, fwd_args[0]),
+                                ("A staging only", fwd, far), ("B staging only", bwd, far)):
+            if launch(g) != 0:
+                raise AssertionError(f"{name} failed to launch")
+            ms[f"{name}, raw launches"] = _time_many_ms(torch, lambda: launch(g), MANY_CALLS)
+        emit("composite_ad_sweep", inputs=label, in_shape=list(fwd_args[0].shape),
+             valid_slots=chk["valid"], live_slots=chk["live"],
+             live_share=chk["live"] / max(chk["valid"], 1), ms_many_calls=ms,
+             calls_in_window=MANY_CALLS, agree_with_default_p=agree,
+             default_p={"A": KAD.FWD_P, "B": KAD.BWD_P}, ptxas=regs)
+
+
+def _ad_raw_launches(torch, KAD, fwd_args, bwd_args):
+    """Kernels A and B at the default P, each a function of the packed rows
+    that launches through the C entry point into preallocated outputs."""
+    g, valid, bg, tile_w = fwd_args
+    t_final, g_out = bwd_args[3], bwd_args[4]
+    n, k = g.shape[:2]
+    out = torch.empty((n, 3, 16, 16), device=g.device)
+    tf = torch.empty((n, 16, 16), device=g.device)
+    d_g = torch.empty_like(g)
+    lib, stream = KAD._lib(), torch.cuda.current_stream().cuda_stream
+
+    def fwd(rows):
+        return lib.aip_composite_ad_fwd(rows.data_ptr(), valid.data_ptr(), bg.data_ptr(),
+                                        out.data_ptr(), tf.data_ptr(), n, k, tile_w,
+                                        KAD.FWD_P, stream)
+
+    def bwd(rows):
+        return lib.aip_composite_ad_bwd(rows.data_ptr(), valid.data_ptr(), bg.data_ptr(),
+                                        t_final.data_ptr(), g_out.data_ptr(), d_g.data_ptr(),
+                                        n, k, tile_w, KAD.BWD_P, stream)
+
+    return fwd, bwd
+
+
+def _ad_launches(torch, KAD, fwd_args):
+    """Device launches and device ms of one forward and backward of the
+    composite alone on the step-1 gather: the packed form the rasterizer
+    calls (the gather in, its [T, K, 9] gradient out), against the
+    four-array form on views of the same gather (``composite_tiles_ad``:
+    the views packed in, and each view's gradient written back into a zero
+    [T, K, 9] and summed, as the four-array Function's backward did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g, valid, bg, tile_w = fwd_args
+    g_out = torch.ones((g.shape[0], 3, 16, 16), device=g.device)
+    forms = {"packed": lambda x: KAD.composite_tiles_ad_packed(x, valid, tile_w, bg),
+             "four_arrays": lambda x: KAD.composite_tiles_ad(
+                 x[..., 0:2], x[..., 2:5], x[..., 5:8], x[..., 8:9], valid, tile_w, bg)}
+    res = {}
+    for name, fn in forms.items():
+        leaf = g.detach().clone().requires_grad_()
+        fn(leaf).backward(g_out)
+        torch.cuda.synchronize()
+        leaf.grad = None
+        KAD.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(leaf).backward(g_out)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and "composite_ad" not in e.name]
+        res[name] = {"torch_launches": len(ev),
+                     "torch_device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3,
+                     "torch_kernels": sorted({e.name[:70] for e in ev}),
+                     "kernel_launches": KAD.launch_counts()}
+    emit("composite_ad_launches", in_shape=list(g.shape), forms=res,
+         definition="PyTorch's launches around kernels A and B (the profiler's CUDA events "
+                    "other than the two kernels) and the wrappers' launch counts")
 
 
 def _ad_bound(fwd_args, n_valid):

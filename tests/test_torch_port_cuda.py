@@ -450,7 +450,8 @@ def _gathered(g, n_tiles=8, k=48, tile_w=4):
     """Gathered per-tile arrays around each tile's pixels, with edge cases:
     tile 1 empty (every slot invalid), tile 2 saturating (T falls below
     1e-4), tile 3 a splat at the 0.99 clamp and one of opacity 0, tile 4
-    invalid slots between valid ones."""
+    invalid slots between valid ones, tile 5 all valid and all on top of
+    each other (every slot on the live list, one shared mean)."""
     t = np.arange(n_tiles)
     x0 = ((t % tile_w) * 16).astype(np.float32)[:, None]
     y0 = ((t // tile_w) * 16).astype(np.float32)[:, None]
@@ -470,34 +471,80 @@ def _gathered(g, n_tiles=8, k=48, tile_w=4):
     op[3, 0] = 1.0
     op[3, 1] = 0.0
     valid[4, ::3] = 0.0
+    mean[5] = [x0[5, 0] + 6.3, y0[5, 0] + 9.1]
+    conic[5] = [0.02, 0.004, 0.03]
+    op[5] = 0.05
     return [torch.from_numpy(a) for a in (mean, conic, color, op, valid)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [2, 48, 128])
-def test_composite_ad_kernels_match_plain(cuda, k):
-    """Kernel A's image and final transmittance at 1e-5 absolute, kernel
-    B's four gradients at 1e-4 of each one's largest value (the same fp32
-    walks; B sums the 256 pixels in another order)."""
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [2, 48, 128, 200])
+def test_composite_ad_kernels_match_plain(cuda, k, p):
+    """Kernel A's image and final transmittance equal to the plain
+    version's (the same float32 walk, rounded alike; the culled slots add
+    exactly nothing), kernel B's four gradients at 1e-4 of each one's
+    largest value (B sums the 256 pixels in another order, with one suffix
+    division) and exactly 0 on the empty tile, at every P."""
     from aip_tpu_torch.kernels import composite_ad as AD
 
     g = np.random.default_rng(4)
     args = [a.to(cuda) for a in _gathered(g, k=k)]
+    packed = AD.pack(*args[:4])
     bg = torch.tensor([0.2, 0.5, 0.1], device=cuda)
     g_out = torch.from_numpy(g.standard_normal((8, 3, 16, 16)).astype(np.float32)).to(cuda)
     AD.reset_launch_counts()
-    out, tf = AD.composite_ad_fwd(*args, bg, 4)
-    grads = AD.composite_ad_bwd(*args, bg, tf, g_out, 4)
+    out, tf = AD.composite_ad_fwd_packed(packed, args[4], bg, 4, p=p)
+    d_g = AD.composite_ad_bwd_packed(packed, args[4], bg, tf, g_out, 4, p=p)
     torch.cuda.synchronize()
     assert AD.launch_counts() == {"composite_ad_fwd": 1, "composite_ad_bwd": 1}
     ref_out, ref_tf = AD.composite_ad_fwd_reference(*args, bg, 4)
-    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
-    torch.testing.assert_close(tf, ref_tf, rtol=0, atol=1e-5)
+    assert torch.equal(out, ref_out)
+    assert torch.equal(tf, ref_tf)
     ref_grads = AD.composite_ad_bwd_reference(*args, bg, ref_tf, g_out, 4)
-    for a, b in zip(grads, ref_grads):
+    for a, b in zip(AD._unpack(d_g), ref_grads):
         scale = max(float(b.abs().max()), 1e-8)
         assert float((a - b).abs().max()) / scale < 1e-4
         assert float(a[1].abs().max()) == 0.0          # the empty tile
+
+
+@pytest.mark.cuda
+def test_composite_ad_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from aip_tpu_torch.kernels import composite_ad as AD
+
+    g = torch.zeros(2, 8, 9, device=cuda)
+    valid = torch.ones(2, 8, 1, device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    with pytest.raises(TypeError):
+        AD.composite_ad_fwd_packed(g.double(), valid, bg, 2)
+    with pytest.raises(ValueError):
+        AD.composite_ad_fwd_packed(g[..., :8].contiguous(), valid, bg, 2)
+    with pytest.raises(ValueError):
+        AD.composite_ad_fwd_packed(g, valid.cpu(), bg, 2)
+    with pytest.raises(ValueError):
+        AD.composite_ad_fwd_packed(g.transpose(0, 1).contiguous().transpose(0, 1), valid, bg, 2)
+    with pytest.raises(ValueError):   # a P the kernels are not built for
+        AD.composite_ad_fwd_packed(g, valid, bg, 2, p=3)
+    # The shared-memory limit is the kernels' own: 48 B a staged row and a
+    # ballot word per 32 slots; B adds 4 B a slot for its list and, with
+    # more than one warp a tile, [warps, K, 9] partial sums.
+    lib = AD._lib()
+    assert lib.aip_composite_ad_smem(128, 4, 0) == 128 * 48 + 16
+    assert lib.aip_composite_ad_smem(128, 8, 1) == 128 * 52 + 16
+    assert lib.aip_composite_ad_smem(128, 1, 1) == 128 * (52 + 8 * 36) + 16
+    k_over = next(k for k in range(128, 4096)
+                  if lib.aip_composite_ad_smem(k, AD.BWD_P, 1) > AD.MAX_SMEM)
+    big = torch.zeros(1, k_over, 9, device=cuda)
+    big_valid = torch.ones(1, k_over, 1, device=cuda)
+    t_final = torch.ones(1, 16, 16, device=cuda)
+    with pytest.raises(ValueError):
+        AD.composite_ad_bwd_packed(big, big_valid, bg, t_final, torch.zeros(1, 3, 16, 16,
+                                                                            device=cuda), 1)
+    d_g = AD.composite_ad_bwd_packed(big[:, :k_over - 1].contiguous(),
+                                     big_valid[:, :k_over - 1].contiguous(), bg, t_final,
+                                     torch.zeros(1, 3, 16, 16, device=cuda), 1)
+    torch.cuda.synchronize()
+    assert float(d_g.abs().max()) == 0.0   # opacity 0 everywhere: every slot culled
 
 
 @pytest.mark.cuda
