@@ -32,22 +32,15 @@
 // 0 c, and B's nine terms are 0 (not live, so d raw is 0). B writes 0 for
 // every slot not on the list.
 //
-// The cull, in float64, per (tile, slot), the same expressions in the same
-// order as live_slots() in kernels/composite_ad.py: a slot goes when its
-// opacity is <= 0, or when its conic is positive definite (a > 0, c > 0,
-// a c - b^2 > 0) and
+// The cull, in float64, per (tile, slot): aip_cull's test (csrc/cull.cuh,
+// whose note gives the margins), the same expressions in the same order as
+// live_slots() in kernels/composite_ad.py. A slot goes when its opacity is
+// <= 0, or when its conic is positive definite and
 //   ln op - (q_min / 2) (1 - 16 u rho) + 1e-6 < ln(float(1/255)),
-// with q = a X^2 + 2 b X Y + c Y^2 in the pixel offsets X, Y from the mean,
-// q_min its exact least value over the tile's box of pixel centres (0 when
-// the mean is inside, else the least of the four edges' minima, each at the
-// clamped vertex) and u = 2^-24. The kernel's float32 power (dx, dy and
-// each product and sum rounded once) lies within 6 u ((a X^2 + c Y^2) / 2
-// + |b X Y|) of -q / 2 at a pixel, and rho = 1 + 2 |b| / lambda_min(conic)
-// bounds (a X^2 + c Y^2 + 2 |b X Y|) / q, so the power is at most
-// -(q / 2) (1 - 6 u rho) at every pixel of the tile: 16 u is more than
-// twice the rounding, and the margin is relative, tight near the contour.
-// 1e-6 covers expf's 2 ulp and the opacity product, in log terms. A slot whose conic is not positive
-// definite is never culled.
+// q_min the least q = a X^2 + 2 b X Y + c Y^2 over the tile's box of pixel
+// centres. Here the kernel's power has no ln op term (op multiplies the
+// exp), and the 1e-6 covers expf's 2 ulp and that product, in log terms. A
+// slot whose conic is not positive definite is never culled.
 //
 // Pixels per thread. A block is one tile: 256 / P threads, thread j at
 // column j % 16 and rows (j / 16) P + i, i < P (P in {1, 2, 4, 8}, a
@@ -89,6 +82,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cull.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
@@ -96,46 +91,21 @@ constexpr int kPixels = kTile * kTile;
 constexpr int kSlot = 9;   // packed row: mx, my, a, b, c, r, g, b, op
 constexpr int kTerms = 9;  // d mean x, y, d conic a, b, c, d colour r, g, b, d op
 constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr double kRoundingMargin = 16.0 / 16777216.0;  // 16 u, u = 2^-24: of rho q / 2
-constexpr double kExpMargin = 1e-6;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double dmul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double dsub(double a, double b) { return __dsub_rn(a, b); }
-
-__device__ __forceinline__ double quad(double a, double b, double c, double x, double y) {
-  return dadd(dadd(dmul(dmul(a, x), x), dmul(2.0, dmul(dmul(b, x), y))), dmul(dmul(c, y), y));
-}
-
 // False when alpha < 1/255 is proved at every pixel centre of the tile at
 // (x0, y0) for the packed row s (the cull of the header note).
 __device__ __forceinline__ bool visible(const float* s, double x0, double y0) {
   const double mx = s[0], my = s[1], a = s[2], b = s[3], c = s[4], op = s[8];
   if (op <= 0.0) return false;
-  if (!(a > 0.0 && c > 0.0 && dsub(dmul(a, c), dmul(b, b)) > 0.0)) return true;
-  const double xa = dsub(x0, mx), xb = dsub(dadd(x0, kTile - 1.0), mx);
-  const double ya = dsub(y0, my), yb = dsub(dadd(y0, kTile - 1.0), my);
-  double q_min = 0.0;
-  if (!(xa <= 0.0 && xb >= 0.0 && ya <= 0.0 && yb >= 0.0)) {
-    const double q_xa = quad(a, b, c, xa, fmin(fmax(__ddiv_rn(-dmul(b, xa), c), ya), yb));
-    const double q_xb = quad(a, b, c, xb, fmin(fmax(__ddiv_rn(-dmul(b, xb), c), ya), yb));
-    const double q_ya = quad(a, b, c, fmin(fmax(__ddiv_rn(-dmul(b, ya), a), xa), xb), ya);
-    const double q_yb = quad(a, b, c, fmin(fmax(__ddiv_rn(-dmul(b, yb), a), xa), xb), yb);
-    q_min = fmin(fmin(q_xa, q_xb), fmin(q_ya, q_yb));
-  }
-  // rho bounds (a X^2 + c Y^2 + 2 |b X Y|) / q everywhere: 1 + 2 |b| / lambda_min.
-  const double half_d = dmul(0.5, dsub(a, c));
-  const double l_max =
-      dadd(dmul(0.5, dadd(a, c)), __dsqrt_rn(dadd(dmul(half_d, half_d), dmul(b, b))));
-  const double rho = dadd(1.0, __ddiv_rn(dmul(2.0, fabs(b)),
-                                         __ddiv_rn(dsub(dmul(a, c), dmul(b, b)), l_max)));
-  const double bound = dadd(
-      dsub(log(op), dmul(dmul(0.5, q_min), dsub(1.0, dmul(kRoundingMargin, rho)))), kExpMargin);
-  return !(bound < log(static_cast<double>(kAlphaMin)));
+  const double factor = aip_cull::margin_factor(a, b, c);
+  if (isnan(factor)) return true;  // not positive definite: never culled
+  const double q_min = aip_cull::box_qmin(mx, my, a, b, c, __ddiv_rn(-b, c), __ddiv_rn(-b, a),
+                                          x0, y0, kTile, kTile);
+  return !aip_cull::proved_invisible(log(op), q_min, factor);
 }
 
 // Builds the tile's live list: rows[3 n ..] the kept slots' staged rows in

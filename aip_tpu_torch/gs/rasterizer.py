@@ -650,16 +650,17 @@ def _composite_macro_matmul(macro_idx, mean2d, conics, colors, opacities, bg_col
 
 
 def _composite_macro_mxu(macro_idx, mean2d, conics, colors, opacities, bg_color, m, mth, mtw):
-    """Windowed composite: one [M, Kc, 16] gather of the packed table, then
-    the windowed compositor (kernel on a CUDA tensor). Valid slots are a
-    prefix of each block's depth-sorted list."""
+    """Windowed composite: the packed table and each block's count, then the
+    windowed compositor's indexed entry, which reads the rows through
+    ``macro_idx`` (the kernel on a CUDA tensor; no [M, Kc, 16] copy). Valid
+    slots are a prefix of each block's depth-sorted list."""
     bs = m * TILE
     with record_function("gs.gather"):
         table = pack_raw_table(mean2d, conics, opacities, colors)
-        raw = table[torch.clamp(macro_idx, min=0).long()]     # [M, Kc, 16]
         counts = (macro_idx >= 0).sum(dim=1).to(torch.int32)
     with record_function("gs.composite"):
-        planes = K.composite_macro_mxu(raw, counts, bg_color, bs=bs, mtw=mtw)
+        planes = K.composite_macro_mxu_indexed(table, macro_idx.to(torch.int32).contiguous(),
+                                               counts, bg_color, bs=bs, mtw=mtw)
     return _planes_to_image(planes, mth, mtw, bs)
 
 
@@ -733,16 +734,17 @@ def _pairsort_slots(n: int, settings: RasterSettings, mth: int, mtw: int) -> int
 
 def _composite_macro_mxu_seg(gid_s, starts, counts, mean2d, conics, colors, opacities,
                              bg_color, m, mth, mtw, kc):
-    """Segment composite: the packed table gathered once in pair-sort order
-    ([S, 16], contiguous per block); the segment compositor walks each
-    block's [start, start+count) rows."""
+    """Segment composite: the packed table, then the segment compositor's
+    indexed entry, which walks each block's rows table[gid_s[i]], i in
+    [start, start+count) (the kernel on a CUDA tensor; no [S, 16] copy).
+    gid_s holds a Gaussian id at every position, the pairs of culled or
+    off-grid emissions included (they sort past the last block)."""
     bs = m * TILE
     with record_function("gs.gather"):
         table = pack_raw_table(mean2d, conics, opacities, colors)
-        raw_sorted = table[gid_s.long()]
     with record_function("gs.composite"):
-        planes = K.composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color,
-                                           n_blocks=mth * mtw, kc=kc, bs=bs, mtw=mtw)
+        planes = K.composite_macro_mxu_seg_indexed(table, gid_s, starts, counts, bg_color,
+                                                   n_blocks=mth * mtw, kc=kc, bs=bs, mtw=mtw)
     return _planes_to_image(planes, mth, mtw, bs)
 
 

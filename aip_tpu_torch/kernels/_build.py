@@ -3,8 +3,9 @@
 Each source becomes ``build/aip_tpu_torch/<name>-<hash>.so`` under the
 checkout (``AIP_TPU_TORCH_BUILD`` overrides the directory), compiled for
 ``sm_90a`` with a plain C interface: no PyTorch headers, so a build takes
-seconds. The hash of the source names the library, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+seconds. The hash of the source and of the shared headers (``csrc/*.cuh``)
+names the library, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"{name}-{digest}.so"
 

@@ -10,7 +10,20 @@ raises, runs its plain version for a CPU tensor, and counts its launches
 in ``.launches``. Here:
 
 * ``composite_macro_mxu_seg`` (replaces ``composite_macro_mxu_seg_pallas``)
-  and ``composite_macro_mxu`` (replaces ``composite_macro_mxu_pallas``);
+  and ``composite_macro_mxu`` (replaces ``composite_macro_mxu_pallas``), the
+  JAX package's signatures on gathered rows; and their indexed entries,
+  ``composite_macro_mxu_seg_indexed`` (the packed table ``[N, 16]`` with
+  the selection's ``gid_s``, starts and counts) and
+  ``composite_macro_mxu_indexed`` (the table with ``macro_idx`` ``[M,
+  Kc]``), which the rasterizer calls: on the card the kernel reads the rows
+  through the index, on the CPU they gather and call the wrappers above.
+  All four launch the one kernel of ``csrc/composite.cu``, counted under
+  the first two names; ``layout=(sh, p)`` picks its sub-tile height and
+  pixels a thread among ``LAYOUTS`` (a sweep);
+* ``sub_tile_live``: the kernel's cull, per (row, 16 x sh sub-tile), and
+  ``composite_macro_walk_reference``: the kernel's walk emulated in plain
+  torch, sequential transmittance, the group-start exit, with or without
+  the cull (``torch.equal`` either way where the cull is exact);
 * ``composite_macro_mxu_reference``: the windowed composite in plain
   torch, ``composite_raw_blocks``'s math (transmittance as
   ``exp(cumsum(log1p(-alpha)))``), over chunks of blocks so the
@@ -20,8 +33,10 @@ in ``.launches``. Here:
   the TPU kernels weight it where they skip saturated groups;
 * ``composite_macro_mxu_seg_reference``: gathers each segment into a
   window and calls the windowed reference;
-* ``walked_rows``: the rows the kernels walk before their early exit, as
-  the plain version counts them (the work behind the kernels' bound);
+* ``walked_rows`` and ``live_pairs``: the rows the kernels walk before
+  their early exit, and among them the (row, pixel) pairs with alpha >=
+  1/255, as the plain version counts them (the work behind the kernel's
+  dense and live bounds);
 * ``composite_tiles`` (replaces ``composite_tiles_pallas``) and
   ``composite_from_macro`` (replaces ``composite_from_macro_pallas``): the
   per-tile front-to-back walk of the TPU kernels' shared body
@@ -57,10 +72,16 @@ import functools
 import torch
 
 from aip_tpu_torch.kernels._build import library
-from aip_tpu_torch.kernels.composite_ad import TILE, composite_ad_fwd_reference
+from aip_tpu_torch.kernels.composite_ad import TILE, box_visible, composite_ad_fwd_reference
 
 GROUP = 64            # rows per early-exit check, as in the kernels
 BLOCK_SIZES = (16, 32, 64)
+SUB_W = 16            # sub-tile width of the macro-block kernel's cull
+# (sub-tile height, pixels a thread) the kernel is built for, per block
+# size; the first is the default (the sweep in PERF.md).
+LAYOUTS = {16: ((16, 4),), 32: ((16, 4),),
+           64: ((16, 4), (16, 2), (16, 8), (8, 2), (8, 4), (32, 2), (32, 4))}
+DEFAULT_LAYOUT = (16, 4)
 T_CUTOFF = 1e-4
 WALK_GROUP = 32       # composite_macro_blocks' rows per early-exit test
 
@@ -68,11 +89,9 @@ WALK_GROUP = 32       # composite_macro_blocks' rows per early-exit test
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = library("composite")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_composite_segment.argtypes = [p, p, p, p, p, i, i, ctypes.c_longlong, i, i, p]
-    lib.aip_composite_window.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.aip_composite_segment.restype = ctypes.c_int
-    lib.aip_composite_window.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.aip_composite_macro.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, i, p]
+    lib.aip_composite_macro.restype = ctypes.c_int
     return lib
 
 
@@ -96,6 +115,12 @@ def _walk_lib() -> ctypes.CDLL:
 def _composite_chunk(raw, counts, bg, bids, bs, mtw):
     """Windowed composite of one chunk of blocks. Returns ([B, 3, P] planes,
     [B] rows walked up to the kernels' group-level early exit)."""
+    return _chunk_walk(raw, counts, bg, bids, bs, mtw)[:2]
+
+
+def _chunk_walk(raw, counts, bg, bids, bs, mtw):
+    """``_composite_chunk``, and [B] pairs of the walked rows and the
+    block's pixels with alpha >= 1/255."""
     dev = raw.device
     b, kc, _ = raw.shape
     yy = torch.arange(bs, dtype=torch.float32, device=dev)
@@ -112,6 +137,7 @@ def _composite_chunk(raw, counts, bg, bids, bs, mtw):
     slot_ok = torch.arange(kc, device=dev)[None, :] < counts[:, None]
     alpha = torch.where(slot_ok[:, :, None] & (alpha >= 1.0 / 255.0), alpha,
                         torch.zeros((), device=dev))
+    live_per_row = (alpha > 0).sum(dim=2)                                   # [B, K]
     log_t = torch.cumsum(torch.log1p(-alpha), dim=1)
     t_exc = torch.exp(torch.cat([torch.zeros_like(log_t[:, :1]), log_t[:, :-1]], dim=1))
     contrib = torch.where(t_exc > T_CUTOFF, alpha * t_exc, torch.zeros((), device=dev))
@@ -131,7 +157,8 @@ def _composite_chunk(raw, counts, bg, bids, bs, mtw):
     t_final = torch.where(walked[:, None] > 0, torch.exp(log_t.gather(1, last)[:, 0]),
                           torch.ones((), device=dev))                        # [B, P]
     planes = rgb + t_final[:, None, :] * bg[None, :, None]
-    return planes, walked
+    in_walk = torch.arange(kc, device=dev)[None, :] < walked[:, None]
+    return planes, walked, (live_per_row * in_walk).sum(dim=1)
 
 
 def _windowed(raw, counts, bg_color, bs, mtw, block0, chunk_bytes):
@@ -139,17 +166,18 @@ def _windowed(raw, counts, bg_color, bs, mtw, block0, chunk_bytes):
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=raw.device)
     per_block = max(1, kc * bs * bs * 4 * 8)  # ~8 live [K, P] float32 tensors
     chunk = max(1, chunk_bytes // per_block)
-    planes, walked = [], []
+    planes, walked, live = [], [], []
     for c0 in range(0, nb, chunk):
         bids = block0 + torch.arange(c0, min(nb, c0 + chunk), device=raw.device)
-        p, w = _composite_chunk(raw[c0:c0 + chunk].float(), counts[c0:c0 + chunk], bg, bids,
-                                bs, mtw)
+        p, w, n = _chunk_walk(raw[c0:c0 + chunk].float(), counts[c0:c0 + chunk], bg, bids,
+                              bs, mtw)
         planes.append(p)
         walked.append(w)
+        live.append(n)
     if not planes:
-        return (torch.zeros((0, 3, 1, bs * bs), device=raw.device),
-                torch.zeros(0, dtype=torch.long, device=raw.device))
-    return torch.cat(planes)[:, :, None, :], torch.cat(walked)
+        empty = torch.zeros(0, dtype=torch.long, device=raw.device)
+        return torch.zeros((0, 3, 1, bs * bs), device=raw.device), empty, empty
+    return torch.cat(planes)[:, :, None, :], torch.cat(walked), torch.cat(live)
 
 
 def composite_macro_mxu_reference(raw, counts, bg_color, bs: int, mtw: int, block0: int = 0,
@@ -183,6 +211,98 @@ def walked_rows(raw, counts, bg_color, bs: int, mtw: int, chunk_bytes: int = 1 <
     (counted at the kernels' 64-row group granularity). Times bs^2, it is
     the (row, pixel) pairs the kernels evaluate."""
     return int(_windowed(raw, counts, bg_color, bs, mtw, 0, chunk_bytes)[1].sum())
+
+
+def live_pairs(raw, counts, bg_color, bs: int, mtw: int, chunk_bytes: int = 1 << 31) -> int:
+    """(row, pixel) pairs of the rows ``walked_rows`` counts at which alpha
+    >= 1/255, as the plain version evaluates them: the work a walk that
+    skipped every other pair would still do (the kernel's live bound)."""
+    return int(_windowed(raw, counts, bg_color, bs, mtw, 0, chunk_bytes)[2].sum())
+
+
+# ---------------------------------------------------------------------------
+# The macro-block kernel's cull and walk, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def macro_layout(bs: int, sh: int, p: int) -> dict:
+    """The kernel's layout for macro blocks of bs px, sub-tiles of 16 x sh
+    and p pixels a thread (``csrc/composite.cu``, ``Layout``): threads a
+    block, blocks a macro block (its cluster), sub-tiles a block and warps a
+    sub-tile. Raises ValueError for a layout the kernel is not built for."""
+    if bs not in LAYOUTS or (sh, p) not in LAYOUTS[bs]:
+        raise ValueError(f"the macro-block kernel takes (sh, p) in {LAYOUTS.get(bs, ())} for "
+                         f"bs={bs} (block sizes {BLOCK_SIZES}), got ({sh}, {p})")
+    block_pixels = min(256 * p, bs * bs)
+    return {"threads": block_pixels // p, "cluster": bs * bs // block_pixels,
+            "sub_tiles_per_block": block_pixels // (SUB_W * sh), "warps_per_sub_tile": sh // (2 * p)}
+
+
+def sub_tile_live(window, counts, bs: int, mtw: int, sh: int = DEFAULT_LAYOUT[0],
+                  block0: int = 0):
+    """[M, Kc, (bs / 16) (bs / sh)] bool: the rows the kernel keeps for each
+    16 x sh sub-tile of each block (sub-tiles in raster order): a row inside
+    its block's count stays unless ``box_visible`` (the test of
+    ``csrc/cull.cuh``, ln_op the row's log(opacity)) proves alpha < 1/255 at
+    every pixel of the sub-tile."""
+    m, kc, _ = window.shape
+    dev = window.device
+    d = window.to(torch.float64)
+    cols = bs // SUB_W
+    s = torch.arange(cols * (bs // sh), device=dev)
+    bids = block0 + torch.arange(m, device=dev)
+    x0 = (((bids % mtw) * bs)[:, None] + (s % cols)[None, :] * SUB_W).to(torch.float64)
+    y0 = (((bids // mtw) * bs)[:, None] + (s // cols)[None, :] * sh).to(torch.float64)
+    mx, my, a, b, c, lo = (d[..., i, None] for i in range(6))
+    visible = box_visible(mx, my, a, b, c, lo, x0[:, None, :], y0[:, None, :], SUB_W, sh)
+    in_count = torch.arange(kc, device=dev)[None, :] < counts.long().clamp(max=kc)[:, None]
+    return visible & in_count[..., None]
+
+
+def composite_macro_walk_reference(window, counts, bg_color, bs: int, mtw: int,
+                                   sh: int | None = None, block0: int = 0):
+    """The macro-block kernel's walk in plain torch: per pixel, rows front
+    to back with the transmittance as a running float32 product (the plain
+    version's per-pixel expressions otherwise), alpha below 1/255 skipped,
+    colour added while T > 1e-4; at every 64-row group start of a block's
+    list the block stops when none of its pixels has T > 1e-4. With ``sh``
+    each sub-tile of 16 x sh pixels walks only its live rows
+    (``sub_tile_live``); without, every row. window [M, Kc, 16], counts [M]
+    -> [M, 3, 1, bs*bs]."""
+    m, kc, _ = window.shape
+    dev = window.device
+    raw = window.float()
+    counts = counts.long().clamp(0, kc)
+    flat = torch.arange(bs * bs, device=dev)
+    bids = block0 + torch.arange(m, device=dev)
+    px = ((bids % mtw) * bs)[:, None].float() + (flat % bs).float()[None, :]
+    py = ((bids // mtw) * bs)[:, None].float() + (flat // bs).float()[None, :]
+    live = None
+    if sh is not None:
+        sub_of = (flat // bs // sh) * (bs // SUB_W) + (flat % bs) // SUB_W          # [P]
+        live = sub_tile_live(window, counts, bs, mtw, sh, block0)[:, :, sub_of]    # [M, Kc, P]
+    zero = torch.zeros((), device=dev)
+    trans = torch.ones((m, bs * bs), device=dev)
+    acc = torch.zeros((m, 3, bs * bs), device=dev)
+    active = torch.ones(m, dtype=torch.bool, device=dev)
+    for r in range(int(counts.max()) if m else 0):
+        if r % GROUP == 0:
+            active = active & (trans > T_CUTOFF).any(dim=1)
+            if not bool((active & (r < counts)).any()):
+                break
+        row = raw[:, r]
+        dx = px - row[:, 0:1]
+        dy = py - row[:, 1:2]
+        power = (-0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy)
+                 - row[:, 3:4] * dx * dy + row[:, 5:6])
+        alpha = torch.clamp(torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        take = (active & (r < counts))[:, None] & (alpha >= 1.0 / 255.0)
+        if live is not None:
+            take = take & live[:, r]
+        w = torch.where(take & (trans > T_CUTOFF), alpha * trans, zero)
+        acc = torch.where(w[:, None] > 0, acc + w[:, None] * row[:, 6:9, None], acc)
+        trans = torch.where(take, trans * (1.0 - alpha), trans)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    return (acc + trans[:, None] * bg[None, :, None])[:, :, None, :]
 
 
 def valid_ends(valid):
@@ -297,7 +417,7 @@ def _check(t, name, dtype, ndim, device=None):
         raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
 
 
-def _check_common(table, counts, bg, n_blocks, bs):
+def _check_common(table, counts, bg, n_blocks, bs, layout):
     _check(table, "raw", torch.float32, table.ndim)
     if table.shape[-1] != 16 or table.data_ptr() % 16:
         raise ValueError(f"raw rows must be 16 float32 wide and 16-byte aligned, "
@@ -309,6 +429,7 @@ def _check_common(table, counts, bg, n_blocks, bs):
                          f"{tuple(counts.shape)} and {tuple(bg.shape)}")
     if bs not in BLOCK_SIZES:
         raise ValueError(f"the kernels take macro blocks of {BLOCK_SIZES} px, got bs={bs}")
+    macro_layout(bs, *layout)
 
 
 def _launch(fn, device, args):
@@ -323,8 +444,30 @@ def _bg(bg_color, device):
     return torch.as_tensor(bg_color, dtype=torch.float32, device=device).contiguous()
 
 
+def _launch_macro(table, index, starts, counts, bg, n_blocks, kc, bs, mtw, layout):
+    """One launch of the macro-block kernel: table [N, 16] (or a window
+    [M, Kc, 16], walked as its N = M Kc rows), index [L] int32 or None,
+    starts [M] int32 or None (the window)."""
+    dev = table.device
+    out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=dev)
+    if n_blocks:
+        rows = table.numel() // 16
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        _launch(_lib().aip_composite_macro, dev,
+                (table.data_ptr(), rows, ptr(index), 0 if index is None else index.numel(),
+                 ptr(starts), counts.data_ptr(), bg.data_ptr(), out.data_ptr(), n_blocks, kc,
+                 bs, mtw, *layout))
+    return out
+
+
+def _check_starts(starts, n_blocks, device):
+    _check(starts, "starts", torch.int32, 1, device)
+    if starts.shape[0] != n_blocks:
+        raise ValueError(f"starts must be [{n_blocks}], got {tuple(starts.shape)}")
+
+
 def composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color, n_blocks: int, kc: int,
-                            bs: int, mtw: int):
+                            bs: int, mtw: int, layout=DEFAULT_LAYOUT):
     """Segment-walk compositor (replaces ``composite_macro_mxu_seg_pallas``).
     raw_sorted [S, 16] float32 in (block, depth) order; starts, counts [M]
     int32 (counts clipped to kc). Returns [M, 3, 1, bs*bs] float32."""
@@ -332,22 +475,17 @@ def composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color, n_blocks: int,
         return composite_macro_mxu_seg_reference(raw_sorted, starts, counts, bg_color,
                                                  n_blocks, kc, bs, mtw)
     bg = _bg(bg_color, raw_sorted.device)
-    _check_common(raw_sorted, counts, bg, n_blocks, bs)
+    _check_common(raw_sorted, counts, bg, n_blocks, bs, layout)
     if raw_sorted.ndim != 2:
         raise ValueError(f"raw_sorted must be [S, 16], got {tuple(raw_sorted.shape)}")
-    _check(starts, "starts", torch.int32, 1, raw_sorted.device)
-    if starts.shape[0] != n_blocks:
-        raise ValueError(f"starts must be [{n_blocks}], got {tuple(starts.shape)}")
-    out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=raw_sorted.device)
+    _check_starts(starts, n_blocks, raw_sorted.device)
+    out = _launch_macro(raw_sorted, None, starts, counts, bg, n_blocks, kc, bs, mtw, layout)
     if n_blocks:
-        _launch(_lib().aip_composite_segment, raw_sorted.device,
-                (raw_sorted.data_ptr(), starts.data_ptr(), counts.data_ptr(), bg.data_ptr(),
-                 out.data_ptr(), n_blocks, kc, raw_sorted.shape[0], bs, mtw))
         composite_macro_mxu_seg.launches += 1
     return out
 
 
-def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int):
+def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int, layout=DEFAULT_LAYOUT):
     """Windowed compositor (replaces ``composite_macro_mxu_pallas``). raw
     [M, Kc, 16] float32 gathered rows, counts [M] int32 (valid rows are a
     prefix). Returns [M, 3, 1, bs*bs] float32."""
@@ -355,14 +493,58 @@ def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int):
         return composite_macro_mxu_reference(raw, counts, bg_color, bs, mtw)
     bg = _bg(bg_color, raw.device)
     n_blocks = raw.shape[0]
-    _check_common(raw, counts, bg, n_blocks, bs)
+    _check_common(raw, counts, bg, n_blocks, bs, layout)
     if raw.ndim != 3:
         raise ValueError(f"raw must be [M, Kc, 16], got {tuple(raw.shape)}")
-    out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=raw.device)
+    out = _launch_macro(raw, None, None, counts, bg, n_blocks, raw.shape[1], bs, mtw, layout)
     if n_blocks:
-        _launch(_lib().aip_composite_window, raw.device,
-                (raw.data_ptr(), counts.data_ptr(), bg.data_ptr(), out.data_ptr(), n_blocks,
-                 raw.shape[1], bs, mtw))
+        composite_macro_mxu.launches += 1
+    return out
+
+
+def composite_macro_mxu_seg_indexed(table, gid_s, starts, counts, bg_color, n_blocks: int,
+                                    kc: int, bs: int, mtw: int, layout=DEFAULT_LAYOUT):
+    """The segment walk through the selection's index: block b walks rows
+    table[gid_s[i]] for i in [starts[b], starts[b] + counts[b]), counts
+    clipped to kc. table [N, 16] float32 (``pack_raw_table``), gid_s [S],
+    starts, counts [M] int32. On a CPU tensor: ``composite_macro_mxu_seg``
+    on the gathered ``table[gid_s]``. Returns [M, 3, 1, bs*bs] float32;
+    counted as a launch of ``composite_macro_mxu_seg``."""
+    if table.device.type == "cpu":
+        return composite_macro_mxu_seg(table[gid_s.long()], starts, counts, bg_color,
+                                       n_blocks=n_blocks, kc=kc, bs=bs, mtw=mtw)
+    bg = _bg(bg_color, table.device)
+    _check_common(table, counts, bg, n_blocks, bs, layout)
+    if table.ndim != 2:
+        raise ValueError(f"table must be [N, 16], got {tuple(table.shape)}")
+    _check(gid_s, "gid_s", torch.int32, 1, table.device)
+    _check_starts(starts, n_blocks, table.device)
+    out = _launch_macro(table, gid_s, starts, counts, bg, n_blocks, kc, bs, mtw, layout)
+    if n_blocks:
+        composite_macro_mxu_seg.launches += 1
+    return out
+
+
+def composite_macro_mxu_indexed(table, macro_idx, counts, bg_color, bs: int, mtw: int,
+                                layout=DEFAULT_LAYOUT):
+    """The windowed walk through the selection's index: block b walks rows
+    table[macro_idx[b, i]] for i < counts[b] (valid slots are a prefix, -1
+    past it). table [N, 16] float32, macro_idx [M, Kc] and counts [M]
+    int32. On a CPU tensor: ``composite_macro_mxu`` on the gathered
+    ``table[max(macro_idx, 0)]``. Returns [M, 3, 1, bs*bs] float32; counted
+    as a launch of ``composite_macro_mxu``."""
+    if table.device.type == "cpu":
+        return composite_macro_mxu(table[torch.clamp(macro_idx, min=0).long()], counts,
+                                   bg_color, bs=bs, mtw=mtw)
+    bg = _bg(bg_color, table.device)
+    n_blocks = macro_idx.shape[0]
+    _check_common(table, counts, bg, n_blocks, bs, layout)
+    if table.ndim != 2:
+        raise ValueError(f"table must be [N, 16], got {tuple(table.shape)}")
+    _check(macro_idx, "macro_idx", torch.int32, 2, table.device)
+    out = _launch_macro(table, macro_idx, None, counts, bg, n_blocks, macro_idx.shape[1], bs,
+                        mtw, layout)
+    if n_blocks:
         composite_macro_mxu.launches += 1
     return out
 

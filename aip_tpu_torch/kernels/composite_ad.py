@@ -57,6 +57,7 @@ BWD_P = 2
 ALPHA_MIN = float(torch.tensor(1.0 / 255.0, dtype=torch.float32))
 ROUNDING_MARGIN = 16 * 2.0 ** -24   # of rho q / 2: more than twice the power's rounding
 EXP_MARGIN = 1e-6                   # expf's 2 ulp and the opacity product, as log
+LN_ALPHA_MIN = math.log(ALPHA_MIN)
 
 
 @functools.cache
@@ -170,46 +171,61 @@ def composite_ad_bwd_reference(mean, conic, color, op, valid, bg, t_final, g_out
 # The kernels' walks, emulated in plain torch
 # ---------------------------------------------------------------------------
 
+def margin_factor(a, b, c):
+    """1 - 16 u rho of each conic (float64), NaN where it is not positive
+    definite; rho = 1 + 2 |b| / lambda_min bounds (a X^2 + c Y^2 + 2 |b X
+    Y|) / q everywhere (``csrc/cull.cuh``, ``margin_factor``)."""
+    det = a * c - b * b
+    half_d = 0.5 * (a - c)
+    l_max = 0.5 * (a + c) + torch.sqrt(half_d * half_d + b * b)
+    rho = 1.0 + (2.0 * b.abs()) / (det / l_max)
+    factor = 1.0 - ROUNDING_MARGIN * rho
+    return torch.where((a > 0) & (c > 0) & (det > 0), factor,
+                       torch.full_like(factor, math.nan))
+
+
+def box_visible(mx, my, a, b, c, ln_op, x0, y0, w: int, h: int):
+    """False where a test in float64 proves alpha < 1/255 at every pixel
+    centre of the box [x0, x0 + w - 1] x [y0, y0 + h - 1] for the Gaussian
+    at (mx, my) with conic (a, b, c) and log opacity ln_op (all float64,
+    broadcast together): the least q = a X^2 + 2 b X Y + c Y^2 over the box
+    (X, Y from the mean; the exact minimum of a convex quadratic, on the
+    box's edges unless the mean is inside) against the power's bound, with a
+    margin for a kernel's float32 rounding of the power, in proportion to q,
+    and 1e-6 for expf's error (``csrc/cull.cuh``, ``aip_cull``: the same
+    expressions in the same order). A conic that is not positive definite
+    is never culled."""
+    xa, xb = x0 - mx, (x0 + (w - 1)) - mx
+    ya, yb = y0 - my, (y0 + (h - 1)) - my
+    sx, sy = -b / c, -b / a
+
+    def q(x, y):
+        return ((a * x) * x + 2.0 * ((b * x) * y)) + (c * y) * y
+
+    q_min = torch.minimum(
+        torch.minimum(q(xa, torch.clamp(sx * xa, ya, yb)), q(xb, torch.clamp(sx * xb, ya, yb))),
+        torch.minimum(q(torch.clamp(sy * ya, xa, xb), ya), q(torch.clamp(sy * yb, xa, xb), yb)))
+    inside = (xa <= 0) & (xb >= 0) & (ya <= 0) & (yb >= 0)
+    q_min = torch.where(inside, torch.zeros_like(q_min), q_min)
+    bound = (ln_op - (0.5 * q_min) * margin_factor(a, b, c)) + EXP_MARGIN
+    return ~(bound < LN_ALPHA_MIN)
+
+
 def live_slots(g, valid, tile_w: int):
     """[T, K] bool: the slots each tile's walk keeps, as kernels A and B
     decide while staging a tile. A slot goes when it is invalid, when its
-    opacity is <= 0, or when its conic is positive definite and a test in
-    float64 proves alpha < 1/255 at every pixel of the tile: the least
-    q = a X^2 + 2 b X Y + c Y^2 over the tile's pixel box (X, Y from the
-    mean; the exact minimum of a convex quadratic, on the box's edges unless
-    the mean is inside) against 2 ln(255 op), with a margin for the kernel's
-    float32 rounding of the power, in proportion to q (the rounding is at
-    most 6 u rho q / 2 at a pixel), and for expf's error. Every other slot stays, so a culled
-    slot has alpha 0 at every pixel and skipping it is exact."""
+    opacity is <= 0, or when ``box_visible`` proves alpha < 1/255 at every
+    pixel of the tile (ln_op = ln(opacity): the kernels' power has no
+    opacity term). Every other slot stays, so a culled slot has alpha 0 at
+    every pixel and skipping it is exact."""
     n_tiles = g.shape[0]
     d = g.to(torch.float64)
     mx, my, a, b, c, op = (d[..., i] for i in (0, 1, 2, 3, 4, 8))
     t = torch.arange(n_tiles, device=g.device)
     x0 = ((t % tile_w) * TILE).to(torch.float64)[:, None]
     y0 = ((t // tile_w) * TILE).to(torch.float64)[:, None]
-    xa, xb = x0 - mx, (x0 + (TILE - 1)) - mx
-    ya, yb = y0 - my, (y0 + (TILE - 1)) - my
-    pd = (a > 0) & (c > 0) & (a * c - b * b > 0)
-
-    def q(x, y):
-        return ((a * x) * x + 2.0 * ((b * x) * y)) + (c * y) * y
-
-    def on_x(x):      # the edge X = x: the least q at Y = -b x / c, clamped
-        return q(x, torch.clamp(-(b * x) / c, ya, yb))
-
-    def on_y(y):
-        return q(torch.clamp(-(b * y) / a, xa, xb), y)
-
-    q_min = torch.minimum(torch.minimum(on_x(xa), on_x(xb)), torch.minimum(on_y(ya), on_y(yb)))
-    inside = (xa <= 0) & (xb >= 0) & (ya <= 0) & (yb >= 0)
-    q_min = torch.where(inside, torch.zeros_like(q_min), q_min)
-    # rho bounds (a X^2 + c Y^2 + 2 |b X Y|) / q everywhere: 1 + 2 |b| / lambda_min.
-    half_d = 0.5 * (a - c)
-    l_max = 0.5 * (a + c) + torch.sqrt(half_d * half_d + b * b)
-    rho = 1.0 + (2.0 * b.abs()) / ((a * c - b * b) / l_max)
-    bound = (torch.log(op) - (0.5 * q_min) * (1.0 - ROUNDING_MARGIN * rho)) + EXP_MARGIN
-    invisible = (op <= 0) | (pd & (bound < math.log(ALPHA_MIN)))
-    return (valid[..., 0] > 0) & ~invisible
+    visible = box_visible(mx, my, a, b, c, torch.log(op), x0, y0, TILE, TILE)
+    return (valid[..., 0] > 0) & (op > 0) & visible
 
 
 def _live_order(keep):

@@ -48,12 +48,16 @@ seed 0):
     an orbit from which the model fills the frame), a model directory with
     ``cfg_args.json`` pointed at it, and a style PNG from a seed.
 10. compositor kernels vs plain, float32, on the inputs the two main paths
-    hand them (captured from one frame of each) and on edge cases (counts
+    hand them (captured from one frame of each: the indexed entries, which
+    read the rows through the selection's index) and on edge cases (counts
     0, counts not a multiple of 64, segments starting mid-group, a block
-    that saturates early). Pass: max abs <= 1e-3 * max(1, max|ref|) and
-    mean abs <= 1e-5, because the kernel's sequential transmittance product
-    and the plain version's exp(cumsum(log1p)) round differently, so the
-    1e-4 cutoff can flip at single pixels.
+    that saturates early, a count above kc, bg != 0; through the
+    JAX-signature wrappers and the indexed entries). Pass: max abs <= 1e-3
+    * max(1, max|ref|) and mean abs <= 1e-5, because the kernel's
+    sequential transmittance product and the plain version's
+    exp(cumsum(log1p)) round differently, so the 1e-4 cutoff can flip at
+    single pixels; and each indexed call equal (max abs 0) to the kernel
+    on the gathered rows and to its walk emulated in plain torch.
 11. main path, windowed: ``gs.pipeline.run_3dgs_rendering`` on the
     committed model; the GIF and 8 PNGs exist, > 10 % of pixels differ
     from the background, the windowed kernel ran >= 8 times.
@@ -64,10 +68,17 @@ seed 0):
     abs <= 1e-4.
 14. times (CUDA events, median of 10 after a warm-up): ms per frame of the
     committed model at 800^2 and at 1088x1920 under ``fit_selection(...,
-    hi=8192)`` over the 8 cameras, and of the fog; each compositor's ms,
-    plain ms, launches per frame and bound; a torch.profiler breakdown of
-    one 1088x1920 frame of the committed model by stage, with the device's
-    busy share.
+    hi=8192)`` over the 8 cameras, and of the fog; both fitted scenes
+    through both branches (the segment-or-windowed crossover, recorded
+    only); each compositor on its served inputs: ms over 100 calls in one
+    window (the kernels line) and a single call, plain ms, launches per
+    frame, the dense bound (every walked pair) and the live bound (the
+    pairs with alpha >= 1/255, ``bound_ms``), the share of walked (row,
+    sub-tile) pairs the cull keeps at each sub-tile height, the layout
+    sweep (sub-tile height and pixels a thread, each equal to the default
+    bit for bit) and ptxas's registers and spills; a torch.profiler
+    breakdown of one 1088x1920 frame of the committed model by stage, with
+    the device's busy share.
 
 Stylized 3DGS training, at full width (``GSTrainConfig``'s defaults: capacity
 2^17, a 16 x 2^19 x 2 hash grid, style_dim 256, K 128, macro 4, kc 1024),
@@ -751,18 +762,24 @@ def _gs_phases(torch, dev):
                  "fog_1088x1920": branch(fog_state.capacity, fog_fn.settings)})
 
     # 10. compositor kernels vs plain -------------------------------------------
+    # The rasterizer calls the indexed entries (the kernel reads the rows
+    # through the selection's index); their plain version gathers the rows
+    # and runs the JAX-signature wrapper's.
     served = {}
-    with _capture(KC, "composite_macro_mxu", served):
+    with _capture(KC, "composite_macro_mxu_indexed", served):
         GR.render_frame(fn_800, cams[0])
-    with _capture(KC, "composite_macro_mxu_seg", served):
+    with _capture(KC, "composite_macro_mxu_seg_indexed", served):
         GR.render_frame(fog_fn, fog_cam)
     torch.cuda.synchronize()
     main_err = {}
-    for name, (args, kw) in served.items():
-        main_err[name] = _composite_check(torch, name, getattr(KC, name), plain[name], args, kw,
-                                          "served")
+    for iname, (args, kw) in served.items():
+        name = _gathered(KC, iname, args)[0]
+        main_err[name] = _indexed_check(torch, KC, plain, iname, args, kw, "served")
     for name, (args, kw), case in _edge_cases(np, torch, KC, dev):
-        _composite_check(torch, name, getattr(KC, name), plain[name], args, kw, case)
+        if name.endswith("_indexed"):
+            _indexed_check(torch, KC, plain, name, args, kw, case)
+        else:
+            _composite_check(torch, name, getattr(KC, name), plain[name], args, kw, case)
 
     # 11. main path, windowed: run_3dgs_rendering on the committed model -------
     out_dir = GS_WORK / "renders"
@@ -845,35 +862,90 @@ def _gs_phases(torch, dev):
     ms = _time_ms(torch, lambda: GR.render_frame(fog_fn, fog_cam))
     emit("gs_frame_time", scene="fog_1088x1920", ms=ms, fps=1e3 / ms,
          branch=branch(fog_state.capacity, fog_fn.settings))
+    # The segment-or-windowed crossover on this card: each fitted scene
+    # through both branches (frame ms over the cameras, and the kernel on
+    # camera 0's inputs). Recorded only; _SEG_SLOT_RATIO stays the JAX
+    # package's, so both packages take the same branch.
+    for label, cs in (("bed_0037_800", cams), ("bed_0037_1088x1920", cams_1080)):
+        fn, ratio = fitted_fns[label], R._SEG_SLOT_RATIO
+        for forced, r in (("segment", math.inf), ("windowed", 0.0)):
+            R._SEG_SLOT_RATIO = r
+            try:
+                taken = branch(n_bed, fn.settings)
+                iname = ("composite_macro_mxu_seg_indexed" if taken == "segment"
+                         else "composite_macro_mxu_indexed")
+                cap = {}
+                with _capture(KC, iname, cap):
+                    GR.render_frame(fn, cs[0])
+                frame = _cycle(GR.render_frame, fn, cs)
+                for _ in cs:
+                    frame()
+                frame_ms = _time_ms(torch, frame)
+            finally:
+                R._SEG_SLOT_RATIO = ratio
+            args, kw = cap[iname]
+            emit("gs_crossover", scene=label, forced=forced, branch=taken, frame_ms=frame_ms,
+                 kernel=iname, kernel_ms_100_calls=_time_many_ms(
+                     torch, lambda: getattr(KC, iname)(*args, **kw), MANY_CALLS),
+                 seg_slot_ratio=ratio)
 
     lines = []
     per_frame = {"composite_macro_mxu": win_launches["composite_macro_mxu"] / len(pngs),
                  "composite_macro_mxu_seg": seg_launches["composite_macro_mxu_seg"]}
     main_launches = {"composite_macro_mxu": win_launches["composite_macro_mxu"],
                      "composite_macro_mxu_seg": seg_launches["composite_macro_mxu_seg"]}
-    for name in ("composite_macro_mxu_seg", "composite_macro_mxu"):
-        args, kw = served[name]
-        nbytes, pairs, rows = _composite_work(KC, name, args, kw)
-        t_comp, t_mem = pairs * PAIR_FLOPS / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
-        lines.append({
+    for iname in ("composite_macro_mxu_seg_indexed", "composite_macro_mxu_indexed"):
+        args, kw = served[iname]
+        name, gargs = _gathered(KC, iname, args)
+        nbytes, pairs, rows, live = _composite_work(KC, name, gargs, kw)
+        t_dense, t_live = pairs * PAIR_FLOPS / PEAK_FLOPS_F32, live * PAIR_FLOPS / PEAK_FLOPS_F32
+        t_mem = nbytes / PEAK_BYTES
+        kernel = (lambda: getattr(KC, iname)(*args, **kw))
+        ms = _time_many_ms(torch, kernel, MANY_CALLS)
+        base = kernel()
+        sweep = {}
+        for lay in KC.LAYOUTS[kw["bs"]]:
+            out = getattr(KC, iname)(*args, **kw, layout=lay)
+            torch.cuda.synchronize()
+            sweep[f"16x{lay[0]} p={lay[1]}"] = {
+                "ms_100_calls": _time_many_ms(
+                    torch, lambda: getattr(KC, iname)(*args, **kw, layout=lay), MANY_CALLS),
+                "max_abs_vs_default": (out - base).abs().max().item(),
+                **KC.macro_layout(kw["bs"], *lay)}
+        if max(v["max_abs_vs_default"] for v in sweep.values()) != 0.0:
+            raise AssertionError(f"{iname}: a layout of the sweep differs from the default")
+        line = {
             "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
             "replaces": KERNELS[name][1], "launches": main_launches[name],
-            "max_abs_err": main_err[name],
-            "ms": _time_ms(torch, lambda: getattr(KC, name)(*args, **kw)),
-            "plain_ms": _time_ms(torch, lambda: plain[name](*args, **kw)),
-            "bound_ms": max(t_comp, t_mem) * 1e3,
-            "bound_by": "operations" if t_comp >= t_mem else "bytes",
+            "max_abs_err": main_err[name], "ms": ms,
+            "plain_ms": _time_ms(torch, lambda: plain[name](*_gathered(KC, iname, args)[1],
+                                                            **kw)),
+            "bound_ms": max(t_live, t_mem) * 1e3,
+            "bound_by": "operations" if t_live >= t_mem else "bytes",
             "library_ms": None,
-        })
-        emit("gs_kernel_work", kernel=name, served_by="fog_1088x1920" if "seg" in name
-             else "bed_0037_800", launches_per_frame=per_frame[name], rows_walked=rows,
-             pairs=pairs, bytes=nbytes, flops=pairs * PAIR_FLOPS,
+        }
+        lines.append(line)
+        window = (KC._segment_window(gargs[0], gargs[1], gargs[2], kw["kc"]) if "seg" in name
+                  else gargs[0])
+        emit("gs_kernel_work", kernel=name, entry=iname,
+             served_by="fog_1088x1920" if "seg" in name else "bed_0037_800",
+             launches_per_frame=per_frame[name], rows_walked=rows, pairs=pairs,
+             live_pairs=live, live_share=live / max(pairs, 1), bytes=nbytes,
+             flops=pairs * PAIR_FLOPS, ms_100_calls=ms, ms_single_call=_time_ms(torch, kernel),
+             dense_bound_ms=max(t_dense, t_mem) * 1e3, live_bound_ms=line["bound_ms"],
+             share_of_live_bound=line["bound_ms"] / ms,
+             share_of_dense_bound=max(t_dense, t_mem) * 1e3 / ms,
+             kept_row_sub_tile_share=_sub_tile_shares(torch, KC, window, gargs[-2], gargs[-1],
+                                                      kw["bs"], kw["mtw"]),
+             layout_sweep=sweep, ptxas=_composite_ptxas(),
              definition=("pairs = sum over blocks of the rows walked up to the early exit "
-                         "(counted by the plain version) x bs^2; operations = 15 float32 per "
-                         "pair at 67 TFLOP/s (H100 SXM, CUDA cores); bytes = the walked 64-byte "
-                         "rows, counts and starts read once, the planes written once, at "
-                         "3.35 TB/s"),
+                         "(counted by the plain version) x bs^2, live pairs = those with "
+                         "alpha >= 1/255; operations = 15 float32 per pair at 67 TFLOP/s "
+                         "(H100 SXM, CUDA cores): the dense bound counts every pair, the live "
+                         "bound (bound_ms) the live ones; bytes = the walked 64-byte rows, "
+                         "counts and starts read once, the planes written once, at 3.35 TB/s"),
              library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
+        del window
     _stage_profile(torch, "gs_profile",
                    _cycle(GR.render_frame, fitted_fns["bed_0037_1088x1920"], cams_1080),
                    GS_SPANS, named=(("gs.composite", "composite_macro_kernel"),), calls=3,
@@ -992,7 +1064,8 @@ def _composite_check(torch, name, kernel, plain, args, kw, case):
 def _edge_cases(np, torch, KC, dev, bs=64, mtw=3, mth=2, kc=200):
     """Segments with counts 0, 37 and 129, segments that start mid-group, a
     count above kc, and a block that is opaque after ten rows; the same
-    blocks as a window."""
+    blocks as a window; and both through the indexed entries, on the table
+    shuffled (gid_s and macro_idx the inverse permutation), with bg != 0."""
     g = np.random.default_rng(3)
     n = 1400
     rows = np.zeros((n, 16), np.float32)
@@ -1012,14 +1085,61 @@ def _edge_cases(np, torch, KC, dev, bs=64, mtw=3, mth=2, kc=200):
     geo = dict(bs=bs, mtw=mtw)
     clipped = torch.clamp(counts, max=kc)
     window = KC._segment_window(table, starts, clipped, kc).contiguous()
+    perm = torch.from_numpy(g.permutation(n)).to(dev)
+    shuffled = table[perm].contiguous()
+    gid = torch.argsort(perm).to(torch.int32)       # shuffled[gid] = table
+    slot = torch.arange(kc, device=dev)
+    idx = torch.where(slot[None, :] < clipped[:, None],
+                      gid[torch.clamp(starts.long()[:, None] + slot[None, :], max=n - 1)],
+                      torch.full((), -1, dtype=torch.int32, device=dev)).to(torch.int32)
     return [("composite_macro_mxu_seg", ((table, starts, counts, bg),
                                          dict(n_blocks=mtw * mth, kc=kc, **geo)), "edge"),
-            ("composite_macro_mxu", ((window, clipped, bg), geo), "edge")]
+            ("composite_macro_mxu", ((window, clipped, bg), geo), "edge"),
+            ("composite_macro_mxu_seg_indexed", ((shuffled, gid, starts, counts, bg),
+                                                 dict(n_blocks=mtw * mth, kc=kc, **geo)), "edge"),
+            ("composite_macro_mxu_indexed", ((shuffled, idx.contiguous(), clipped, bg), geo),
+             "edge")]
+
+
+def _gathered(KC, iname, args):
+    """An indexed entry's call as its JAX-signature wrapper's: (name, args)
+    on the gathered rows."""
+    if iname == "composite_macro_mxu_seg_indexed":
+        table, gid, starts, counts, bg = args
+        return "composite_macro_mxu_seg", (table[gid.long()].contiguous(), starts, counts, bg)
+    table, idx, counts, bg = args
+    return "composite_macro_mxu", (table[idx.clamp(min=0).long()].contiguous(), counts, bg)
+
+
+def _indexed_check(torch, KC, plain, iname, args, kw, case):
+    """The indexed entry against the plain version on the gathered rows (the
+    tolerance of ``_composite_check``), against the kernel on the gathered
+    rows (max abs 0: the same kernel reads the same rows) and against the
+    kernel's walk emulated in plain torch (max abs 0: both round every
+    operation alike, ``composite_macro_walk_reference``)."""
+    name, gargs = _gathered(KC, iname, args)
+    out = getattr(KC, iname)(*args, **kw)
+    gathered = getattr(KC, name)(*gargs, **kw)
+    torch.cuda.synchronize()
+    if name == "composite_macro_mxu_seg":
+        window, counts = KC._segment_window(gargs[0], gargs[1], gargs[2], kw["kc"]), gargs[2]
+    else:
+        window, counts = gargs[0], gargs[1]
+    emulated = KC.composite_macro_walk_reference(window, counts, gargs[-1], kw["bs"], kw["mtw"])
+    same = (out - gathered).abs().max().item() if out.numel() else 0.0
+    emu = (out - emulated).abs().max().item() if out.numel() else 0.0
+    emit("gs_indexed_vs_gathered", kernel=iname, case=case, max_abs_err=same,
+         emulation_max_abs_err=emu, tol_max_abs=0.0)
+    if same != 0.0 or emu != 0.0:
+        raise AssertionError(f"{iname} ({case}) differs from the kernel on the gathered rows "
+                             f"or from its emulation")
+    return _composite_check(torch, name, lambda *a, **k: out, plain[name], gargs, kw,
+                            f"{case}, indexed")
 
 
 def _composite_work(KC, name, args, kw):
-    """(bytes, pairs, rows walked) of one compositor call, as the plain
-    version counts the early exit."""
+    """(bytes, pairs, rows walked, live pairs) of one compositor call, as
+    the plain version counts the early exit and the 1/255 cutoff."""
     if name == "composite_macro_mxu_seg":
         table, starts, counts, bg = args
         window = KC._segment_window(table, starts, counts, kw["kc"])
@@ -1028,9 +1148,44 @@ def _composite_work(KC, name, args, kw):
         window, counts, bg = args
         index_bytes = 4 * counts.numel()
     bs = kw["bs"]
-    rows = KC.walked_rows(window, counts, bg, bs, kw["mtw"])
+    _, walked, live = KC._windowed(window, counts, bg, bs, kw["mtw"], 0, 1 << 31)
+    rows = int(walked.sum())
     out_bytes = counts.numel() * 3 * bs * bs * 4
-    return rows * ROW_BYTES + index_bytes + out_bytes, rows * bs * bs, rows
+    return rows * ROW_BYTES + index_bytes + out_bytes, rows * bs * bs, rows, int(live.sum())
+
+
+def _sub_tile_shares(torch, KC, window, counts, bg, bs, mtw):
+    """Per sub-tile height: the share of the walked (row, sub-tile) pairs
+    the kernel's cull keeps (rows up to each block's early exit)."""
+    walked = KC._windowed(window, counts, bg, bs, mtw, 0, 1 << 31)[1]
+    rows = torch.arange(window.shape[1], device=window.device)
+    out = {}
+    for sh in sorted({sh for sh, _ in KC.LAYOUTS[bs]}):
+        keep = KC.sub_tile_live(window, counts, bs, mtw, sh)
+        keep = keep & (rows[None, :] < walked[:, None])[..., None]
+        out[f"16x{sh}"] = int(keep.sum()) / max(int(walked.sum()) * keep.shape[2], 1)
+    return out
+
+
+def _composite_ptxas():
+    """Registers and spills of each layout of the macro-block kernel, from
+    the build's ptxas report: {"bs=64 sh=16 p=2": {...}, ...}."""
+    path = WORK / "build_composite.log"
+    report = path.read_text() if path.is_file() else ""
+    out, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"composite_macro_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            cur = f"bs={m[1]} sh={m[2]} p={m[3]}" if m else None
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(cur, {}).update(spill_stores=int(spill[1]),
+                                               spill_loads=int(spill[2]))
+            if regs:
+                out.setdefault(cur, {})["registers"] = int(regs[1])
+    return out or "not measured"
 
 
 def _cycle(render_frame, fn, cams):

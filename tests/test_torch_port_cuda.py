@@ -250,6 +250,161 @@ def test_composite_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         C.composite_macro_mxu_seg(raw[0], counts.cpu(), counts, torch.zeros(3), n_blocks=2,
                                   kc=64, bs=64, mtw=2)
+    with pytest.raises(ValueError):   # a layout the kernel is not built for
+        C.composite_macro_mxu(raw, counts, torch.zeros(3), bs=32, mtw=2, layout=(16, 2))
+    with pytest.raises(ValueError):
+        C.composite_macro_mxu(raw, counts, torch.zeros(3), bs=64, mtw=2, layout=(16, 1))
+    table = raw[0]
+    idx = torch.zeros(2, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):    # the index is int32
+        C.composite_macro_mxu_indexed(table, idx.long(), counts, torch.zeros(3), bs=64, mtw=2)
+    with pytest.raises(ValueError):   # the index lies on the table's card
+        C.composite_macro_mxu_indexed(table, idx.cpu(), counts, torch.zeros(3), bs=64, mtw=2)
+    with pytest.raises(ValueError):   # the table is [N, 16]
+        C.composite_macro_mxu_seg_indexed(raw, idx[0], counts, counts, torch.zeros(3),
+                                          n_blocks=2, kc=64, bs=64, mtw=2)
+
+
+def _seg_case(cuda, bs, kc=200):
+    """The edge case's table, starts and counts on the card, mtw 3 x mth 2."""
+    g = np.random.default_rng(3)
+    mtw, mth = 3, 2
+    rows = _raw_rows(g, 1400, bs, mtw, mth)
+    rows[700:710, 0:6] = [(4 % mtw + 0.5) * bs, (4 // mtw + 0.5) * bs, 1e-4, 0.0, 1e-4, 0.0]
+    starts = np.array([0, 5, 250, 450, 700, 1000], np.int32)
+    counts = np.array([0, 37, 200, 129, 200, 260], np.int32)
+    return [torch.from_numpy(a).to(cuda) for a in (rows, starts, counts)] + [mtw, kc]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_kernels_saturate_with_a_background(cuda, bs):
+    """bg != 0 and blocks that saturate early: block 0 behind four wide
+    opaque splats (every sub-tile saturates within the first group, so the
+    block leaves at row 64 and the background sees T there), block 1 with
+    opaque splats over its left half only (no exit: its right half walks
+    on); against the plain version."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(8)
+    mtw, kc = 2, 256
+    window = np.stack([_raw_rows(g, kc, bs, 1, 1) for _ in range(2)])
+    window[1, :, 0] += bs
+    window[0, :4, 0:6] = [bs / 2, bs / 2, 1e-5, 0.0, 1e-5, 0.0]
+    window[1, :6, 0:6] = [bs + bs / 4, bs / 2, 4.0 / bs ** 2, 0.0, 1e-5, 0.0]
+    counts = torch.tensor([kc, kc], dtype=torch.int32, device=cuda)
+    raw = torch.from_numpy(window).to(cuda)
+    bg = torch.tensor([0.7, 0.2, 0.9], device=cuda)
+    out = C.composite_macro_mxu(raw, counts, bg, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    ref = C.composite_macro_mxu_reference(raw, counts, bg, bs, mtw)
+    _assert_composite_close(out, ref)
+    walked = C._windowed(raw, counts, bg, bs, mtw, 0, 1 << 31)[1]
+    assert int(walked[0]) == 64 and int(walked[1]) > 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_segment_longer_than_kc(cuda, bs):
+    """A segment of 3 kc + 5 rows walks its first kc, as the plain version
+    clips it; the windowed walk of the same kc rows agrees."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(12)
+    kc = 100
+    rows = torch.from_numpy(_raw_rows(g, 3 * kc + 5, bs, 1, 1)).to(cuda)
+    starts = torch.tensor([0], dtype=torch.int32, device=cuda)
+    counts = torch.tensor([3 * kc + 5], dtype=torch.int32, device=cuda)
+    bg = torch.tensor([0.3, 0.3, 0.3], device=cuda)
+    out = C.composite_macro_mxu_seg(rows, starts, counts, bg, n_blocks=1, kc=kc, bs=bs, mtw=1)
+    torch.cuda.synchronize()
+    _assert_composite_close(out, C.composite_macro_mxu_seg_reference(rows, starts, counts, bg,
+                                                                     1, kc, bs, 1))
+    clipped = torch.tensor([kc], dtype=torch.int32, device=cuda)
+    out_w = C.composite_macro_mxu(rows[:kc].reshape(1, kc, 16).contiguous(), clipped, bg, bs=bs,
+                                  mtw=1)
+    assert torch.equal(out_w, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_indexed_entries_equal_gather_then_kernel(cuda, bs):
+    """The kernel reading rows through gid_s or macro_idx writes the planes
+    of the kernel on the gathered rows (max abs 0), for both walks; an
+    index outside the table is an empty row."""
+    from aip_tpu_torch.kernels import composite as C
+
+    table, starts, counts, mtw, kc = _seg_case(cuda, bs)
+    g = np.random.default_rng(5)
+    perm = torch.from_numpy(g.permutation(table.shape[0]).astype(np.int32)).to(cuda)
+    shuffled = table[perm.long()].contiguous()
+    inverse = torch.argsort(perm.long()).to(torch.int32)        # shuffled[inverse] = table
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    C.reset_launch_counts()
+    got = C.composite_macro_mxu_seg_indexed(shuffled, inverse, starts, counts, bg, n_blocks=6,
+                                            kc=kc, bs=bs, mtw=mtw)
+    want = C.composite_macro_mxu_seg(table, starts, counts, bg, n_blocks=6, kc=kc, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) == 0.0
+    clipped = torch.clamp(counts, max=kc)
+    slot = torch.arange(kc, device=cuda)
+    idx = torch.where(slot[None, :] < clipped[:, None],
+                      inverse[torch.clamp(starts.long()[:, None] + slot[None, :],
+                                          max=table.shape[0] - 1)],
+                      torch.full((), -1, dtype=torch.int32, device=cuda)).to(torch.int32)
+    got_w = C.composite_macro_mxu_indexed(shuffled, idx.contiguous(), clipped, bg, bs=bs, mtw=mtw)
+    window = shuffled[torch.clamp(idx, min=0).long()].contiguous()
+    want_w = C.composite_macro_mxu(window, clipped, bg, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    assert float((got_w - want_w).abs().max()) == 0.0
+    assert float((got_w - got).abs().max()) == 0.0
+    assert C.launch_counts()["composite_macro_mxu_seg"] == 2
+    assert C.launch_counts()["composite_macro_mxu"] == 2
+    # Block 2's rows through an index with one id past the table: that row
+    # is empty, as if its opacity were 0.
+    bad = idx.clone()
+    bad[2, 3] = table.shape[0] + 7
+    empty = window.clone()
+    empty[2, 3, 5] = -float("inf")
+    got_b = C.composite_macro_mxu_indexed(shuffled, bad, clipped, bg, bs=bs, mtw=mtw)
+    want_b = C.composite_macro_mxu(empty, clipped, bg, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    assert float((got_b - want_b).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_kernel_equals_its_emulation(cuda, bs):
+    """The kernel against its walk emulated in plain torch on the card
+    (``composite_macro_walk_reference``): equal, max abs 0, since both
+    round every operation alike; the emulation over each sub-tile's live
+    rows too."""
+    from aip_tpu_torch.kernels import composite as C
+
+    table, starts, counts, mtw, kc = _seg_case(cuda, bs)
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    out = C.composite_macro_mxu_seg(table, starts, counts, bg, n_blocks=6, kc=kc, bs=bs, mtw=mtw)
+    torch.cuda.synchronize()
+    window = C._segment_window(table, starts, torch.clamp(counts, max=kc), kc)
+    for sh in (None, 16):
+        emulated = C.composite_macro_walk_reference(window, counts, bg, bs, mtw, sh=sh)
+        assert float((out - emulated).abs().max()) == 0.0, sh
+
+
+@pytest.mark.cuda
+def test_composite_layouts_agree_bit_for_bit(cuda):
+    """Every sub-tile height and P the kernel is built for at bs 64 writes
+    the default layout's planes (each pixel's walk rounds alike)."""
+    from aip_tpu_torch.kernels import composite as C
+
+    table, starts, counts, mtw, kc = _seg_case(cuda, 64)
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    outs = {lay: C.composite_macro_mxu_seg(table, starts, counts, bg, n_blocks=6, kc=kc, bs=64,
+                                           mtw=mtw, layout=lay) for lay in C.LAYOUTS[64]}
+    torch.cuda.synchronize()
+    base = outs[C.DEFAULT_LAYOUT]
+    for lay, out in outs.items():
+        assert float((out - base).abs().max()) == 0.0, lay
 
 
 # ---------------------------------------------------------------------------
