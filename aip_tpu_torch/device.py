@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -24,3 +26,20 @@ def check_module_device(module: torch.nn.Module, device: torch.device) -> None:
             raise ValueError(
                 f"{type(module).__name__} parameters are on {p.device}, the "
                 f"call asked for {device}; move the module with .to(device)")
+
+
+@contextlib.contextmanager
+def fp32_convs():
+    """cuDNN's fp32 convolutions in full fp32 inside the block, whatever the
+    process set: PyTorch's default (``torch.backends.cudnn.allow_tf32`` is
+    True) runs them in TF32, which on the card put the fp32 AdaIN call 1.4e-3
+    mean abs from the CPU, over the 1e-3 budget. Only ``allow_tf32`` is
+    touched (``torch.backends.cudnn.flags`` would reset cuDNN's other flags
+    to its own defaults), and its old value comes back on exit."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = old

@@ -7,7 +7,9 @@ H100 and how it is laid out):
 * bf16: ``csrc/adain_head_tc.cu``, tensor-core implicit GEMMs with the
   TPU kernel's bf16 rounding points, on weights packed once and cached
   (``packed_weights``);
-* fp32: ``csrc/adain_head.cu``, FMAs on the CUDA cores.
+* fp32: ``csrc/adain_head.cu``, tensor-core implicit GEMMs with three TF32
+  products a multiply-add (fp32-accurate), on weights split into TF32 hi
+  and lo parts on the host, packed once and cached (``packed_weights``).
 
 Here:
 
@@ -23,12 +25,13 @@ Here:
 * ``encode_head_bf16_reference`` / ``decode_tail_bf16_reference``: fp32
   convs on bf16-rounded inputs and weights, rounded where
   ``encode_head_pallas`` / ``decode_tail_pallas`` round in bf16; the
-  tensor-core kernels' plain versions.
+  bf16 kernels' plain versions.
 * ``fold_rgb_conv``: folds the 1x1 RGB conv into the 3->64 conv.
+* ``tf32_round``: fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds.
 
 Tensors are NHWC; conv weights are OIHW (``nn.Conv2d`` layout). Each
-wrapper counts every kernel launch in ``<wrapper>.launches`` and the
-tensor-core route's in ``<wrapper>.tc_launches``.
+wrapper counts every kernel launch in ``<wrapper>.launches`` and each
+route's in ``<wrapper>.route_launches["bf16" or "fp32"]``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from aip_tpu_torch.kernels._build import library
 def _lib() -> ctypes.CDLL:
     lib = library("adain_head")
     for fn in (lib.aip_encode_head, lib.aip_decode_tail):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -178,7 +181,61 @@ def pack_decode_tail(w2, b2, w1, b1):
     return _pack_w2(w2), b2.float().contiguous(), _b_fragments(wk), b1.float().contiguous()
 
 
-_PACKERS = {"encode_head": pack_encode_head, "decode_tail": pack_decode_tail}
+def tf32_round(t):
+    """fp32 ``t`` rounded to TF32 (10 mantissa bits), half away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: integer operations on the bits, so the
+    result is the same on every device. Returns fp32."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _pack_w2_fp32(w2):
+    """OIHW [64,64,3,3] -> fp32 [9 taps][hi, lo][2 K-blocks][64 out][8
+    chunks][4 in]: w2 split into TF32 parts, hi = tf32(w), lo = tf32(w -
+    hi); per tap, part and 32 input channels a K-major 64x32 B tile, the
+    chunk c of output n stored at position c ^ (n % 8) (the 128-byte swizzle
+    wgmma's descriptor reads); 32 KB a tap."""
+    w = w2.float().permute(2, 3, 0, 1).reshape(9, 64, 2, 8, 4).permute(0, 2, 1, 3, 4)
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+    n = torch.arange(64, device=w2.device)[:, None]
+    c = torch.arange(8, device=w2.device)[None, :] ^ (n % 8)
+    return torch.stack([hi[:, :, n, c], lo[:, :, n, c]], 1).contiguous()
+
+
+def _tf32_b_fragments(wk):
+    """[64 N, 32 K] fp32 -> [4 k-steps, 8 n-tiles, 32 lanes, 4]: the B operand
+    of mma.m16n8k8.tf32 split into TF32 parts, lane l of n-tile j at k-step s
+    holding (hi b0, hi b1, lo b0, lo b1), b0 at row k = 8s + l%4 and b1 at
+    k = 8s + l%4 + 4, both in column n = 8j + l//4."""
+    lane = torch.arange(32, device=wk.device)
+    n = 8 * torch.arange(8, device=wk.device)[None, :, None] + (lane // 4)[None, None, :]
+    k = 8 * torch.arange(4, device=wk.device)[:, None, None] + (lane % 4)[None, None, :]
+    hi = tf32_round(wk)
+    lo = tf32_round(wk - hi)
+    return torch.stack([hi[n, k], hi[n, k + 4], lo[n, k], lo[n, k + 4]], -1).contiguous()
+
+
+def pack_encode_head_fp32(w0, b0, w1, b1, w2, b2):
+    """(conv1's B fragments [4,8,32,4] of the folded weights, k = (dy*3 +
+    dx)*3 + ci padded 27 -> 32; folded bias [64]; w2 packed by
+    ``_pack_w2_fp32``; b2 [64]), folded in fp32."""
+    w_eff, b_eff = fold_rgb_conv(w0.float(), b0.float(), w1.float(), b1.float())
+    wk = F.pad(w_eff.permute(0, 2, 3, 1).reshape(64, 27), (0, 5))
+    return (_tf32_b_fragments(wk), b_eff.contiguous(), _pack_w2_fp32(w2),
+            b2.float().contiguous())
+
+
+def pack_decode_tail_fp32(w2, b2, w1, b1):
+    """(w2 packed; b2 [64]; the 64->3 conv as fp32 [9 taps][16 chunks of 4
+    in][3 out][4 in]; b1 padded to [4])."""
+    w1p = w1.float().permute(2, 3, 1, 0).reshape(9, 16, 4, 3).permute(0, 1, 3, 2)
+    return (_pack_w2_fp32(w2), b2.float().contiguous(), w1p.contiguous(),
+            F.pad(b1.float(), (0, 1)).contiguous())
+
+
+_PACKERS = {"encode_head": pack_encode_head, "decode_tail": pack_decode_tail,
+            "encode_head_fp32": pack_encode_head_fp32, "decode_tail_fp32": pack_decode_tail_fp32}
 _packed: collections.OrderedDict = collections.OrderedDict()
 _PACKED_MAX = 8
 
@@ -226,15 +283,6 @@ def _check_weights(device, **shapes):
             raise ValueError(f"{name} is on {t.device}, the input on {device}")
 
 
-def _check_fp32_grid(t, name):
-    if t.shape[0] > 65535:
-        raise ValueError(f"{name}: batch {t.shape[0]} exceeds the fp32 kernel's grid of 65535")
-
-
-def _f32(t):
-    return t.detach().float()
-
-
 def _launch(fn, x, out, args, sizes):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -255,13 +303,11 @@ def _encode_head_cuda(x, w0, b0, w1, b1, w2, b2):
     if x.dtype == torch.bfloat16:
         args = packed_weights("encode_head", w0, b0, w1, b1, w2, b2)
         _launch(_lib_tc().aip_encode_head_tc, x, out, args, (bsz, h, w))
-        encode_head.tc_launches += 1
+        encode_head.route_launches["bf16"] += 1
     else:
-        _check_fp32_grid(x, "x")
-        w_eff, b_eff = fold_rgb_conv(_f32(w0), _f32(b0), _f32(w1), _f32(b1))
-        args = (w_eff.permute(2, 3, 1, 0).contiguous(), b_eff.contiguous(),
-                _f32(w2).permute(2, 3, 1, 0).contiguous(), _f32(b2))
-        _launch(_lib().aip_encode_head, x, out, args, (bsz, h, w, 0))
+        args = packed_weights("encode_head_fp32", w0, b0, w1, b1, w2, b2)
+        _launch(_lib().aip_encode_head, x, out, args, (bsz, h, w))
+        encode_head.route_launches["fp32"] += 1
     encode_head.launches += 1
     return out
 
@@ -277,12 +323,11 @@ def _decode_tail_cuda(y, w2, b2, w1, b1):
     if y.dtype == torch.bfloat16:
         args = packed_weights("decode_tail", w2, b2, w1, b1)
         _launch(_lib_tc().aip_decode_tail_tc, y, out, args, (bsz, h, w))
-        decode_tail.tc_launches += 1
+        decode_tail.route_launches["bf16"] += 1
     else:
-        _check_fp32_grid(y, "y")
-        args = (_f32(w2).permute(2, 3, 1, 0).contiguous(), _f32(b2),
-                F.pad(_f32(w1).permute(2, 3, 1, 0), (0, 1)).contiguous(), F.pad(_f32(b1), (0, 1)))
-        _launch(_lib().aip_decode_tail, y, out, args, (bsz, h, w, 0))
+        args = packed_weights("decode_tail_fp32", w2, b2, w1, b1)
+        _launch(_lib().aip_decode_tail, y, out, args, (bsz, h, w))
+        decode_tail.route_launches["fp32"] += 1
     decode_tail.launches += 1
     return out
 
@@ -337,8 +382,8 @@ class _DecodeTail(torch.autograd.Function):
 
 def encode_head(x, w0, b0, w1, b1, w2, b2):
     """Fused encoder head (replaces ``encode_head_pallas``). x: [B,H,W,3]
-    NHWC in the compute dtype (bf16: the tensor-core route; fp32: the
-    CUDA-core route), H and W >= 2 (any parity); weights OIHW. Returns
+    NHWC in the compute dtype (bf16: the bf16 route; fp32: the three-TF32
+    route), H and W >= 2 (any parity); weights OIHW. Returns
     pooled relu1_2, [B,ceil(H/2),ceil(W/2),64], in x's dtype."""
     return _EncodeHead.apply(x, w0, b0, w1, b1, w2, b2)
 
@@ -351,9 +396,10 @@ def decode_tail(y, w2, b2, w1, b1):
 
 
 def reset_launch_counts() -> None:
-    """Sets every count to 0, those of ``tensor_core_launch_counts`` too."""
+    """Sets every count to 0, those of ``route_launch_counts`` too."""
     for fn in (encode_head, decode_tail):
-        fn.launches = fn.tc_launches = 0
+        fn.launches = 0
+        fn.route_launches = {"bf16": 0, "fp32": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -361,9 +407,13 @@ def launch_counts() -> dict[str, int]:
     return {"encode_head": encode_head.launches, "decode_tail": decode_tail.launches}
 
 
-def tensor_core_launch_counts() -> dict[str, int]:
-    """Launches of the tensor-core (bf16) route alone."""
-    return {"encode_head": encode_head.tc_launches, "decode_tail": decode_tail.tc_launches}
+def route_launch_counts() -> dict[str, dict[str, int]]:
+    """Launches of each route, ``{"bf16": {wrapper: n}, "fp32": {wrapper:
+    n}}``: the bf16 kernels of ``csrc/adain_head_tc.cu`` and the fp32 ones
+    of ``csrc/adain_head.cu``."""
+    return {route: {"encode_head": encode_head.route_launches[route],
+                    "decode_tail": decode_tail.route_launches[route]}
+            for route in ("bf16", "fp32")}
 
 
 reset_launch_counts()

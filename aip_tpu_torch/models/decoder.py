@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import resolve_device
+from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import decode_tail
 from aip_tpu_torch.models.vgg import _empty_convs, he_normal_
 
@@ -78,8 +78,14 @@ def decoder_apply(params: AdaINDecoder, x: torch.Tensor,
                   compute_dtype=torch.float32) -> torch.Tensor:
     """Decode a [N, h, w, 512] relu4_1-space feature map to [N, 8h, 8w, 3]
     (NHWC, compute dtype). The last upsample and the two convs after it go
-    through ``decode_tail``."""
-    convs = params.convs
+    through ``decode_tail``. The convs run under ``fp32_convs`` (no TF32
+    for fp32 convs)."""
+    with fp32_convs():
+        return _decode_layers(params.convs, x, compute_dtype)
+
+
+def _decode_layers(convs, x, compute_dtype):
+    """``decoder_apply``'s walk over ``DECODER_LAYERS``."""
     n_convs = len(convs)
     t = x.permute(0, 3, 1, 2)
     ci = 0

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import resolve_device
+from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import encode_head
 
 # ('conv', in_ch, out_ch, kernel, torch_index) | ('relu', tap) | ('pool',) | ('pad',)
@@ -168,14 +168,16 @@ def _run_layers(convs, t, layers, ci, remaining, compute_dtype):
 def vgg_encode_with_intermediate(params: VGGEncoder, x: torch.Tensor, taps=STYLE_TAPS,
                                  compute_dtype=torch.float32):
     """Return a dict of the requested ReLU taps (NHWC). Stops at the deepest
-    tap. Without a relu1_x tap, conv0 .. pool1 run as one ``encode_head``."""
+    tap. Without a relu1_x tap, conv0 .. pool1 run as one ``encode_head``.
+    The convs run under ``fp32_convs`` (no TF32 for fp32 convs)."""
     remaining = set(taps)
     convs = params.convs
-    if not remaining & {"relu1_1", "relu1_2"}:
-        c0, c1, c2 = convs[0], convs[1], convs[2]
-        h = encode_head(x.to(compute_dtype).contiguous(), c0.weight, c0.bias,
-                        c1.weight, c1.bias, c2.weight, c2.bias)
-        return _run_layers(convs, h.permute(0, 3, 1, 2), VGG_LAYERS[_POOL1 + 1:], 3,
-                           remaining, compute_dtype)
-    return _run_layers(convs, x.permute(0, 3, 1, 2), VGG_LAYERS, 0, remaining,
-                       compute_dtype)
+    with fp32_convs():
+        if not remaining & {"relu1_1", "relu1_2"}:
+            c0, c1, c2 = convs[0], convs[1], convs[2]
+            h = encode_head(x.to(compute_dtype).contiguous(), c0.weight, c0.bias,
+                            c1.weight, c1.bias, c2.weight, c2.bias)
+            return _run_layers(convs, h.permute(0, 3, 1, 2), VGG_LAYERS[_POOL1 + 1:], 3,
+                               remaining, compute_dtype)
+        return _run_layers(convs, x.permute(0, 3, 1, 2), VGG_LAYERS, 0, remaining,
+                           compute_dtype)

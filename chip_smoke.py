@@ -11,33 +11,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    compiled with nvcc for sm_90a, all at once, with ptxas's register,
    spill and shared-memory report.
 3. kernel vs plain, for each AdaIN kernel wrapper, with TF32 off for fp32
-   convs and matmuls: fp32 (the CUDA-core kernels, max abs <= 1e-4 *
-   max|ref|) and bf16 (the tensor-core kernels) against the plain version
-   in fp32 on the same bf16-rounded inputs and weights (<= 1e-2 *
-   max|ref|) and against the bf16 plain version, which rounds where the
-   TPU kernel does (max abs <= 2^-7 * max|ref|, one bf16 ulp at the largest
-   value, and mean abs <= 1e-4 * max|ref|), at batch 2 on
-   512^2 and 37x45 (tail: 256^2 and 19x23 in), and in bf16 at the serving
-   shape, batch 32 x 512^2; each launch took its dtype's route.
+   convs and matmuls: fp32 (the three-TF32 kernels of ``adain_head.cu``)
+   against the fp32 plain version (max abs <= 1e-4 * max|ref|) and against
+   the plain version run in float64 (max abs <= 1.5e-6 * max|ref|, printed
+   beside the fp32 plain version's own error against float64), at batch 2
+   on 512^2 and 37x45 (tail: 256^2 and 19x23 in), batch 32 x 512^2 and
+   batch 1 x 512x683 (tail: 256x342 in); bf16 (the kernels of
+   ``adain_head_tc.cu``) against the plain version in fp32 on the same
+   bf16-rounded inputs and weights (<= 1e-2 * max|ref|) and against the
+   bf16 plain version, which rounds where the TPU kernel does (max abs <=
+   2^-7 * max|ref|, one bf16 ulp at the largest value, and mean abs <= 1e-4
+   * max|ref|), at batch 2 on 512^2 and 37x45 and at the serving shape,
+   batch 32 x 512^2; each launch took its dtype's route
+   (``route_launch_counts``).
 4. AdaIN serving path (a main path): ``precompute_style_stats`` +
    ``stylize_with_stats``, batch 32, 512^2, bf16, alpha 0.5, with every
    launch count set to 0 just before and read just after; every launch
-   took the tensor-core route.
+   took the bf16 route.
 5. end to end in fp32 on one 256^2 image (the fp32 kernels' path): the
    card (kernels) against the port on the CPU (plain path), mean abs <=
-   1e-3, with no tensor-core launch.
+   1e-3, every launch on the fp32 route; then once more with PyTorch's
+   default TF32 flags (cuDNN's fp32 convs in TF32), as the CLI runs, mean
+   abs <= 1e-3 too.
 6. CLI: ``aip_tpu_torch.cli.run_depth.main`` on PNGs written from a seed,
    plain and ``--use_depth``.
 7. times at batch 32 x 512^2 (CUDA events): the serving path's images/s
-   (median of 10 after a warm-up); each tensor-core kernel in bf16 over 100
-   calls in one window, each fp32 kernel on fp32 inputs (median of 10), with
+   (median of 10 after a warm-up); each bf16 kernel over 100 calls in one
+   window; each fp32 kernel at batch 32 and at batch 1 x 512^2, as the
+   median of 10 single calls and over 100 calls in one window; each with
    its plain version's time, the same chain as cuDNN calls
-   (``library_ms``, timed here only), its bound, achieved TFLOP/s and share
-   of the bound; and one cuDNN 64->64 3x3 conv alone on channels_last bf16
-   (``conv64_cudnn_ms``, a yardstick for the dominant conv).
-8. profile: torch.profiler over three serving calls, device time by kernel
-   and the device's busy share; the calls repack no weights (the cached
-   packs of the tensor-core kernels are the same objects after them).
+   (``library_ms``, timed here only, TF32 off), its bound, achieved TFLOP/s
+   and share of the bound (fp32: the fp32-accurate tensor-core bound, three
+   TF32 products an operation, beside the CUDA-core bound); and one cuDNN
+   64->64 3x3 conv alone on channels_last bf16 (``conv64_cudnn_ms``, a yardstick for
+   the dominant conv).
+8. profile: torch.profiler over three serving calls and over one fp32
+   ``stylize_simple`` call at batch 1 x 512^2, device time by kernel and
+   the device's busy share; the calls repack no weights (the cached packs
+   of both routes are the same objects after them).
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -142,7 +153,7 @@ iterations), blend 0.7:
     frame directory, with the launch counts set to 0 just before and read
     just after (tvl1 at least 300 iterations per level and warp on the
     kernel, in fewer launches; encode_head, decode_tail, every one of
-    these two on the tensor-core route); the 96
+    these two on the bf16 route); the 96
     PNGs exist; the flows' mean endpoint error against the known step over
     the interior <= 0.25 px. encode_head and decode_tail are then held
     against their plain versions, by phase 3's rule, on the arguments this
@@ -214,10 +225,18 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
 # H100 SXM data sheet, dense: bf16 tensor cores, float32 on the CUDA cores,
-# HBM3.
+# HBM3; and an fp32-accurate product on the tensor cores, three TF32
+# products (495 TFLOP/s dense) an operation.
 PEAK_FLOPS = 989e12
 PEAK_FLOPS_F32 = 67e12
+PEAK_FLOPS_F32_TC = 495e12 / 3
 PEAK_BYTES = 3.35e12
+# The fp32 AdaIN kernels against their plain version run in float64, max abs
+# over the largest value. On an H100 the kernels (a fresh partial sum a tap)
+# read 5-7e-7 and the fp32 plain version 6-9e-7; one partial over all 9 taps
+# read 2.5-5.1e-6 and misses this limit, as does a 3xbf16 split (5-7e-6,
+# emulated on the CPU).
+FP32_FLOAT64_TOL = 1.5e-6
 
 SOURCES = ("adain_head", "adain_head_tc", "composite", "composite_ad", "hashgrad", "tvl1",
            "composite_walk")
@@ -259,6 +278,7 @@ def main():
     from aip_tpu_torch.pipelines import adain_infer
 
     dev = torch.device("cuda")
+    default_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
@@ -285,10 +305,13 @@ def main():
              compiled=bool(report),
              registers=[l.strip() for l in report.splitlines()
                         if "registers" in l or "spill" in l or "Compiling entry" in l])
-    tc = _build.library("adain_head_tc")
-    emit("build_smem", source="aip_tpu_torch/csrc/adain_head_tc.cu",
+    tc, fp32 = _build.library("adain_head_tc"), _build.library("adain_head")
+    emit("build_smem", sources=["aip_tpu_torch/csrc/adain_head_tc.cu",
+                                "aip_tpu_torch/csrc/adain_head.cu"],
          dynamic_smem_bytes={"encode_head_tc_kernel": tc.aip_adain_head_tc_smem(0),
-                             "decode_tail_tc_kernel": tc.aip_adain_head_tc_smem(1)})
+                             "decode_tail_tc_kernel": tc.aip_adain_head_tc_smem(1),
+                             "encode_head_kernel": fp32.aip_adain_head_smem(0),
+                             "decode_tail_kernel": fp32.aip_adain_head_smem(1)})
 
     # Model and inputs, from seeds --------------------------------------------
     vgg = weights.get_vgg_params(device=dev)
@@ -305,15 +328,17 @@ def main():
 
     # 3. kernel vs plain ----------------------------------------------------
     cases = {
-        "encode_head": (head_w, rand, [(2, 512, 512, 3), (2, 37, 45, 3)], (32, 512, 512, 3)),
+        "encode_head": (head_w, rand, [(2, 512, 512, 3), (2, 37, 45, 3)], (32, 512, 512, 3),
+                        (1, 512, 683, 3)),
         "decode_tail": (tail_w, relu_randn, [(2, 256, 256, 64), (2, 19, 23, 64)],
-                        (32, 256, 256, 64)),
+                        (32, 256, 256, 64), (1, 256, 342, 64)),
     }
     main_err = {}
-    for name, (ws, make, shapes, serving) in cases.items():
+    for name, (ws, make, shapes, serving, wide) in cases.items():
         main_err[f"{name}_fp32"] = max(
             _adain_check(torch, K, name, make(*shape, dtype=f32), ws, "random")
-            for shape in shapes)
+            for shape in shapes + [serving, wide])
+        torch.cuda.empty_cache()
         for shape in shapes + [serving]:
             err = _adain_check(torch, K, name, make(*shape, dtype=bf16), ws, "random")
         main_err[name] = err  # the serving-shape case, run last
@@ -328,38 +353,46 @@ def main():
                                          compute_dtype=bf16, device=dev)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    tc_launches = K.tensor_core_launch_counts()
+    routes = K.route_launch_counts()
     emit("serving_path", batch=32, size=512, dtype="bfloat16", alpha=0.5,
          out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), launches=launches,
-         tensor_core_launches=tc_launches)
+         route_launches=routes)
     if not (out.shape == (32, 512, 512, 3) and torch.isfinite(out).all()):
         raise AssertionError("serving path output is not finite or has the wrong shape")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
-    if tc_launches != launches:
-        raise AssertionError(f"a bf16 launch missed the tensor-core route: {tc_launches}")
+    if routes["bf16"] != launches:
+        raise AssertionError(f"a bf16 launch missed the bf16 route: {routes}")
     del out
 
     # 5. end to end, card vs CPU, fp32 --------------------------------------
     img, sty = rand(1, 256, 256, 3).cpu(), rand(1, 256, 256, 3).cpu()
-    K.reset_launch_counts()
-    m, s = adain_infer.precompute_style_stats(vgg, sty, compute_dtype=f32, device=dev)
-    on_card = adain_infer.stylize_with_stats(vgg, dec, img, m, s, compute_dtype=f32,
-                                             device=dev).cpu()
-    card_launches = K.launch_counts()
-    card_tc = K.tensor_core_launch_counts()
     vgg_cpu = weights.from_jax_params(_hwio(vgg), "cpu")
     dec_cpu = weights.from_jax_params(_hwio(dec), "cpu")
     m, s = adain_infer.precompute_style_stats(vgg_cpu, sty, compute_dtype=f32, device="cpu")
     on_cpu = adain_infer.stylize_with_stats(vgg_cpu, dec_cpu, img, m, s, compute_dtype=f32,
                                             device="cpu")
-    diff = (on_card - on_cpu).abs()
-    emit("end_to_end_fp32", size=256, mean_abs=diff.mean().item(), max_abs=diff.max().item(),
-         launches_on_card=card_launches, tensor_core_launches=card_tc, tol_mean_abs=1e-3)
-    if not (diff.mean().item() <= 1e-3 and min(card_launches.values()) > 0
-            and max(card_tc.values()) == 0):
-        raise AssertionError("card and CPU disagree end to end, or fp32 missed its kernels")
-    launches.update({f"{k}_fp32": n for k, n in card_launches.items()})
+    for flags, (tf32_conv, tf32_matmul) in (("tf32_off", (False, False)),
+                                             ("pytorch_defaults", default_tf32)):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+            tf32_conv, tf32_matmul)
+        K.reset_launch_counts()
+        m, s = adain_infer.precompute_style_stats(vgg, sty, compute_dtype=f32, device=dev)
+        on_card = adain_infer.stylize_with_stats(vgg, dec, img, m, s, compute_dtype=f32,
+                                                 device=dev).cpu()
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        card_launches = K.launch_counts()
+        routes = K.route_launch_counts()
+        diff = (on_card - on_cpu).abs()
+        emit("end_to_end_fp32", size=256, flags=flags, tf32_conv=tf32_conv,
+             tf32_matmul=tf32_matmul, mean_abs=diff.mean().item(), max_abs=diff.max().item(),
+             launches_on_card=card_launches, route_launches=routes, tol_mean_abs=1e-3)
+        if not (diff.mean().item() <= 1e-3 and min(card_launches.values()) > 0
+                and routes["fp32"] == card_launches):
+            raise AssertionError(f"card and CPU disagree end to end ({flags}), or an fp32 "
+                                 f"launch missed the fp32 route: {routes}")
+        if flags == "tf32_off":
+            launches.update({f"{k}_fp32": n for k, n in card_launches.items()})
 
     # 6. CLI ----------------------------------------------------------------
     from PIL import Image
@@ -396,44 +429,51 @@ def main():
     lib_head = [w.to(bf16) for w in (w_eff, b_eff, head_w[4], head_w[5])]
     lib_tail = [w.to(bf16) for w in tail_w]
     w_eff32, b_eff32 = K.fold_rgb_conv(*head_w[:4])
-    timed = {  # name -> (kernel, plain, library, its input, ms of the kernel)
-        "encode_head": (lambda: K.encode_head(x, *head_w),
-                        lambda: K.encode_head_bf16_reference(x, *head_w),
-                        lambda: _library_head(F, x, *lib_head), x,
-                        lambda f: _time_many_ms(torch, f, 100)),
-        "decode_tail": (lambda: K.decode_tail(y, *tail_w),
-                        lambda: K.decode_tail_bf16_reference(y, *tail_w),
-                        lambda: _library_tail(F, y, *lib_tail), y,
-                        lambda f: _time_many_ms(torch, f, 100)),
-        "encode_head_fp32": (lambda: K.encode_head(x32, *head_w),
-                             lambda: K.encode_head_reference(x32, *head_w),
-                             lambda: _library_head(F, x32, w_eff32, b_eff32, *head_w[4:]), x32,
-                             lambda f: _time_ms(torch, f)),
-        "decode_tail_fp32": (lambda: K.decode_tail(y32, *tail_w),
-                             lambda: K.decode_tail_reference(y32, *tail_w),
-                             lambda: _library_tail(F, y32, *tail_w), y32,
-                             lambda f: _time_ms(torch, f)),
+    timed = {  # name -> (kernel, plain, library, its input); each a function of the input
+        "encode_head": (lambda a: K.encode_head(a, *head_w),
+                        lambda a: K.encode_head_bf16_reference(a, *head_w),
+                        lambda a: _library_head(F, a, *lib_head), x),
+        "decode_tail": (lambda a: K.decode_tail(a, *tail_w),
+                        lambda a: K.decode_tail_bf16_reference(a, *tail_w),
+                        lambda a: _library_tail(F, a, *lib_tail), y),
+        "encode_head_fp32": (lambda a: K.encode_head(a, *head_w),
+                             lambda a: K.encode_head_reference(a, *head_w),
+                             lambda a: _library_head(F, a, w_eff32, b_eff32, *head_w[4:]), x32),
+        "decode_tail_fp32": (lambda a: K.decode_tail(a, *tail_w),
+                             lambda a: K.decode_tail_reference(a, *tail_w),
+                             lambda a: _library_tail(F, a, *tail_w), y32),
     }
     lines = []
-    for name, (kern, plain, lib, arg, time_kernel) in timed.items():
-        flops, nbytes = (_head_work if name.startswith("encode") else _tail_work)(arg)
-        peak = PEAK_FLOPS if arg.dtype == bf16 else PEAK_FLOPS_F32
-        t_comp, t_mem = flops / peak, nbytes / PEAK_BYTES
-        line = {
-            "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
-            "replaces": KERNELS[name][1], "launches": launches[name],
-            "max_abs_err": main_err[name],
-            "ms": time_kernel(kern), "plain_ms": _time_ms(torch, plain),
-            "bound_ms": max(t_comp, t_mem) * 1e3,
-            "bound_by": "operations" if t_comp >= t_mem else "bytes",
-            "library_ms": _time_ms(torch, lib),
-        }
-        lines.append(line)
-        emit("kernel_work", kernel=name, shape=list(arg.shape), dtype=str(arg.dtype)[6:],
-             flops=flops, bytes=nbytes, peak_flops=peak, peak_bytes_per_s=PEAK_BYTES,
-             ms=line["ms"], timing="100 calls in one window" if arg.dtype == bf16
-             else "median of 10 calls", achieved_tflops=flops / line["ms"] / 1e9,
-             bound_share=line["bound_ms"] / line["ms"])
+    for name, (kern, plain, lib, arg) in timed.items():
+        fp32 = arg.dtype == f32
+        # fp32: the serving batch and batch 1 (the CLI's and the style
+        # embeddings' shape), each as single calls and in one window.
+        for a in (arg, arg[:1].contiguous()) if fp32 else (arg,):
+            flops, nbytes = (_head_work if name.startswith("encode") else _tail_work)(a)
+            peak = PEAK_FLOPS_F32_TC if fp32 else PEAK_FLOPS
+            t_comp, t_mem = flops / peak, nbytes / PEAK_BYTES
+            ms = _time_many_ms(torch, lambda: kern(a), 100)
+            line = {
+                "name": name, "route": "cuda",
+                "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+                "replaces": KERNELS[name][1], "launches": launches[name],
+                "max_abs_err": main_err[name],
+                "ms": ms, "plain_ms": _time_ms(torch, lambda: plain(a)),
+                "bound_ms": max(t_comp, t_mem) * 1e3,
+                "bound_by": "operations" if t_comp >= t_mem else "bytes",
+                "library_ms": _time_ms(torch, lambda: lib(a)),
+            }
+            extra = {}
+            if fp32:
+                extra = {"single_call_ms": _time_ms(torch, lambda: kern(a)),
+                         "cuda_core_bound_ms": max(flops / PEAK_FLOPS_F32, t_mem) * 1e3,
+                         "plain_ms": line["plain_ms"], "library_ms": line["library_ms"]}
+            if a is arg:
+                lines.append(line)
+            emit("kernel_work", kernel=name, shape=list(a.shape), dtype=str(a.dtype)[6:],
+                 flops=flops, bytes=nbytes, peak_flops=peak, peak_bytes_per_s=PEAK_BYTES,
+                 ms=ms, timing="100 calls in one window", bound_ms=line["bound_ms"],
+                 achieved_tflops=flops / ms / 1e9, bound_share=line["bound_ms"] / ms, **extra)
     torch.cuda.empty_cache()
     z = relu_randn(32, 512, 512, 64, dtype=bf16).permute(0, 3, 1, 2)  # channels_last
     w_conv = head_w[4].to(bf16).contiguous(memory_format=torch.channels_last)
@@ -447,14 +487,19 @@ def main():
     del z, y32
 
     # 8. profile ------------------------------------------------------------
-    packs = [K.packed_weights("encode_head", *head_w), K.packed_weights("decode_tail", *tail_w)]
+    kinds = {"encode_head": head_w, "decode_tail": tail_w,
+             "encode_head_fp32": head_w, "decode_tail_fp32": tail_w}
+    packs = {kind: K.packed_weights(kind, *ws) for kind, ws in kinds.items()}
     _profile(torch, lambda: adain_infer.stylize_with_stats(
         vgg, dec, content, style_mean, style_std, alpha=0.5, compute_dtype=bf16, device=dev))
-    repacked = [K.packed_weights("encode_head", *head_w) is not packs[0],
-                K.packed_weights("decode_tail", *tail_w) is not packs[1]]
+    one, one_style = content[:1].contiguous(), style
+    _profile(torch, lambda: adain_infer.stylize_simple(
+        vgg, dec, one, one_style, alpha=0.5, compute_dtype=f32, device=dev), calls=1,
+        label="fp32_call_profile", call="stylize_simple, batch 1 x 512^2, fp32")
+    repacked = {kind: K.packed_weights(kind, *ws) is not packs[kind] for kind, ws in kinds.items()}
     emit("serving_packs", repacked_during_profile=repacked)
-    if any(repacked):
-        raise AssertionError("a steady-state serving call repacked the kernels' weights")
+    if any(repacked.values()):
+        raise AssertionError("a steady-state call repacked the kernels' weights")
     del content, x, y
     torch.cuda.empty_cache()
 
@@ -478,24 +523,34 @@ def main():
 def _adain_check(torch, K, name, x, ws, case):
     """The AdaIN kernel wrapper ``name`` against its plain version in fp32 on
     the same inputs and weights rounded to x's dtype: max abs <= 1e-4 (fp32)
-    or 1e-2 (bf16) of the reference's largest value; a bf16 x also against
-    the bf16 plain version (max abs <= 2^-7 of its largest value, one bf16
-    ulp there, and mean abs <= 1e-4 of it). The launch must take x's route:
-    tensor cores for bf16 alone.
+    or 1e-2 (bf16) of the reference's largest value; an fp32 x also against
+    the plain version run in float64 (max abs <= FP32_FLOAT64_TOL of its largest value,
+    printed beside the fp32 plain version's own error against it); a bf16 x
+    also against the bf16 plain version (max abs <= 2^-7 of its largest
+    value, one bf16 ulp there, and mean abs <= 1e-4 of it). The launch must
+    take x's route (``route_launch_counts``).
     Returns the error against the route's own plain version."""
     ws = [w.detach() for w in ws]
-    tc_before = K.tensor_core_launch_counts()[name]
+    bf16 = x.dtype == torch.bfloat16
+    route = "bf16" if bf16 else "fp32"
+    before = K.route_launch_counts()[route][name]
     out = getattr(K, name)(x, *ws)
     torch.cuda.synchronize()
-    tc = K.tensor_core_launch_counts()[name] - tc_before == 1
+    took_route = K.route_launch_counts()[route][name] - before == 1
     ref = getattr(K, f"{name}_reference")(x.float(), *[w.to(x.dtype).float() for w in ws])
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
-    bf16 = x.dtype == torch.bfloat16
     tol = (1e-2 if bf16 else 1e-4) * scale
-    ok = out.shape == ref.shape and err <= tol and tc == bf16
+    ok = out.shape == ref.shape and err <= tol and took_route
     fields = {}
-    if bf16:
+    if not bf16:
+        ref64 = getattr(K, f"{name}_reference")(x.double(), *[w.double() for w in ws])
+        fields = {"float64_max_abs_err": (out.double() - ref64).abs().max().item(),
+                  "float64_tol": FP32_FLOAT64_TOL * ref64.abs().max().item(),
+                  "plain_fp32_float64_max_abs_err": (ref.double() - ref64).abs().max().item()}
+        del ref64
+        ok = ok and fields["float64_max_abs_err"] <= fields["float64_tol"]
+    else:
         ref = getattr(K, f"{name}_bf16_reference")(x, *ws).float()
         diff, scale16 = (out.float() - ref).abs(), ref.abs().max().item()
         fields = {"bf16_plain_max_abs_err": diff.max().item(), "bf16_plain_tol": 2 ** -7 * scale16,
@@ -504,7 +559,7 @@ def _adain_check(torch, K, name, x, ws, case):
         ok = (ok and fields["bf16_plain_max_abs_err"] <= fields["bf16_plain_tol"]
               and fields["bf16_plain_mean_abs_err"] <= fields["bf16_plain_mean_tol"])
     emit("kernel_vs_plain", kernel=name, case=case, shape=list(x.shape), dtype=str(x.dtype)[6:],
-         route="tensor_core" if tc else "fp32", out_shape=list(out.shape), max_abs_err=err,
+         route=route if took_route else "another", out_shape=list(out.shape), max_abs_err=err,
          max_abs_ref=scale, tol=tol, **fields)
     if not ok:
         raise AssertionError(f"{name} {list(x.shape)} {x.dtype} ({case}) failed: "
@@ -551,8 +606,8 @@ def _time_many_ms(torch, fn, n, warmup=3):
     return start.elapsed_time(end) / n
 
 
-def _profile(torch, fn, calls=3):
-    """torch.profiler over ``calls`` serving calls after a warm-up: device
+def _profile(torch, fn, calls=3, label="serving_profile", **fields):
+    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up: device
     time by kernel name per call, and the device's busy share of the host's
     wall time (kernels run on one stream, so their durations do not
     overlap)."""
@@ -574,7 +629,7 @@ def _profile(torch, fn, calls=3):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    emit("serving_profile", calls=calls, wall_ms_per_call=wall_us / 1e3 / calls,
+    emit(label, **fields, calls=calls, wall_ms_per_call=wall_us / 1e3 / calls,
          device_ms_per_call=busy_ms / calls if by_name else "not measured",
          device_busy_share=busy_ms * 1e3 / wall_us if by_name else "not measured",
          kernels=[{"name": name[:100], "ms_per_call": ms / calls, "launches_per_call": n / calls}
@@ -1885,12 +1940,12 @@ def _video_phases(torch, dev):
     wall_s = time.perf_counter() - t0
     launches = {**KT.launch_counts(), **KA.launch_counts()}
     tvl1_iters = KT.iteration_counts()["tvl1"]
-    adain_tc = KA.tensor_core_launch_counts()
+    adain_bf16 = KA.route_launch_counts()["bf16"]
     epe = _endpoint_error(np, trace["flows"])
     emit("video_main", entry="aip_tpu_torch.pipelines.video.apply_style_transfer_multi_ada",
          frames=len(paths), pngs_exist=all(p.is_file() for p in paths),
          out_size=list(np.asarray(Image.open(paths[0])).shape), launches=launches,
-         tvl1_iterations=tvl1_iters, adain_tensor_core_launches=adain_tc, flow_epe_px=epe,
+         tvl1_iterations=tvl1_iters, adain_bf16_launches=adain_bf16, flow_epe_px=epe,
          epe_bound_px=EPE_BOUND, wall_s_first_call=wall_s,
          stage_ms_first_call=trace["stage_ms"])
     if not (len(paths) == VIDEO_FRAMES and all(p.is_file() for p in paths)):
@@ -1898,8 +1953,8 @@ def _video_phases(torch, dev):
     if not (_tvl1_ran(launches["tvl1"], tvl1_iters) and launches["encode_head"] > 0
             and launches["decode_tail"] > 0):
         raise AssertionError(f"a kernel of the video path was not launched: {launches}")
-    if adain_tc != KA.launch_counts():
-        raise AssertionError(f"a bf16 AdaIN launch missed the tensor-core route: {adain_tc}")
+    if adain_bf16 != KA.launch_counts():
+        raise AssertionError(f"a bf16 AdaIN launch missed the bf16 route: {adain_bf16}")
     if not epe <= EPE_BOUND:
         raise AssertionError(f"flows are {epe} px off the known step")
     # The AdaIN kernels at the shapes this call gave them, with phase 3's rule.

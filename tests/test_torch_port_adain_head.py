@@ -6,9 +6,9 @@ chains, the wrapper's CPU path, the folded RGB conv, the recompute VJP, and
 the wrapper's refusal to treat a CPU tensor as a kernel input. The CUDA
 kernels are held against the plain versions in test_torch_port_cuda.py.
 
-The bf16 plain versions (the tensor-core kernels' plain versions) are held
+The bf16 plain versions (those of the bf16 kernels) are held
 against the Pallas kernels in interpret mode with bf16 weights; the packed
-weights of the tensor-core kernels round-trip to the OIHW weights, and their
+weights of the bf16 kernels round-trip to the OIHW weights, and their
 cache repacks exactly when a weight changes.
 
 Tolerances: atol 5e-5 against the Pallas kernels in fp32, as aip_tpu's own
@@ -319,7 +319,7 @@ def test_packed_weights_cache_repacks_only_after_an_update(enc_w, dec_w):
 
 
 def test_wrappers_on_cpu_run_the_bf16_plain_version_for_bf16(rng, enc_w, dec_w):
-    """A bf16 CPU tensor takes the tensor-core route's plain version; no
+    """A bf16 CPU tensor takes the bf16 route's plain version; no
     launch is counted on either route."""
     K.reset_launch_counts()
     x = _t(rng.random((2, 9, 10, 3)).astype(np.float32)).bfloat16()
@@ -332,5 +332,6 @@ def test_wrappers_on_cpu_run_the_bf16_plain_version_for_bf16(rng, enc_w, dec_w):
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out, K.decode_tail_bf16_reference(y, *_dec_torch(dec_w)),
                                rtol=0, atol=0)
-    assert K.launch_counts() == K.tensor_core_launch_counts() == {"encode_head": 0,
-                                                                 "decode_tail": 0}
+    zero = {"encode_head": 0, "decode_tail": 0}
+    assert K.launch_counts() == zero
+    assert K.route_launch_counts() == {"bf16": zero, "fp32": zero}

@@ -6,7 +6,10 @@ The file imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 Tolerances, relative to the largest reference value: fp32 kernel against
-the fp32 plain version with TF32 off, 1e-4 (sums in another order); bf16
+the fp32 plain version with TF32 off, 1e-4 (sums in another order), and
+against the plain version run in float64, 1.5e-6 (the kernels' three TF32
+products and a fresh partial sum a tap keep fp32 accuracy, 5-7e-7 there;
+one partial over all 9 taps reads 2.5-5.1e-6 and one TF32 pass 3e-4); bf16
 kernel against the plain version run in fp32 on the same bf16-rounded
 inputs and weights, 1e-2 (the kernel rounds its output to bf16); the
 bf16 (tensor-core) kernels against their bf16 plain versions, 2^-7 (one
@@ -91,8 +94,8 @@ def test_tensor_core_kernels_match_bf16_plain(cuda, weights, b, h, w):
     enc = K.encode_head(x, *ew)
     dec = K.decode_tail(y, *dw)
     torch.cuda.synchronize()
-    assert K.tensor_core_launch_counts() == K.launch_counts() == {"encode_head": 1,
-                                                                  "decode_tail": 1}
+    assert K.route_launch_counts()["bf16"] == K.launch_counts() == {"encode_head": 1,
+                                                                    "decode_tail": 1}
     for out, ref in ((enc, K.encode_head_bf16_reference(x, *ew)),
                      (dec, K.decode_tail_bf16_reference(y, *dw))):
         assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
@@ -103,19 +106,86 @@ def test_tensor_core_kernels_match_bf16_plain(cuda, weights, b, h, w):
 
 @pytest.mark.cuda
 def test_bf16_models_on_the_card_take_the_tensor_core_route(cuda):
-    """vgg_encode + decoder_apply in bf16 raise tensor_core_launch_counts()
+    """vgg_encode + decoder_apply in bf16 raise route_launch_counts()["bf16"]
     by one each; in fp32 they launch the fp32 kernels and leave it alone."""
     vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
     x = torch.rand(2, 40, 56, 3, generator=torch.Generator().manual_seed(4)).to(cuda)
-    for dtype, step in ((torch.bfloat16, 1), (torch.float32, 0)):
-        tc, total = K.tensor_core_launch_counts(), K.launch_counts()
+    for dtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        routes, total = K.route_launch_counts(), K.launch_counts()
         out = tdec.decoder_apply(dec, tvgg.vgg_encode(vgg, x, compute_dtype=dtype),
                                  compute_dtype=dtype)
         torch.cuda.synchronize()
-        assert K.tensor_core_launch_counts() == {k: n + step for k, n in tc.items()}
+        assert K.route_launch_counts() == {
+            r: {k: n + (r == route) for k, n in c.items()} for r, c in routes.items()}
         assert K.launch_counts() == {k: n + 1 for k, n in total.items()}
         assert out.dtype == dtype and out.shape == (2, 40, 56, 3)
         assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 2, 2), (2, 3, 5), (2, 37, 45), (3, 17, 33),
+                                   (1, 512, 683)])
+def test_fp32_kernels_hold_float64(cuda, weights, b, h, w):
+    """The head on x [b,h,w,3] and the tail on y [b,ceil(h/2),ceil(w/2),64],
+    each one launch on the fp32 route, within 1.5e-6 of the largest value
+    of the plain version run in float64."""
+    ew, dw = weights
+    g = np.random.default_rng(4)
+    x = torch.from_numpy(g.random((b, h, w, 3)).astype(np.float32)).to(cuda)
+    y = torch.relu(_randn(g, (b, (h + 1) // 2, (w + 1) // 2, 64), 1.0)).to(cuda)
+    K.reset_launch_counts()
+    enc = K.encode_head(x, *ew)
+    dec = K.decode_tail(y, *dw)
+    torch.cuda.synchronize()
+    assert K.route_launch_counts()["fp32"] == K.launch_counts() == {"encode_head": 1,
+                                                                    "decode_tail": 1}
+    errs = {}
+    for name, out, ref in (
+            ("head", enc, K.encode_head_reference(x.double(), *[t.double() for t in ew])),
+            ("tail", dec, K.decode_tail_reference(y.double(), *[t.double() for t in dw]))):
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        errs[name] = _max_rel_err(out.double(), ref)
+    assert max(errs.values()) <= 1.5e-6, errs
+
+
+@pytest.mark.cuda
+def test_fp32_kernels_take_batches_above_65535(cuda, weights):
+    """The persistent grid walks (image, tile) items, so no grid dimension
+    caps the batch: 65,536 images of the smallest sizes, every one right."""
+    ew, dw = weights
+    g = np.random.default_rng(5)
+    x = torch.from_numpy(g.random((65536, 2, 3, 3)).astype(np.float32)).to(cuda)
+    y = torch.relu(_randn(g, (65536, 1, 2, 64), 1.0)).to(cuda)
+    enc = K.encode_head(x, *ew)
+    dec = K.decode_tail(y, *dw)
+    torch.cuda.synchronize()
+    assert _max_rel_err(enc, K.encode_head_reference(x, *ew)) <= 1e-4
+    assert _max_rel_err(dec, K.decode_tail_reference(y, *dw)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fp32_packs_are_cached_on_the_card(cuda):
+    """A second fp32 call packs nothing; an in-place update of a weight
+    repacks, and the kernel then follows the new weights."""
+    vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
+    head = [t for c in vgg.convs[:3] for t in (c.weight, c.bias)]
+    tail = [t for c in dec.convs[-2:] for t in (c.weight, c.bias)]
+    x = torch.rand(1, 20, 24, 3, generator=torch.Generator().manual_seed(6)).to(cuda)
+    y = torch.relu(torch.randn(1, 10, 12, 64, generator=torch.Generator().manual_seed(7))).to(cuda)
+    K.encode_head(x, *head)
+    K.decode_tail(y, *tail)
+    packs = [K.packed_weights("encode_head_fp32", *head), K.packed_weights("decode_tail_fp32", *tail)]
+    K.encode_head(x, *head)
+    K.decode_tail(y, *tail)
+    assert K.packed_weights("encode_head_fp32", *head) is packs[0]
+    assert K.packed_weights("decode_tail_fp32", *tail) is packs[1]
+    with torch.no_grad():
+        vgg.convs[2].weight.mul_(0.5)
+    out = K.encode_head(x, *head)
+    torch.cuda.synchronize()
+    assert K.packed_weights("encode_head_fp32", *head) is not packs[0]
+    ref = K.encode_head_reference(x, *[t.detach() for t in head])
+    assert _max_rel_err(out, ref) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -151,6 +221,24 @@ def test_models_on_the_card_go_through_the_kernels(cuda):
     ref_f = tvgg.vgg_encode(vgg.cpu(), x)
     ref = tdec.decoder_apply(dec.cpu(), ref_f)
     assert _max_rel_err(f.cpu(), ref_f) <= 1e-4
+    assert _max_rel_err(out.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fp32_models_hold_fp32_under_pytorchs_default_tf32_flags(cuda):
+    """With cuDNN's TF32 on, as PyTorch starts, the fp32 encoder and decoder
+    still agree with the CPU at 1e-4 of the largest value (their convs run
+    under ``fp32_convs``), and the process's flag is as it was after them."""
+    vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
+    x = torch.rand(1, 64, 72, 3, generator=torch.Generator().manual_seed(8))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = tdec.decoder_apply(dec, tvgg.vgg_encode(vgg, x.to(cuda)))
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ref = tdec.decoder_apply(dec.cpu(), tvgg.vgg_encode(vgg.cpu(), x))
     assert _max_rel_err(out.cpu(), ref) <= 1e-4
 
 
