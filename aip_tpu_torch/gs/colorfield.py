@@ -20,6 +20,9 @@ encoder). Tables below 2^16 rows take PyTorch's autograd of
 :245-352 and its Pallas one-hot-matmul kernel). ``init_colorfield`` draws
 its tables and weights from a ``torch.Generator``: the same distributions as
 the JAX package, not its bits; tests carry JAX-initialised fields across.
+``hash_encode_sg`` is the JAX package's sort-based table gradient (sort,
+cumsum, binary search), in plain PyTorch: deterministic, and timed beside
+kernel C as a yardstick.
 """
 
 from __future__ import annotations
@@ -186,8 +189,10 @@ class _HashEncodeMXU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out):
         (x01,) = ctx.saved_tensors
-        grad = KH.hash_grad(x01.contiguous(), g_out.contiguous().to(torch.float32),
-                            ctx.table_shape)
+        g = g_out.contiguous().to(torch.float32)
+        if g.data_ptr() % 16:   # the kernel reads a point's F features as one vector
+            g = g.clone()
+        grad = KH.hash_grad(x01.contiguous(), g, ctx.table_shape)
         return grad.to(g_out.dtype), None
 
 
@@ -195,6 +200,51 @@ def hash_encode_mxu(tables: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
     """``hash_encode`` whose table gradient is kernel C (``hash_grad``); x01
     is stop-gradient."""
     return _HashEncodeMXU.apply(tables, x01.detach())
+
+
+def sorted_table_grad(x01: torch.Tensor, g_out: torch.Tensor, table_shape) -> torch.Tensor:
+    """dL/dtables [L, T, F] of ``hash_encode`` for the upstream gradient
+    g_out [N, L*F], as segment sums: every (point, level, corner)
+    contribution sorted by its row (a stable sort), a running float32 sum,
+    and each row's sum as the difference of the running sums at its
+    segment's ends (two binary searches). The JAX package's
+    ``_hash_encode_sg_bwd``; no atomics, so the same bits on every run."""
+    l, t, f = table_shape
+    n = x01.shape[0]
+    idx, w = _encode_terms(table_shape, x01)                           # [N, L, 8]
+    vals = (w[..., None] * g_out.reshape(n, l, 1, f)).reshape(-1, f)
+    sorted_idx, order = torch.sort(idx.reshape(-1), stable=True)
+    # [F, M + 1]: each feature's running sum along its own row (a scan along
+    # the innermost dimension).
+    csum = torch.cumsum(torch.cat([torch.zeros((1, f), dtype=vals.dtype, device=vals.device),
+                                   vals[order]]).T.contiguous(), dim=1)
+    rows = torch.arange(l * t, dtype=sorted_idx.dtype, device=sorted_idx.device)
+    lo = torch.searchsorted(sorted_idx, rows, right=False)
+    hi = torch.searchsorted(sorted_idx, rows, right=True)
+    return (csum[:, hi] - csum[:, lo]).T.reshape(l, t, f)
+
+
+class _HashEncodeSG(torch.autograd.Function):
+    """hash_encode with the sort-based table gradient; positions get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, tables, x01):
+        ctx.save_for_backward(x01)
+        ctx.table_shape = tuple(tables.shape)
+        return hash_encode(tables, x01)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (x01,) = ctx.saved_tensors
+        return sorted_table_grad(x01, g_out, ctx.table_shape), None
+
+
+def hash_encode_sg(tables: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """``hash_encode`` whose table gradient is ``sorted_table_grad`` (the JAX
+    package's ``hash_encode_sg``, in plain PyTorch); x01 is stop-gradient.
+    A yardstick beside kernel C, not on the training path."""
+    return _HashEncodeSG.apply(tables, x01.detach())
 
 
 def style_embedding(params: ColorFieldParams, style_f: torch.Tensor) -> torch.Tensor:

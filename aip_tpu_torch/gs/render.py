@@ -11,7 +11,8 @@ differentiable ``rasterize``. ``make_inference_frame_fn`` is the serving
 path: everything camera-independent (SH, activations) is computed once and
 each frame runs the view-dependent SH evaluation and ``rasterize_matmul``.
 ``fit_selection`` is the JAX package's host-side fit, copied, on top of the
-port's ``project_gaussians``.
+port's ``project_gaussians``; ``fit_macro_capacity`` returns its
+macro_capacity alone.
 
 In inference mode ``renderer="pallas"`` (or ``"auto"`` with
 ``use_pallas=True``) takes ``rasterize_fast``, the per-tile compositor;
@@ -217,6 +218,14 @@ def fit_selection(state: G.GaussianState, cams, macro: int = 4, sample: int = 8,
             "giant_backend": "direct", "giant_tiers": tiers,
             "giant_pool_full": pool_full,
             "max_per_tile": k_tile}
+
+
+def fit_macro_capacity(state: G.GaussianState, cams, macro: int = 4, sample: int = 8,
+                       margin: float = 1.15, lo: int = 1024, hi: int = 4096) -> int:
+    """The fitted macro_capacity alone (``aip_tpu.gs.render.fit_macro_capacity``,
+    the JAX package's backward-compatible wrapper of ``fit_selection``)."""
+    return fit_selection(state, cams, macro=macro, sample=sample, margin=margin, lo=lo,
+                         hi=hi)["macro_capacity"]
 
 
 def _sh_colors(sh: torch.Tensor, xyz: torch.Tensor, campos: torch.Tensor) -> torch.Tensor:

@@ -72,7 +72,9 @@ import functools
 import torch
 
 from aip_tpu_torch.kernels._build import library
-from aip_tpu_torch.kernels.composite_ad import TILE, box_visible, composite_ad_fwd_reference
+from aip_tpu_torch.kernels.composite_ad import (
+    TILE, _pixels, box_visible, composite_ad_fwd_culled_reference, composite_ad_fwd_reference,
+    live_slots, pack)
 
 GROUP = 64            # rows per early-exit check, as in the kernels
 BLOCK_SIZES = (16, 32, 64)
@@ -84,6 +86,7 @@ LAYOUTS = {16: ((16, 4),), 32: ((16, 4),),
 DEFAULT_LAYOUT = (16, 4)
 T_CUTOFF = 1e-4
 WALK_GROUP = 32       # composite_macro_blocks' rows per early-exit test
+MAX_MACRO = 32         # the largest macro block, in tiles a side, the fused kernel takes
 
 
 @functools.cache
@@ -350,6 +353,69 @@ def composite_from_macro_reference(g_mean, g_conic, g_color, g_op, slot_valid, b
     return composite_tiles_reference(*gathered, bg_color, tile_w)
 
 
+def _macro_gathered(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles, tile_w, macro,
+                    macro_tile_w):
+    """Each tile's macro-block list up to the last valid slot of any list,
+    packed as kernel A's rows: ([T, n, 9], valid [T, n, 1])."""
+    rows = macro_of_tile(n_tiles, tile_w, macro, macro_tile_w, g_mean.device)
+    n = int(valid_ends(slot_valid).max()) if g_mean.shape[0] else 0
+    g = pack(*(t[:, :n][rows].float() for t in (g_mean, g_conic, g_color, g_op[..., None])))
+    return g, slot_valid[:, :n][rows][..., None].float()
+
+
+def from_macro_live(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles: int, tile_w: int,
+                    macro: int, macro_tile_w: int):
+    """[T, n] bool: the slots of each tile's macro-block list that the fused
+    walk's kernel keeps for the tile (``live_slots``; n: one past the last
+    valid slot of any list)."""
+    return live_slots(*_macro_gathered(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles,
+                                       tile_w, macro, macro_tile_w), tile_w)
+
+
+def composite_from_macro_culled_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
+                                          n_tiles: int, tile_w: int, macro: int,
+                                          macro_tile_w: int):
+    """The fused walk's kernel in plain torch: each tile walks, in list
+    order, the slots of its macro block's list that the float64 cull keeps
+    for its 16 x 16 pixel centres (``from_macro_live``), the per-pixel
+    arithmetic the plain version's: kernel A's culled forward on the
+    gathered lists. Where the cull is exact this equals
+    ``composite_from_macro_reference`` (``torch.equal``)."""
+    g, valid = _macro_gathered(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles, tile_w,
+                               macro, macro_tile_w)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=g_mean.device)
+    return composite_ad_fwd_culled_reference(g, valid, bg, tile_w)[0]
+
+
+def from_macro_work(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles: int, tile_w: int,
+                    macro: int, macro_tile_w: int, tiles_per_chunk: int = 64):
+    """(walked, kept, visible) (slot, pixel) pairs of one fused-walk call,
+    counted over chunks of tiles: each tile's list up to that list's last
+    valid slot, at every pixel (the dense pairs); the pairs of the slots the
+    cull keeps for each tile (what the kernel evaluates,
+    ``from_macro_live``); and the pairs with a valid slot and alpha >=
+    1/255, by the plain version's float32 expressions (the live pairs)."""
+    rows_all = macro_of_tile(n_tiles, tile_w, macro, macro_tile_w, g_mean.device)
+    ends = valid_ends(slot_valid).long()
+    walked = int(ends[rows_all].sum()) * TILE * TILE if n_tiles else 0
+    n = int(ends.max()) if ends.numel() else 0
+    kept = visible = 0
+    for t0 in range(0, n_tiles, tiles_per_chunk):
+        t = torch.arange(t0, min(n_tiles, t0 + tiles_per_chunk), device=g_mean.device)
+        rows = rows_all[t]
+        g = pack(*(a[:, :n][rows].float() for a in (g_mean, g_conic, g_color, g_op[..., None])))
+        valid = slot_valid[:, :n][rows][..., None].float()
+        kept += int(live_slots(g, valid, tile_w, tiles=t).sum()) * TILE * TILE
+        px, py = (x[t].float()[:, None, :] for x in _pixels(n_tiles, tile_w, g.device))
+        dx = px - g[..., 0:1]
+        dy = py - g[..., 1:2]
+        power = -0.5 * (g[..., 2:3] * dx * dx + g[..., 4:5] * dy * dy) - g[..., 3:4] * dx * dy
+        del dx, dy
+        alpha = torch.clamp(g[..., 8:9] * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        visible += int(((alpha >= 1.0 / 255.0) & (valid > 0)).sum())
+    return walked, kept, visible
+
+
 def composite_macro_blocks_reference(coeff, colors, counts, bg_color, bs: int):
     """Plain coefficient walk: coeff [M, Kc, 8] (``[c0, cx, cy, cxx, cyy,
     cxy, opacity, 0]`` in block-local pixel coordinates), colours [M, Kc, 4]
@@ -595,13 +661,19 @@ def composite_from_macro(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, n
     each of the n_tiles 16 px tiles walks its macro block's depth-sorted
     list (``macro_of_tile``). mean [M, Kc, 2], conic [M, Kc, 3], colour [M,
     Kc, 3], opacity [M, Kc], valid [M, Kc], all float32. Returns [n_tiles,
-    3, 16, 16] float32."""
+    3, 16, 16] float32. On the card the kernel stages each macro block's
+    list once for its tiles and walks, per tile, the slots its cull
+    keeps."""
     if g_mean.device.type == "cpu":
         return composite_from_macro_reference(g_mean, g_conic, g_color, g_op, slot_valid,
                                               bg_color, n_tiles, tile_w, macro, macro_tile_w)
     dev = g_mean.device
     bg = _bg(bg_color, dev)
     n_blocks, kc = _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg)
+    if not (1 <= macro <= MAX_MACRO and tile_w >= 1 and macro_tile_w >= 1 and n_tiles >= 0):
+        raise ValueError(f"the fused walk's kernel takes macro blocks of 1 to {MAX_MACRO} tiles "
+                         f"a side and positive grid widths, got macro={macro}, "
+                         f"tile_w={tile_w}, macro_tile_w={macro_tile_w}")
     if n_tiles and int(macro_of_tile(n_tiles, tile_w, macro, macro_tile_w).max()) >= n_blocks:
         raise ValueError(f"{n_tiles} tiles of a {tile_w}-tile row in macro blocks of {macro} "
                          f"(a {macro_tile_w}-block row) need more than {n_blocks} blocks")

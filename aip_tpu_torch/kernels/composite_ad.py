@@ -211,17 +211,17 @@ def box_visible(mx, my, a, b, c, ln_op, x0, y0, w: int, h: int):
     return ~(bound < LN_ALPHA_MIN)
 
 
-def live_slots(g, valid, tile_w: int):
+def live_slots(g, valid, tile_w: int, tiles=None):
     """[T, K] bool: the slots each tile's walk keeps, as kernels A and B
-    decide while staging a tile. A slot goes when it is invalid, when its
-    opacity is <= 0, or when ``box_visible`` proves alpha < 1/255 at every
-    pixel of the tile (ln_op = ln(opacity): the kernels' power has no
-    opacity term). Every other slot stays, so a culled slot has alpha 0 at
-    every pixel and skipping it is exact."""
-    n_tiles = g.shape[0]
+    (and the fused walk) decide while staging a tile. A slot goes when it
+    is invalid, when its opacity is <= 0, or when ``box_visible`` proves
+    alpha < 1/255 at every pixel of the tile (ln_op = ln(opacity): the
+    kernels' power has no opacity term). Every other slot stays, so a
+    culled slot has alpha 0 at every pixel and skipping it is exact.
+    ``tiles``: the tile id of each row of g (by default 0 .. T - 1)."""
     d = g.to(torch.float64)
     mx, my, a, b, c, op = (d[..., i] for i in (0, 1, 2, 3, 4, 8))
-    t = torch.arange(n_tiles, device=g.device)
+    t = torch.arange(g.shape[0], device=g.device) if tiles is None else tiles
     x0 = ((t % tile_w) * TILE).to(torch.float64)[:, None]
     y0 = ((t // tile_w) * TILE).to(torch.float64)[:, None]
     visible = box_visible(mx, my, a, b, c, torch.log(op), x0, y0, TILE, TILE)

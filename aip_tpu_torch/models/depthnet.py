@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import resolve_device
+from aip_tpu_torch.device import fp32_convs, resolve_device
 
 _REGISTERED = None
 
@@ -28,8 +28,9 @@ def _box_blur(x: torch.Tensor, k: int) -> torch.Tensor:
     pad = k // 2
     y = F.pad(x[None, None], (pad, pad, pad, pad), mode="replicate")
     kernel = torch.full((1, 1, 1, k), 1.0 / k, dtype=torch.float32, device=x.device)
-    y = F.conv2d(y, kernel)
-    y = F.conv2d(y, kernel.transpose(2, 3))
+    with fp32_convs():
+        y = F.conv2d(y, kernel)
+        y = F.conv2d(y, kernel.transpose(2, 3))
     return y[0, 0]
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import resolve_device
+from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.models import mobilenet as mbv2
 
 BOTTLENECK = 100
@@ -154,7 +154,8 @@ def init_magenta_params(generator: torch.Generator | None = None,
 def _mirror_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Reflect-pad by (k-1)//2, then a VALID conv. NCHW, w OIHW."""
     p = (w.shape[-1] - 1) // 2
-    return F.conv2d(F.pad(x, (p, p, p, p), mode="reflect"), w, stride=stride)
+    with fp32_convs():
+        return F.conv2d(F.pad(x, (p, p, p, p), mode="reflect"), w, stride=stride)
 
 
 def _cin(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import resolve_device
+from aip_tpu_torch.device import fp32_convs, resolve_device
 
 # Inverted-residual plan (expansion t, out channels c, repeats n, stride s):
 # MobileNetV2 paper Table 2 / torchvision `inverted_residual_setting`.
@@ -112,7 +112,8 @@ def _conv_bn(x, cb: ConvBN, stride: int = 1, relu6: bool = True):
     """NCHW conv (zero padding (k-1)//2 each side), folded BN, ReLU6."""
     k = cb.weight.shape[-1]
     pad = (k - 1) // 2
-    y = F.conv2d(x, cb.weight, stride=stride, padding=pad, groups=cb.groups)
+    with fp32_convs():
+        y = F.conv2d(x, cb.weight, stride=stride, padding=pad, groups=cb.groups)
     y = y * cb.scale[:, None, None] + cb.shift[:, None, None]
     return torch.clamp(y, 0.0, 6.0) if relu6 else y
 

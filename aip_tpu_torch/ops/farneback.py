@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aip_tpu_torch.device import fp32_convs
 from aip_tpu_torch.ops.flow import _batched
 from aip_tpu_torch.ops.image import resize_bilinear
 
@@ -62,7 +63,8 @@ def _corr1d(x: torch.Tensor, kernel: np.ndarray, axis: int) -> torch.Tensor:
     else:
         xp = F.pad(x[:, None], (n, n, 0, 0), mode="replicate")
         kern = k.view(1, 1, 1, -1)
-    return F.conv2d(xp, kern)[:, 0]
+    with fp32_convs():
+        return F.conv2d(xp, kern)[:, 0]
 
 
 def poly_expansion(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:

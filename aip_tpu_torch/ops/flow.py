@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 # _grad_fwd and _div are aip_tpu.ops.flow's stencils too (equal to its
 # roll-based forms for H, W >= 2); they live beside the kernel's plain version.
+from aip_tpu_torch.device import fp32_convs
 from aip_tpu_torch.kernels.tvl1 import _div, _grad_fwd, tvl1_inner  # noqa: F401
 from aip_tpu_torch.ops.image import resize_bilinear
 
@@ -36,7 +37,8 @@ def _conv2_same(x: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     kh, kw = k.shape
     xp = F.pad(x[:, None], (kw // 2, kw // 2, kh // 2, kh // 2), mode="replicate")
     kern = torch.from_numpy(np.ascontiguousarray(k, np.float32)).to(x.device)
-    return F.conv2d(xp, kern[None, None])[:, 0]
+    with fp32_convs():
+        return F.conv2d(xp, kern[None, None])[:, 0]
 
 
 _GAUSS5 = (np.outer([1, 4, 6, 4, 1], [1, 4, 6, 4, 1]) / 256.0).astype(np.float32)

@@ -108,7 +108,16 @@ one view per step:
 16. kernel C on the same step's x01 [131072, 3] and upstream gradient
     against its plain version (one ``index_add_``), at 1e-4 of the largest
     entry (atomics add thousands of contributions to the coarse levels'
-    rows in another order).
+    rows in another order): once, 20 times more, right after a NaN-filled
+    table-sized block is freed (the kernel's table reuses it: every row
+    that no contribution touches exactly 0, every entry finite), and at
+    the shapes that reach the kernel's other paths (``HASH_SHAPES``: F = 1;
+    F = 4, where dense level 0 does not fit shared memory and every level
+    goes to global memory; 15 levels, a short last phase; a 2^10 table,
+    every level summed in shared memory); the sort-based gradient of
+    ``hash_encode_sg``
+    (``sorted_table_grad``, plain PyTorch, no atomics) timed on the same
+    inputs as a deterministic yardstick, its error reported.
 17. one training step at 128^2 (capacity 4096, a 2^16 table) from one
     trainer on the card and on the CPU: the loss at 1e-4 relative, every
     parameter group's gradient and the screen-space offset's at 1e-3 of
@@ -128,7 +137,9 @@ one view per step:
     trains and then renders.
 20. times of A, B and C on the served inputs (ms over 100 back-to-back
     calls in one CUDA-event window, beside the single-call figure; plain
-    ms, bound, ``index_add_`` as C's library call); A and B on the late
+    ms, bound, ``index_add_`` as C's library call); C's device ms from the
+    profiler beside the window, and before -> after (the time PERF.md recorded for the kernel this one
+    replaced) with the card's name and power limit; A and B on the late
     step's inputs too, and on both the P sweep (P = 1, 2, 4, 8 pixels a
     thread; every P agreeing with the default one) with the live share and
     ptxas's registers and spills; the device launches of one composite
@@ -161,9 +172,14 @@ iterations), blend 0.7:
 23. fast-stylizer path: ``use_magenta_stylizer(load_magenta_npz(...))``
     on the committed distilled checkpoint, then ``apply_style_transfer``
     on the same frames.
-24. card vs CPU, fp32: 6 frames at 64^2 through the whole video call, the
-    card (kernels) against the port on the CPU (plain versions): frames
-    mean abs <= 1e-3, flows mean abs <= 1e-4 px.
+24. card vs CPU, fp32: 6 frames at 64^2 through the whole video call, and
+    one magenta frame at 64^2, the card (kernels) against the port on the
+    CPU (plain versions): frames mean abs <= 1e-3, flows mean abs <= 1e-4
+    px, the magenta frame mean abs <= 1e-6; with TF32 off, then with
+    PyTorch's default flags (cuDNN's fp32 convs in TF32 unless a call says
+    otherwise); and, as a control that must fail the magenta gate, with
+    the default flags and ``fp32_convs`` undone in the flow, Farneback,
+    depth, magenta and MobileNet modules (what TF32 does to those convs).
 25. times: frames/s of the phase-22 call (host clock, median of 3) with its
     stages (CUDA events); per pyramid level the ``tvl1`` kernel's form
     (whole frame, or tile and k), ms per (level, warp) call, ms per
@@ -178,12 +194,16 @@ The other 3DGS render paths and the novel-view video, on the committed
 model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
 
 26. the three walk kernels against their plain versions, max abs <= 1e-5
-    (both round every per-pixel operation alike): on the inputs the paths
-    below hand them (captured from one frame of each) and on edge cases
-    (empty tiles and blocks, saturation, the 0.99 clamp, opacity below
-    1/255, invalid slots between valid ones, K = 1, lists longer than one
-    staged chunk, counts that are no multiple of 32, blocks of 16, 32 and
-    64 px).
+    (both round every per-pixel operation alike), the fused walk's at max
+    abs 0: on the
+    inputs the paths below hand them (captured from one frame of each, the
+    fused walk's at 1088x1920 and at 800^2, where the last macro-block
+    column holds 2 of 4 tiles) and on edge cases (empty tiles and blocks,
+    saturation, the 0.99 clamp, opacity below 1/255, invalid slots between
+    valid ones, K = 1, lists longer than one staged chunk, counts that are
+    no multiple of 32, blocks of 16, 32 and 64 px; fused lists of Kc = 2,
+    200 and 5120 at macro 1 to 5 with edge blocks, and splats just inside
+    and just outside the 1/255 contour at a tile's corner).
 27. main path, per-tile walk: ``run_3dgs_rendering(renderer="pallas")``
     over the 8 views at 800^2; the GIF and 8 PNGs exist, > 10 % of pixels
     differ from the background, ``composite_tiles`` ran >= 8 times and no
@@ -200,7 +220,13 @@ model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
     selection, macro 4; CUDA events, median of 10), a torch.profiler
     breakdown of one 1088x1920 frame of each with the busy share, and each
     kernel's ms (100 calls in one window), launches per frame, plain ms and
-    bound.
+    bound; for the fused walk the dense bound (every slot up to its list's
+    last valid one, at every pixel of every tile), the live bound (the
+    (slot, pixel) pairs with alpha >= 1/255, ``bound_ms``), the share of
+    (tile, slot) pairs its cull keeps, ptxas's registers and spills, and
+    before -> after (the time PERF.md recorded for the
+    kernel this one replaced) with the fused frame's device ms and the
+    card's name and power limit.
 
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
@@ -284,8 +310,7 @@ def main():
     bf16, f32 = torch.bfloat16, torch.float32
 
     # 1. device --------------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = _card()
     print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -510,7 +535,7 @@ def main():
     lines += _train_phases(torch, dev, bed)
     torch.cuda.empty_cache()
     # 21-25. video style transfer -----------------------------------------------
-    lines += _video_phases(torch, dev)
+    lines += _video_phases(torch, dev, default_tf32)
     torch.cuda.empty_cache()
     # 26-30. the other 3DGS render paths and the novel-view video -----------------
     lines += _walk_phases(torch, dev, bed)
@@ -640,7 +665,7 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
     """torch.profiler over ``calls`` calls of ``fn`` after a warm-up, per
     call: each stage's device time, the rest, the heaviest kernels and the
     device's busy share of the host's wall time (one stream: kernel
-    durations do not overlap).
+    durations do not overlap). Returns the device ms per call.
 
     A CPU event that ``stage_of`` maps to a stage (by default a
     record_function span named in ``stages``) takes the kernels that it and
@@ -710,6 +735,7 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
          over_credited_ms_per_call=over,
          kernels=[{"name": name[:100], "ms_per_call": us / 1e3 / calls,
                    "launches_per_call": n / calls} for name, (us, n) in top])
+    return busy_us / 1e3 / calls if busy_us else "not measured"
 
 
 def _head_work(x):
@@ -1299,6 +1325,7 @@ def _train_phases(torch, dev, bed):
     from aip_tpu_torch.gs import pipeline
     from aip_tpu_torch.gs import train as T
     from aip_tpu_torch.gs.cameras import Camera
+    from aip_tpu_torch.gs import colorfield as CF
     from aip_tpu_torch.gs.colorfield import _encode_terms
     from aip_tpu_torch.gs.dataset import Scene
     from aip_tpu_torch.kernels import composite as KC
@@ -1336,16 +1363,7 @@ def _train_phases(torch, dev, bed):
 
     # 16. kernel C at full width ----------------------------------------------------
     x01, g_out, shape = served["hash_grad"][0]
-    out = KH.hash_grad(x01, g_out, shape)
-    torch.cuda.synchronize()
-    ref = KH.hash_grad_reference(x01, g_out, shape)
-    c_err = (out - ref).abs().max().item()
-    c_tol = 1e-4 * ref.abs().max().item()
-    emit("hash_grad_vs_plain", points=x01.shape[0], table=list(shape), max_abs_err=c_err,
-         max_abs_ref=ref.abs().max().item(), tol=c_tol, nonzero_rows=int((ref != 0).any(-1).sum()))
-    if not c_err <= c_tol:
-        raise AssertionError(f"hash_grad disagrees with index_add_: {c_err} > {c_tol}")
-    del out, ref
+    c_err, sorted_ms = _hash_checks(torch, KH, CF, x01, g_out, shape, dev)
 
     # 17. one training step, card against the port on the CPU, 128^2 ---------------
     _card_vs_cpu_step(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext, style_f, dev)
@@ -1465,6 +1483,8 @@ def _train_phases(torch, dev, bed):
              ms_single_call=single_ms, plain_ms=lines[-1]["plain_ms"],
              bound_ms=lines[-1]["bound_ms"], definition=_BOUND_NOTES[name])
     del idx, w, vals, flat, table
+    _hash_times(torch, KH, x01, g_out, shape, next(l for l in lines if l["name"] == "hash_grad"),
+                sorted_ms)
     # A and B on the late step's inputs, and the P sweep on both
     _ad_late_times(torch, KAD, late_fwd, late_bwd, late_checked, f"step {LATE_CALL + 1}")
     _ad_sweep(torch, KAD, {"step 1": (fwd_args, bwd_args), f"step {LATE_CALL + 1}":
@@ -1492,6 +1512,156 @@ _BOUND_NOTES = {
     "hash_grad": ("operations = 60 float32 per (point, level); bytes = x01 and the upstream "
                   "gradient read once, the [L,T,F] table written once (atomics not counted)"),
 }
+
+
+HASH_TOL = 1e-4           # kernel C against index_add_, of the largest entry
+HASH_REPEATS = 20
+# Kernel C's other paths, reached through shapes (csrc/hashgrad.cu sums a
+# level in shared memory when its rows fit 48 KiB, and zeroes 2 levels a
+# phase): (case, levels, log2 rows, features).
+HASH_SHAPES = (("F=1: level 0 in shared memory", None, None, 1),
+               ("F=4: dense level 0 too large for shared memory, every level global",
+                None, None, 4),
+               ("15 levels: a short last phase", 15, None, 2),
+               ("2^10 rows: every level in shared memory, both of each phase", None, 10, 2))
+# The times PERF.md recorded (section 6, H100 80GB HBM3 at 700.00 W, 100 calls in
+# one window) for the kernels this port's kernel C and fused walk replaced:
+# kernel C zero-filled by its wrapper, two launches; the fused walk with one
+# block a tile, every slot of the list walked.
+BEFORE_MS = {"hash_grad": 0.1102, "composite_from_macro": 4.711}
+
+
+def _hash_checks(torch, KH, CF, x01, g_out, shape, dev):
+    """Phase 16: kernel C against its plain version at HASH_TOL of the
+    largest entry, on the served step, 20 times, after a NaN-filled
+    allocation and at HASH_SHAPES. Returns (the served error, the
+    sort-based gradient's ms)."""
+    l, t, f = shape
+    n = x01.shape[0]
+    ref = KH.hash_grad_reference(x01, g_out, shape)
+    tol = HASH_TOL * ref.abs().max().item()
+
+    def check(out, want, tol, case, **extra):
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        emit("hash_grad_vs_plain", case=case, points=n, table=list(out.shape),
+             max_abs_err=err, max_abs_ref=want.abs().max().item(), tol=tol, **extra)
+        if not (out.shape == want.shape and err <= tol):
+            raise AssertionError(f"hash_grad ({case}) disagrees with index_add_: {err} > {tol}")
+        return err
+
+    served_err = check(KH.hash_grad(x01, g_out, shape), ref, tol, "served",
+                       nonzero_rows=int((ref != 0).any(-1).sum()))
+    first = KH.hash_grad(x01, g_out, shape)
+    errs, spread = [], 0.0
+    for _ in range(HASH_REPEATS):
+        out = KH.hash_grad(x01, g_out, shape)
+        torch.cuda.synchronize()
+        errs.append((out - ref).abs().max().item())
+        spread = max(spread, (out - first).abs().max().item())
+    emit("hash_grad_repeats", calls=HASH_REPEATS, max_abs_err=max(errs), tol=tol,
+         run_to_run_max_abs=spread)
+    if not max(errs) <= tol:
+        raise AssertionError(f"a repeated hash_grad call is {max(errs)} off index_add_")
+    del first, out
+    # A NaN-filled block of the table's size, freed just before the call:
+    # the kernel's torch.empty gets it back, and must write every entry.
+    torch.cuda.synchronize()
+    poison = torch.full((l, t, f), float("nan"), device=dev)
+    ptr = poison.data_ptr()
+    del poison
+    out = KH.hash_grad(x01, g_out, shape)
+    torch.cuda.synchronize()
+    idx, _ = CF._encode_terms(shape, x01)                                   # [N, L, 8]
+    live = (g_out.reshape(n, l, f) != 0).any(-1)
+    touched = torch.zeros(l * t, dtype=torch.bool, device=dev)
+    touched[idx[live]] = True
+    untouched = out.reshape(l * t, f)[~touched]
+    bad = int((untouched != 0).any(-1).sum())      # NaN != 0 counts too
+    finite = bool(torch.isfinite(out).all())
+    emit("hash_grad_poisoned", reused_block=out.data_ptr() == ptr,
+         untouched_rows=int(untouched.shape[0]), nonzero_untouched_rows=bad, finite=finite)
+    if not (out.data_ptr() == ptr and bad == 0 and finite):
+        raise AssertionError("hash_grad left poisoned or non-zero entries in untouched rows "
+                             "(or the poisoned block was not reused)")
+    check(out, ref, tol, "after a NaN-filled block")
+    del out, idx, untouched
+    # The other shapes: the same points, a gradient wherever the served one
+    # has one (the served levels' mask, cycled over the levels).
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for case, l_, log2, f_ in HASH_SHAPES:
+        s_ = (l_ or l, 1 << log2 if log2 else t, f_)
+        mask = live[:, torch.arange(s_[0], device=dev) % l, None]
+        go = (torch.randn((n, s_[0], f_), generator=gen, device=dev) * mask).reshape(n, -1)
+        want = KH.hash_grad_reference(x01, go, s_)
+        check(KH.hash_grad(x01, go, s_), want, HASH_TOL * want.abs().max().item(), case)
+        del go, want, mask
+    # The deterministic yardstick: hash_encode_sg's sort-based gradient.
+    srt = CF.sorted_table_grad(x01, g_out, shape)
+    sorted_ms = _time_ms(torch, lambda: CF.sorted_table_grad(x01, g_out, shape), 5, 1)
+    emit("hash_grad_sorted_yardstick", entry="aip_tpu_torch.gs.colorfield.sorted_table_grad",
+         ms=sorted_ms, max_abs_vs_plain=(srt - ref).abs().max().item(),
+         max_abs_ref=ref.abs().max().item(),
+         same_bits_again=bool(torch.equal(srt, CF.sorted_table_grad(x01, g_out, shape))))
+    del srt, ref
+    torch.cuda.empty_cache()
+    return served_err, sorted_ms
+
+
+def _hash_times(torch, KH, x01, g_out, shape, line, sorted_ms):
+    """Phase 20, kernel C: the window's ms beside the kernel's own device ms
+    from the profiler, the bound and before -> after, with the card."""
+    device_ms, all_ms, period_ms = _device_ms(torch, lambda: KH.hash_grad(x01, g_out, shape),
+                                              "hash_grad_kernel")
+    # The host's time to issue a call (no synchronisation inside the loop).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MANY_CALLS):
+        KH.hash_grad(x01, g_out, shape)
+    host_ms = (time.perf_counter() - t0) * 1e3 / MANY_CALLS
+    torch.cuda.synchronize()
+    emit("hash_grad_times", card=_card(), ms_100_calls=line["ms"],
+         profiler_device_ms=device_ms, profiler_all_device_ms=all_ms,
+         profiler_start_to_start_ms=period_ms, bound_ms=line["bound_ms"],
+         share_of_bound=line["bound_ms"] / line["ms"], host_ms_per_call=host_ms,
+         sorted_yardstick_ms=sorted_ms,
+         before_ms=BEFORE_MS["hash_grad"], after_ms=line["ms"],
+         before_source="PERF.md section 6, row 10 (100 calls in one window)")
+
+
+def _device_ms(torch, fn, pattern, calls=20):
+    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up: the
+    device ms per call of the kernels whose name holds ``pattern``, and of
+    all device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    mine = total = 0.0
+    starts = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            total += us
+            if pattern in e.name:
+                mine += us
+                starts.append(e.time_range.start)
+    starts.sort()
+    period = ((starts[-1] - starts[0]) / (len(starts) - 1) / 1e3 if len(starts) > 1
+              else "not measured")
+    return (mine / 1e3 / calls if mine else "not measured",
+            total / 1e3 / calls if total else "not measured", period)
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _train_stage(name):
@@ -1870,8 +2040,9 @@ TVL1_FLOW_ITERATIONS = 4 * 5 * 300  # kernel iterations of one flow call: levels
 DISTILLED = ROOT / "docs" / "examples" / "magenta" / "magenta_distilled.npz"
 
 
-def _video_phases(torch, dev):
-    """Phases 21-25. Returns the tvl1 kernel's line of the kernels table."""
+def _video_phases(torch, dev, default_tf32):
+    """Phases 21-25. Returns the tvl1 kernel's line of the kernels table.
+    ``default_tf32``: PyTorch's (cuDNN, matmul) TF32 flags at start-up."""
     import numpy as np
     from PIL import Image
 
@@ -1985,8 +2156,9 @@ def _video_phases(torch, dev):
             and _tvl1_ran(fast_launches["tvl1"], fast_iters)):
         raise AssertionError("the fast-stylizer video call failed")
 
-    # 24. card vs CPU, fp32, 6 frames at 64^2 --------------------------------------------
-    _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, dev)
+    # 24. card vs CPU, fp32, 6 frames and a magenta frame at 64^2 -------------------------
+    _video_card_vs_cpu(torch, np, Image, video, weights, magenta, KT, vgg, dec, dev,
+                       default_tf32)
 
     # 25. times ------------------------------------------------------------------------
     walls, stage_runs = [], []
@@ -2154,19 +2326,55 @@ def _tvl1_check(torch, KT, args, case):
     return err
 
 
-def _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, card):
-    """Phase 24: 6 frames at 64^2 and 2 styles, the whole fp32 video call on
-    the card and on the CPU (the same weights): frames mean abs <= 1e-3 (as
-    8-bit images scaled to [0, 1]), flows mean abs <= 1e-4 px."""
+# The modules whose fp32 convs run under device.fp32_convs: phase 24 undoes it
+# in them once, to show that its magenta gate catches cuDNN's TF32 there.
+FP32_CONV_MODULES = ("aip_tpu_torch.ops.flow", "aip_tpu_torch.ops.farneback",
+                     "aip_tpu_torch.models.depthnet", "aip_tpu_torch.models.magenta",
+                     "aip_tpu_torch.models.mobilenet")
+
+
+# The magenta frame's gate, card against CPU, mean abs: fp32 convs read about
+# 1e-7, the same convs in TF32 about 5e-5 (PERF.md, section 6).
+MAGENTA_FP32_TOL = 1e-6
+
+
+class _without_fp32_convs:
+    """Within the block, ``fp32_convs`` of FP32_CONV_MODULES does nothing:
+    cuDNN's TF32 flag alone decides how their fp32 convs run."""
+
+    def __enter__(self):
+        import contextlib
+        import importlib
+
+        self.mods = [importlib.import_module(m) for m in FP32_CONV_MODULES]
+        self.orig = [m.fp32_convs for m in self.mods]
+        for m in self.mods:
+            m.fp32_convs = contextlib.nullcontext
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.orig):
+            m.fp32_convs = f
+
+
+def _video_card_vs_cpu(torch, np, Image, video, weights, magenta, KT, vgg, dec, card,
+                       default_tf32):
+    """Phase 24: 6 frames at 64^2 and 2 styles, the whole fp32 video call,
+    and one magenta frame at 64^2 from the committed checkpoint, on the card
+    and on the CPU (the same weights): frames mean abs <= 1e-3 (video frames
+    as 8-bit images scaled to [0, 1]), flows mean abs <= 1e-4 px, the
+    magenta frame mean abs <= MAGENTA_FP32_TOL. On the card with TF32 off
+    and with PyTorch's default flags; then, as a control, with the defaults
+    and ``fp32_convs`` undone, where the magenta frame must miss that gate
+    (the frames and flows are reported only)."""
     root = VIDEO_WORK / "card_vs_cpu"
     frames_dir = _write_images(np, Image, _moving_texture(np, 6, 64, 3), root / "frames", "f")
     g = np.random.default_rng(4)
     styles_dir = _write_images(np, Image, [g.random((64, 64, 3)), g.random((48, 64, 3))],
                                root / "styles", "s")
-    res = {}
-    for dev, v, d in ((card, vgg, dec),
-                      ("cpu", weights.from_jax_params(_hwio(vgg), "cpu"),
-                       weights.from_jax_params(_hwio(dec), "cpu"))):
+    content = torch.from_numpy(_moving_texture(np, 1, 64, 5).astype(np.float32))
+    style = torch.from_numpy(g.random((64, 64, 3)).astype(np.float32))
+
+    def run(dev, v, d):
         trace = {}
         KT.reset_launch_counts()
         paths = video.apply_style_transfer_multi_ada(
@@ -2174,19 +2382,48 @@ def _video_card_vs_cpu(torch, np, Image, video, weights, KT, vgg, dec, card):
             target_resolution=(64, 64), compute_dtype=torch.float32, vgg_params=v,
             dec_params=d, device=dev, trace=trace)
         imgs = np.stack([np.asarray(Image.open(p), np.float64) for p in paths]) / 255.0
-        res[torch.device(dev).type] = (imgs, trace["flows"].cpu(), KT.launch_counts()["tvl1"],
-                                       KT.iteration_counts()["tvl1"])
-    (i_gpu, f_gpu, n_gpu, it_gpu), (i_cpu, f_cpu, n_cpu, it_cpu) = res["cuda"], res["cpu"]
-    img_err = np.abs(i_gpu - i_cpu)
-    flow_err = (f_gpu - f_cpu).abs()
-    emit("video_card_vs_cpu", frames=6, size=64, frames_mean_abs=float(img_err.mean()),
-         frames_max_abs=float(img_err.max()), flows_mean_abs_px=flow_err.mean().item(),
-         flows_max_abs_px=flow_err.max().item(), tol_frames_mean_abs=1e-3,
-         tol_flows_mean_abs_px=1e-4, tvl1_launches_on_card=n_gpu, tvl1_iterations_on_card=it_gpu,
-         tvl1_launches_on_cpu=n_cpu, tvl1_iterations_on_cpu=it_cpu)
-    if not (img_err.mean() <= 1e-3 and flow_err.mean().item() <= 1e-4
-            and _tvl1_ran(n_gpu, it_gpu) and n_cpu == it_cpu == 0):
-        raise AssertionError("the video call on the card disagrees with the CPU")
+        with torch.no_grad():
+            frame = magenta.stylize(magenta.load_magenta_npz(DISTILLED, device=dev),
+                                    content.to(dev), style.to(dev)).cpu()
+        return (imgs, trace["flows"].cpu(), frame, KT.launch_counts()["tvl1"],
+                KT.iteration_counts()["tvl1"])
+
+    i_cpu, f_cpu, m_cpu, n_cpu, it_cpu = run("cpu", weights.from_jax_params(_hwio(vgg), "cpu"),
+                                             weights.from_jax_params(_hwio(dec), "cpu"))
+    for flags, tf32, held in (("tf32_off", (False, False), True),
+                              ("pytorch_defaults", default_tf32, True),
+                              ("pytorch_defaults_without_fp32_convs", default_tf32, False)):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            if held:
+                i_gpu, f_gpu, m_gpu, n_gpu, it_gpu = run(card, vgg, dec)
+            else:
+                with _without_fp32_convs():
+                    i_gpu, f_gpu, m_gpu, n_gpu, it_gpu = run(card, vgg, dec)
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        img_err = np.abs(i_gpu - i_cpu)
+        flow_err = (f_gpu - f_cpu).abs()
+        mag_err = (m_gpu - m_cpu).abs()
+        emit("video_card_vs_cpu", flags=flags, tf32_conv=tf32[0], tf32_matmul=tf32[1],
+             fp32_convs=held, held_to_the_gates=held, control_must_miss_magenta_gate=not held,
+             frames=6, size=64,
+             frames_mean_abs=float(img_err.mean()), frames_max_abs=float(img_err.max()),
+             flows_mean_abs_px=flow_err.mean().item(), flows_max_abs_px=flow_err.max().item(),
+             magenta_frame_mean_abs=mag_err.mean().item(),
+             magenta_frame_max_abs=mag_err.max().item(),
+             tol_magenta_frame_mean_abs=MAGENTA_FP32_TOL, tol_frames_mean_abs=1e-3,
+             tol_flows_mean_abs_px=1e-4, tvl1_launches_on_card=n_gpu,
+             tvl1_iterations_on_card=it_gpu, tvl1_launches_on_cpu=n_cpu,
+             tvl1_iterations_on_cpu=it_cpu)
+        if held and not (img_err.mean() <= 1e-3 and flow_err.mean().item() <= 1e-4
+                         and mag_err.mean().item() <= MAGENTA_FP32_TOL
+                         and _tvl1_ran(n_gpu, it_gpu) and n_cpu == it_cpu == 0):
+            raise AssertionError(f"the video call or the magenta frame on the card disagrees "
+                                 f"with the CPU ({flags})")
+        if not held and not mag_err.mean().item() > MAGENTA_FP32_TOL:
+            raise AssertionError("with fp32_convs undone under TF32 the magenta frame still "
+                                 "meets its gate: the gate cannot tell fp32 from TF32")
 
 
 VIDEO_STAGES = ("video.load", "video.depth", "video.stylize", "video.flows", "video.blend",
@@ -2239,7 +2476,7 @@ WALK_TOL = 1e-5
 WALK_PATHS = {"pallas": "composite_macro_blocks", "fused": "composite_from_macro",
               "fast": "composite_tiles"}
 WALK_KERNEL_NAMES = {"composite_macro_blocks": "macro_blocks_kernel",
-                     "composite_from_macro": "walk_tiles_kernel",
+                     "composite_from_macro": "from_macro_kernel",
                      "composite_tiles": "walk_tiles_kernel"}
 TILE_PAIR_FLOPS = 17    # kernels 6, 7 per (walked slot, pixel): offsets, power, exp, clamps, tests
 BLOCK_PAIR_FLOPS = 12   # kernel 5 per (walked row, pixel): 3 products, 4 sums, exp, clamps, test
@@ -2278,18 +2515,24 @@ def _walk_phases(torch, dev, bed):
     # 26. kernels 5-7 against their plain versions ---------------------------------
     s800 = GR.settings_from_selection(sel, 800, 800, max_per_tile=sel["max_per_tile"])
     f1080 = _walk_frames(torch, GR, state, field, style_f, enc, bg, fitted("bed_0037_1088x1920"))
-    served = {}
+    f800 = _walk_frames(torch, GR, state, field, style_f, enc, bg, fitted("bed_0037_800"))
+    served, served_800 = {}, {}
     with _capture(KC, "composite_tiles", served):   # what run_3dgs_rendering renders per view
         GR.render(cams[0], state, field, bg, style_f=style_f, mode="inference", settings=s800,
                   renderer="pallas", precomputed_enc=enc)
     for path in ("pallas", "fused"):
         with _capture(KC, WALK_PATHS[path], served):
             f1080[path](cams_1080[0])
+    with _capture(KC, "composite_from_macro", served_800):
+        f800["fused"](cams[0])
     torch.cuda.synchronize()
-    main_err = {name: _walk_check(torch, name, getattr(KC, name), plain[name], *served[name],
-                                  "served") for name in WALK_KERNEL_NAMES}
-    for name, (args, kw), case in _walk_edge_cases(np, torch, dev):
-        _walk_check(torch, name, getattr(KC, name), plain[name], args, kw, case)
+    main_err = {name: _walk_check(torch, KC, name, plain[name], *served[name], "served")
+                for name in WALK_KERNEL_NAMES}
+    _walk_check(torch, KC, "composite_from_macro", plain["composite_from_macro"],
+                *served_800["composite_from_macro"], "served 800^2 (edge macro blocks)")
+    for name, (args, kw), case in (_walk_edge_cases(np, torch, dev)
+                                   + _fused_edge_cases(np, torch, dev)):
+        _walk_check(torch, KC, name, plain[name], args, kw, case)
 
     # 27. main path, per-tile walk: run_3dgs_rendering(renderer="pallas") ------------
     out_dir = GS_WORK / "renders_pallas"
@@ -2355,8 +2598,7 @@ def _walk_phases(torch, dev, bed):
 
     # 30. times ---------------------------------------------------------------------
     for label, cs in (("bed_0037_800", cams), ("bed_0037_1088x1920", cams_1080)):
-        fns = f1080 if label.endswith("1920") else _walk_frames(
-            torch, GR, state, field, style_f, enc, bg, fitted(label))
+        fns = f1080 if label.endswith("1920") else f800
         for path, fn in fns.items():
             frame = _cycle(lambda f, c: f(c), fn, cs)
             for _ in cs:  # warm every pose
@@ -2366,11 +2608,13 @@ def _walk_phases(torch, dev, bed):
             emit("gs_frame_time", scene=label, path=path, kernel=WALK_PATHS[path],
                  fitted_selection=bed["fitted_sel"][label], ms=ms, fps=1e3 / ms,
                  launches_per_frame={k: v / 12 for k, v in KC.launch_counts().items() if v})
+    frame_device_ms = {}
     for path, fn in f1080.items():
         kernel = WALK_PATHS[path]
-        _stage_profile(torch, "gs_profile", _cycle(lambda f, c: f(c), fn, cams_1080), GS_SPANS,
-                       named=(("gs.composite", WALK_KERNEL_NAMES[kernel]),), calls=3,
-                       scene="bed_0037_1088x1920", path=path)
+        frame_device_ms[path] = _stage_profile(
+            torch, "gs_profile", _cycle(lambda f, c: f(c), fn, cams_1080), GS_SPANS,
+            named=(("gs.composite", WALK_KERNEL_NAMES[kernel]),), calls=3,
+            scene="bed_0037_1088x1920", path=path)
     lines = []
     per_frame = {"composite_tiles": main_launches["composite_tiles"] / len(pngs),
                  "composite_macro_blocks": main_launches["composite_macro_blocks"],
@@ -2378,6 +2622,10 @@ def _walk_phases(torch, dev, bed):
     for name in ("composite_macro_blocks", "composite_from_macro", "composite_tiles"):
         args, kw = served[name]
         flops, nbytes, pairs = _walk_work(KC, name, args, kw)
+        fused = None
+        if name == "composite_from_macro":
+            fused = _fused_work(KC, args, kw)
+            flops = fused["live_pairs"] * TILE_PAIR_FLOPS   # the live bound
         t_comp, t_mem = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
         lines.append({
             "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
@@ -2396,6 +2644,9 @@ def _walk_phases(torch, dev, bed):
              flops=flops, bytes=nbytes, ms_many_calls=lines[-1]["ms"], calls_in_window=MANY_CALLS,
              definition=_WALK_BOUND_NOTES[name],
              library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
+        if fused is not None:
+            _fused_times(torch, KC, args, kw, lines[-1], fused, nbytes,
+                         frame_device_ms["fused"])
     return lines
 
 
@@ -2406,10 +2657,12 @@ _WALK_BOUND_NOTES = {
         "cores; the contribution's 10 more only where alpha >= 1/255 are not counted); bytes = "
         "the walked 48-byte rows, the counts and the planes once, at 3.35 TB/s"),
     "composite_from_macro": (
-        "pairs = sum over tiles of their block's slots up to its last valid one x 256; "
-        "operations = 17 float32 per pair at 67 TFLOP/s (the contribution's 10 more only where "
-        "alpha >= 1/255 are not counted); bytes = each block's walked 40-byte slots, its whole "
-        "valid row (scanned for the end) and the tiles once, at 3.35 TB/s"),
+        "pairs = sum over tiles of their block's slots up to its last valid one x 256 (the "
+        "dense bound), live pairs = those (slot, pixel) pairs with alpha >= 1/255 (the live "
+        "bound, bound_ms); operations = 17 float32 per pair at 67 TFLOP/s (the contribution's "
+        "10 more only where alpha >= 1/255 are not counted); bytes = each block's walked "
+        "40-byte slots, its whole valid row (scanned for the end) and the tiles once, at "
+        "3.35 TB/s"),
     "composite_tiles": (
         "pairs = sum over tiles of their slots up to the last valid one x 256; operations = 17 "
         "float32 per pair at 67 TFLOP/s (the contribution's 10 more only where alpha >= 1/255 "
@@ -2445,19 +2698,148 @@ def _walk_frames(torch, GR, state, field, style_f, enc, bg, settings):
             "fast": through(R.rasterize_fast)}
 
 
-def _walk_check(torch, name, kernel, plain, args, kw, case):
+def _walk_check(torch, KC, name, plain, args, kw, case):
     """A walk kernel against its plain version on one input: max abs <=
-    WALK_TOL (both round every per-pixel operation alike). Returns the
-    error."""
-    out = kernel(*args, **kw)
+    WALK_TOL (both round every per-pixel operation alike), the fused walk's
+    at max abs 0. Returns the error."""
+    out = getattr(KC, name)(*args, **kw)
     torch.cuda.synchronize()
     ref = plain(*args, **kw)
-    err = (out - ref).abs().max().item()
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    tol = 0.0 if name == "composite_from_macro" else WALK_TOL
     emit("gs_walk_vs_plain", kernel=name, case=case, in_shape=list(args[0].shape),
-         out_shape=list(out.shape), max_abs_err=err, tol_max_abs=WALK_TOL)
-    if not (out.shape == ref.shape and err <= WALK_TOL):
+         out_shape=list(out.shape), max_abs_err=err, tol_max_abs=tol)
+    if not (out.shape == ref.shape and err <= tol):
         raise AssertionError(f"{name} ({case}) is {err} off its plain version")
     return err
+
+
+def _fused_slots(np, g, th, tw, macro, kc):
+    """Fused-walk lists of a th x tw tile grid in macro blocks of ``macro``
+    tiles: slots scattered up to 40 px around each block (many far from
+    most of its tiles; the first at its centre), sizes 0.5-12 px, any
+    rotation, opacities 0.002-1, valid a prefix of random length; the first
+    list empty, the last with invalid slots between valid ones. Returns
+    (arrays, kw)."""
+    mth, mtw = -(-th // macro), -(-tw // macro)
+    m, bs = mth * mtw, 16 * macro
+    b = np.arange(m)
+    cx = ((b % mtw) * bs + bs / 2)[:, None]
+    cy = ((b // mtw) * bs + bs / 2)[:, None]
+    mean = np.stack([cx + (g.random((m, kc)) - 0.5) * (bs + 80),
+                     cy + (g.random((m, kc)) - 0.5) * (bs + 80)], -1)
+    conic = _conics(np, g.uniform(0.5, 12, (m, kc)), g.uniform(0.5, 12, (m, kc)),
+                    g.uniform(0, math.pi, (m, kc)))
+    mean[:, 0] = np.concatenate([cx, cy], -1)      # every list draws at its centre
+    op = np.exp(g.uniform(math.log(0.002), 0, (m, kc)))
+    op[:, 0] = 0.8
+    valid = (np.arange(kc)[None, :] < g.integers(1, kc + 1, (m, 1))).astype(np.float32)
+    valid[0] = 0.0
+    valid[-1, ::3] = 0.0
+    return ([mean, conic, g.random((m, kc, 3)), op, valid],
+            dict(n_tiles=th * tw, tile_w=tw, macro=macro, macro_tile_w=mtw))
+
+
+def _conics(np, s1, s2, theta):
+    """Conic (a, b, c) of the covariance R diag(s1^2, s2^2) R^T."""
+    c, s = np.cos(theta), np.sin(theta)
+    i1, i2 = 1 / s1 ** 2, 1 / s2 ** 2
+    return np.stack([c * c * i1 + s * s * i2, c * s * (i1 - i2), s * s * i1 + c * c * i2], -1)
+
+
+CONTOUR_EPS = (-1e-2, -1e-4, -1e-6, -1e-7, 0.0, 1e-7, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1)
+CONTOUR_SHAPES = ((3.0, 3.0, 0.0), (2.0, 5.0, 0.0), (0.35, 40.0, 0.0), (60.0, 45.0, 0.0),
+                  (1.5, 9.0, 0.6), (0.4, 25.0, 2.3))   # (sigma 1, sigma 2, rotation)
+CONTOUR_OPS = (1.0, 0.5, 0.05, 0.0045)
+
+
+def _fused_contour(np):
+    """One macro block of 4 x 4 tiles listing, for each shape, opacity and
+    eps, a splat up and left of pixel (48, 48), the top-left pixel of tile
+    (3, 3), on the diagonal, where q(corner - mean) = L (1 + eps) and L = 2
+    ln(255 op) is the 1/255 contour: just inside for eps < 0, just outside
+    for eps > 0."""
+    u = np.array([-1.0, -1.0]) / math.sqrt(2.0)
+    mean, conic, op = [], [], []
+    for s1, s2, theta in CONTOUR_SHAPES:
+        a, b, c = _conics(np, np.float64(s1), np.float64(s2), np.float64(theta))
+        qu = a * u[0] ** 2 + 2 * b * u[0] * u[1] + c * u[1] ** 2
+        for o in CONTOUR_OPS:
+            for e in CONTOUR_EPS:
+                d = math.sqrt(max(2 * math.log(255 * o) * (1 + e), 0.0) / qu)
+                mean.append([48.0 + d * u[0], 48.0 + d * u[1]])
+                conic.append([a, b, c])
+                op.append(o)
+    k = len(op)
+    color = np.random.default_rng(5).random((1, k, 3))
+    return ([np.asarray(mean)[None], np.asarray(conic)[None], color, np.asarray(op)[None],
+             np.ones((1, k))], dict(n_tiles=16, tile_w=4, macro=4, macro_tile_w=1))
+
+
+def _fused_edge_cases(np, torch, dev):
+    """The fused walk's lists of Kc = 2, 200 and 5120 at macro 1 to 5, tile
+    grids whose last macro-block column and row hold fewer tiles, and the
+    1/255 contour sweep."""
+    g = np.random.default_rng(27)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    bg = f([0.2, 0.1, 0.3])
+    cases = []
+    for kc, macro, th, tw in ((2, 1, 3, 5), (2, 4, 5, 6), (200, 2, 5, 7), (200, 3, 7, 8),
+                              (200, 5, 6, 11), (5120, 4, 6, 9), (5120, 5, 7, 11)):
+        arrays, kw = _fused_slots(np, g, th, tw, macro, kc)
+        cases.append(("composite_from_macro", ([f(a) for a in arrays] + [bg], kw),
+                      f"edge Kc={kc}, macro {macro}, {th}x{tw} tiles"))
+    arrays, kw = _fused_contour(np)
+    cases.append(("composite_from_macro", ([f(a) for a in arrays] + [bg], kw),
+                  "1/255 contour sweep at a tile's corner"))
+    return cases
+
+
+def _fused_work(KC, args, kw):
+    """The fused walk's work on one call (``from_macro_work``), in (slot,
+    pixel) pairs: those it spans without the cull (the dense pairs), those
+    its cull keeps (what it evaluates) and those with alpha >= 1/255 (the
+    live pairs)."""
+    dense, kept, live = KC.from_macro_work(*args[:5], **kw)
+    return {"dense_pairs": dense, "kept_pairs": kept, "kept_share": kept / max(dense, 1),
+            "live_pairs": live, "live_share": live / max(dense, 1)}
+
+
+def _walk_ptxas():
+    """Registers and spills of the kernels of composite_walk.cu, from the
+    build's ptxas report: {"from_macro_kernel": {...}, ...}."""
+    path = WORK / "build_composite_walk.log"
+    report = path.read_text() if path.is_file() else ""
+    out, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(from_macro_kernel|walk_tiles_kernel|macro_blocks_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+            cur = None if not m else m[1] + (f" bs={m[2]}" if m[2] else "")
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(cur, {}).update(spill_stores=int(spill[1]),
+                                               spill_loads=int(spill[2]))
+            if regs:
+                out.setdefault(cur, {})["registers"] = int(regs[1])
+    return out or "not measured"
+
+
+def _fused_times(torch, KC, args, kw, line, fused, nbytes, frame_device_ms):
+    """Phase 30, the fused walk: dense and live bounds, the kept share,
+    ptxas, before -> after with the fused frame's device ms and the card."""
+    t_dense = fused["dense_pairs"] * TILE_PAIR_FLOPS / PEAK_FLOPS_F32
+    t_mem = nbytes / PEAK_BYTES
+    emit("gs_fused_walk_times", card=_card(), ms_100_calls=line["ms"],
+         ms_single_call=_time_ms(torch, lambda: KC.composite_from_macro(*args, **kw)),
+         dense_bound_ms=max(t_dense, t_mem) * 1e3, live_bound_ms=line["bound_ms"],
+         share_of_live_bound=line["bound_ms"] / line["ms"],
+         share_of_dense_bound=max(t_dense, t_mem) * 1e3 / line["ms"], **fused,
+         ptxas=_walk_ptxas(),
+         fused_frame_device_ms=frame_device_ms, before_ms=BEFORE_MS["composite_from_macro"],
+         after_ms=line["ms"], before_source="PERF.md section 6, row 6 (100 calls in one window)")
 
 
 def _walk_edge_cases(np, torch, dev):

@@ -243,6 +243,60 @@ def test_fp32_models_hold_fp32_under_pytorchs_default_tf32_flags(cuda):
 
 
 @pytest.mark.cuda
+def test_fp32_convs_outside_adain_hold_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch):
+    """With cuDNN's TF32 on, as PyTorch starts, the fp32 convs of the video
+    path run in fp32 (``fp32_convs``): Lucas-Kanade and Farneback flows of
+    two moved frames within 1e-4 px mean abs of the CPU's, the depth proxy
+    within 1e-5 max abs, and one magenta frame of the committed checkpoint
+    within 1e-6 mean abs (phase 24's magenta gate); the process's flag is as
+    it was after them. The control: with ``fp32_convs`` undone in those
+    modules, cuDNN's TF32 moves the magenta frame past 1e-6, so the gate
+    catches the fault it guards against."""
+    import contextlib
+    from pathlib import Path
+
+    from aip_tpu_torch.models import depthnet, magenta, mobilenet
+    from aip_tpu_torch.ops import farneback, flow
+
+    g = np.random.default_rng(30)
+    a = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32))
+    a = torch.nn.functional.avg_pool2d(a.permute(0, 3, 1, 2), 5, 1, 2).permute(0, 2, 3, 1)
+    b = torch.roll(a, shifts=(1, 2), dims=(1, 2)).contiguous()
+    style = torch.from_numpy(g.random((64, 64, 3)).astype(np.float32))
+    ckpt = Path(__file__).resolve().parent.parent / "docs" / "examples" / "magenta" / \
+        "magenta_distilled.npz"
+
+    def run(dev):
+        with torch.no_grad():
+            return (flow.estimate_flow(a.to(dev), b.to(dev)).cpu(),
+                    farneback.estimate_flow_farneback(a.to(dev), b.to(dev)).cpu(),
+                    depthnet.estimate_proximity(a[0].to(dev)).cpu(),
+                    magenta.stylize(magenta.load_magenta_npz(ckpt, device=dev), a[:1].to(dev),
+                                    style.to(dev)).cpu())
+
+    def on_card_with_tf32():
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = run(cuda)
+            torch.cuda.synchronize()
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        return out
+
+    lk, fb, prox, frame = on_card_with_tf32()
+    lk_c, fb_c, prox_c, frame_c = run("cpu")
+    assert float((lk - lk_c).abs().mean()) <= 1e-4
+    assert float((fb - fb_c).abs().mean()) <= 1e-4
+    assert float((prox - prox_c).abs().max()) <= 1e-5
+    assert float((frame - frame_c).abs().mean()) <= 1e-6
+    for mod in (flow, farneback, depthnet, magenta, mobilenet):
+        monkeypatch.setattr(mod, "fp32_convs", contextlib.nullcontext)
+    *_, frame_tf32 = on_card_with_tf32()
+    assert float((frame_tf32 - frame_c).abs().mean()) > 1e-6
+
+
+@pytest.mark.cuda
 def test_backward_recomputes_through_the_plain_version(cuda, weights):
     ew, _ = weights
     x = torch.rand(1, 12, 14, 3, device=cuda, requires_grad=True)
@@ -585,6 +639,59 @@ def test_composite_from_macro_kernel_matches_plain(cuda, kc):
     assert float((out - ref).abs().max()) == 0.0
 
 
+def _fused_lists(g, th, tw, macro, kc):
+    """Fused-walk lists of a th x tw tile grid in macro blocks of ``macro``
+    tiles: slots scattered up to 40 px around each block (the first at its
+    centre), sizes 0.5-12 px, any rotation, opacities 0.002-1, valid a
+    prefix of random length; the first list empty, the last with invalid
+    slots between valid ones."""
+    mth, mtw = -(-th // macro), -(-tw // macro)
+    m, bs = mth * mtw, 16 * macro
+    b = np.arange(m)
+    cx = ((b % mtw) * bs + bs / 2)[:, None]
+    cy = ((b // mtw) * bs + bs / 2)[:, None]
+    mean = np.stack([cx + (g.random((m, kc)) - 0.5) * (bs + 80),
+                     cy + (g.random((m, kc)) - 0.5) * (bs + 80)], -1)
+    mean[:, 0] = np.concatenate([cx, cy], -1)
+    s1, s2, th_ = g.uniform(0.5, 12, (m, kc)), g.uniform(0.5, 12, (m, kc)), g.uniform(0, 3.2,
+                                                                                      (m, kc))
+    c, s = np.cos(th_), np.sin(th_)
+    conic = np.stack([c * c / s1 ** 2 + s * s / s2 ** 2, c * s * (1 / s1 ** 2 - 1 / s2 ** 2),
+                      s * s / s1 ** 2 + c * c / s2 ** 2], -1)
+    op = np.exp(g.uniform(math.log(0.002), 0, (m, kc)))
+    op[:, 0] = 0.8
+    valid = (np.arange(kc)[None, :] < g.integers(1, kc + 1, (m, 1))).astype(np.float32)
+    valid[0] = 0.0
+    valid[-1, ::3] = 0.0
+    arrays = [mean, conic, g.random((m, kc, 3)), op, valid]
+    return ([torch.from_numpy(x.astype(np.float32)) for x in arrays],
+            dict(n_tiles=th * tw, tile_w=tw, macro=macro, macro_tile_w=mtw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("macro", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("kc", [2, 200, 5120])
+def test_composite_from_macro_kernel_is_bit_exact(cuda, kc, macro):
+    """The fused walk (one block a macro block, its list staged once, each
+    tile walking the slots its cull keeps) against the plain version, max
+    abs 0, on grids whose last macro-block column and row hold fewer tiles
+    (macro 5 splits a macro block over two blocks)."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(100 * macro + kc % 97)
+    arrays, kw = _fused_lists(g, 2 * macro + 1, 2 * macro + 3, macro, kc)
+    arrays = [a.to(cuda) for a in arrays]
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    C.reset_launch_counts()
+    out = C.composite_from_macro(*arrays, bg, **kw)
+    torch.cuda.synchronize()
+    assert C.launch_counts()["composite_from_macro"] == 1
+    ref = C.composite_from_macro_reference(*arrays, bg, **kw)
+    assert out.shape == ref.shape == (kw["n_tiles"], 3, 16, 16)
+    assert float((out - ref).abs().max()) == 0.0
+    assert float((ref - bg[None, :, None, None]).abs().max()) > 0   # something was drawn
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs,kc", [(16, 40), (32, 100), (64, 70), (64, 1000)])
 def test_composite_macro_blocks_kernel_matches_plain(cuda, bs, kc):
@@ -639,6 +746,15 @@ def test_walk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):   # 16 tiles of a 4-tile row need 4 blocks of 2 x 2 tiles
         C.composite_from_macro(*[a[:2] for a in arrays], bg, n_tiles=16, tile_w=4, macro=2,
                                macro_tile_w=2)
+    fused = dict(n_tiles=4, tile_w=2, macro=2, macro_tile_w=1)
+    with pytest.raises(ValueError, match="macro blocks of 1 to"):
+        C.composite_from_macro(*arrays, bg, **{**fused, "macro": C.MAX_MACRO + 1})
+    with pytest.raises(ValueError, match="macro blocks of 1 to"):
+        C.composite_from_macro(*arrays, bg, **{**fused, "macro": 0})
+    with pytest.raises(TypeError):
+        C.composite_from_macro(arrays[0], arrays[1].double(), *arrays[2:], bg, **fused)
+    with pytest.raises(ValueError):
+        C.composite_from_macro(*arrays[:4], arrays[4].cpu(), bg, **fused)
     coeff = torch.zeros(2, 8, 8, device=cuda)
     colors = torch.zeros(2, 8, 4, device=cuda)
     counts = torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -826,6 +942,106 @@ def test_hash_grad_kernel_matches_index_add(cuda, log2, n):
     assert KH.launch_counts() == {"hash_grad": 1}
     ref = KH.hash_grad_reference(x, go, shape)
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def _hash_inputs(g, n, l, f, cuda):
+    """Positions in [0.25, 0.75]^3 and an upstream gradient [n, l f] that is
+    0 at every tenth point."""
+    x = torch.from_numpy((g.random((n, 3)) * 0.5 + 0.25).astype(np.float32)).to(cuda)
+    go = g.standard_normal((n, l * f)).astype(np.float32)
+    go[::10] = 0.0
+    return x, torch.from_numpy(go).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,log2", [(16, 16), (15, 16), (3, 16), (16, 10)])
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_hash_grad_kernel_features_and_level_layouts(cuda, f, l, log2):
+    """F = 1, 2 and 4 over tables that reach each of the kernel's paths: at
+    2^16 rows level 0 (4,920 rows) is summed in shared memory at F = 1 and
+    2 and every level goes to global memory at F = 4; 15 and 3 levels leave
+    a short last phase (two levels a phase); at 2^10 rows every level is
+    summed in shared memory, both levels of each phase. 1e-5 of the largest
+    entry, one launch a call."""
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    x, go = _hash_inputs(np.random.default_rng(7 + f), 6000, l, f, cuda)
+    shape = (l, 1 << log2, f)
+    KH.reset_launch_counts()
+    out = KH.hash_grad(x, go, shape)
+    torch.cuda.synchronize()
+    assert KH.launch_counts() == {"hash_grad": 1}
+    ref = KH.hash_grad_reference(x, go, shape)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_hash_grad_kernel_writes_every_entry_after_a_poisoned_allocation(cuda):
+    """The table comes from torch.empty: after a NaN-filled block of its
+    size is freed, the kernel gets that block and must write every entry.
+    Rows no contribution touches are exactly 0, every entry is finite; with
+    no points at all the whole table is 0."""
+    from aip_tpu_torch.gs.colorfield import _encode_terms
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    l, t, f = shape = (16, 1 << 16, 2)
+    x, go = _hash_inputs(np.random.default_rng(8), 5000, l, f, cuda)
+    for pts in (x.shape[0], 0):
+        torch.cuda.synchronize()
+        poison = torch.full(shape, float("nan"), device=cuda)
+        ptr = poison.data_ptr()
+        del poison
+        out = KH.hash_grad(x[:pts], go[:pts], shape)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == ptr
+        assert bool(torch.isfinite(out).all())
+        idx, _ = _encode_terms(shape, x[:pts])
+        touched = torch.zeros(l * t, dtype=torch.bool, device=cuda)
+        touched[idx[(go[:pts].reshape(pts, l, f) != 0).any(-1)]] = True
+        assert bool(touched.any()) == (pts > 0)
+        assert not bool((out.reshape(l * t, f)[~touched] != 0).any())
+        ref = KH.hash_grad_reference(x[:pts], go[:pts], shape)
+        assert float((out - ref).abs().max()) <= 1e-5 * max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_hash_grad_kernel_repeats_within_the_gate(cuda):
+    """20 calls in a row on one stream (the level counters left at 0 by each
+    launch for the next), each within 1e-5 of the largest entry, and 20
+    launches counted."""
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    x, go = _hash_inputs(np.random.default_rng(9), 20000, 16, 2, cuda)
+    shape = (16, 1 << 18, 2)
+    ref = KH.hash_grad_reference(x, go, shape)
+    KH.reset_launch_counts()
+    outs = [KH.hash_grad(x, go, shape) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert KH.launch_counts() == {"hash_grad": 20}
+    for out in outs:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_hash_grad_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    x, go = _hash_inputs(np.random.default_rng(10), 100, 16, 2, cuda)
+    with pytest.raises(ValueError):                  # a table that is no power of two
+        KH.hash_grad(x, go, (16, 3000, 2))
+    with pytest.raises(ValueError):                  # 3 features
+        KH.hash_grad(x, torch.zeros(100, 48, device=cuda), (16, 1024, 3))
+    with pytest.raises(ValueError):                  # more levels than the kernel counts
+        KH.hash_grad(x, torch.zeros(100, 66, device=cuda), (33, 1024, 2))
+    with pytest.raises(TypeError):
+        KH.hash_grad(x.double(), go, (16, 1024, 2))
+    with pytest.raises(ValueError):                  # on the CPU
+        KH.hash_grad(x, go.cpu(), (16, 1024, 2))
+    with pytest.raises(ValueError):                  # not 16-byte aligned
+        KH.hash_grad(x, torch.zeros(100 * 32 + 1, device=cuda)[1:].view(100, 32),
+                     (16, 1024, 2))
+    with pytest.raises(ValueError):                  # g_out of the wrong width
+        KH.hash_grad(x, go[:, :30].contiguous(), (16, 1024, 2))
 
 
 def _tiny_training(dev, log2_hashmap=16):

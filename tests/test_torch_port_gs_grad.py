@@ -202,6 +202,44 @@ def test_hash_grad_plain_matches_jax_mxu_at_bf16(rng):
         assert np.abs(out[lvl, s:]).max(initial=0.0) == 0.0
 
 
+def test_hash_encode_sg_matches_jax_and_the_plain_gradient(rng):
+    """The sort-based table gradient (``hash_encode_sg``) against the JAX
+    package's on the same field and inputs, at 1e-5 of the largest entry
+    (both take float32 running sums over the same sorted contributions, in
+    the same order but for ties, which the stable sorts order alike), and
+    against kernel C's plain version (one ``index_add_``) at 1e-5 too: a
+    segment's sum as the difference of two running sums loses about eps
+    times the running sum, a few 1e-7 of the largest entry here; rows no
+    contribution reaches are exactly 0. Positions get no gradient, and the
+    forward is ``hash_encode``'s."""
+    jf, tables = _mixed_field(13, seed=2)
+    x = rng.random((300, 3)).astype(np.float32)
+    g = rng.standard_normal((300, 32)).astype(np.float32)
+    ref = np.asarray(jax.grad(lambda tb: jnp.sum(JF.hash_encode_sg(tb, jnp.asarray(x)) * g))(
+        jf.hash_tables))
+    t = tables.clone().requires_grad_()
+    xt = _t(x).requires_grad_()
+    enc = TF.hash_encode_sg(t, xt)
+    assert torch.equal(enc.detach(), TF.hash_encode(tables, _t(x)))
+    (enc * _t(g)).sum().backward()
+    assert xt.grad is None
+    out = t.grad.numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(out - ref).max() <= 1e-5 * scale
+    plain = TH.hash_grad_reference(_t(x), _t(g), tuple(tables.shape)).numpy()
+    assert np.abs(out - plain).max() <= 1e-5 * scale
+    np.testing.assert_array_equal(out[plain == 0], 0.0)
+
+
+@pytest.mark.parametrize("l,t", [(16, 1 << 19), (16, 1 << 16), (8, 1 << 10), (1, 4), (32, 64)])
+def test_hash_grad_level_table_is_levels_flattened(l, t):
+    """The kernel's cached level table: ``_levels`` flattened, one object a
+    (L, T)."""
+    table = TH.level_table(l, t)
+    assert list(table) == [v for spec in TH._levels(l, t) for v in spec]
+    assert TH.level_table(l, t) is table
+
+
 def test_predict_sh_takes_kernel_route_for_large_tables(rng, monkeypatch):
     """Tables of 2^16 rows and more route the table gradient through
     ``hash_grad`` (kernel C on a card); smaller ones through autograd."""

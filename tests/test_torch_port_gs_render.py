@@ -95,6 +95,33 @@ def test_fit_selection_dicts_equal(rng):
     assert out["giant_tiers"] and out["giant_backend"] == "direct"
 
 
+def test_fit_macro_capacity_matches_jax(rng):
+    """``fit_macro_capacity`` of both packages on the scenes of
+    tests/test_gs_rasterizer.py's test_fit_macro_capacity: 50 points spread
+    out keep the floor; 1800 points in one tiny region raise the capacity to
+    the measured demand times the margin, a multiple of 64; ``hi`` clamps.
+    The same integer in both packages each time."""
+    cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), FoVx=np.pi / 3,
+                 FoVy=np.pi / 3, image=np.zeros((256, 256, 3), np.float32), image_name="t",
+                 uid=0)
+
+    def both(n, spread, capacity, **kw):
+        pts = jnp.asarray((rng.random((n, 3)) * spread - (spread > 1)).astype(np.float32))
+        cols = jnp.asarray(rng.random((n, 3)).astype(np.float32))
+        js, _ = JG.create_from_pcd(pts, cols, capacity=capacity)
+        ts, _ = from_jax_arrays({k: np.asarray(v) for k, v in js._asdict().items()}, None,
+                                "cpu")
+        ref = JRN.fit_macro_capacity(js, [cam], **kw)
+        out = TRN.fit_macro_capacity(ts, [cam], **kw)
+        assert out == ref
+        return out
+
+    assert both(50, 2.0, 64) == 1024
+    cap = both(1800, 0.01, 2048)
+    assert cap % 64 == 0 and 1800 <= cap <= int(1800 * 1.15) + 64
+    assert both(1800, 0.01, 2048, hi=1280) == 1280
+
+
 @pytest.fixture(scope="module")
 def bed_subset():
     """4096 splats of the committed model, loaded by both packages."""
