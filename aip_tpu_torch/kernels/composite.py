@@ -45,14 +45,26 @@ in ``.launches``. Here:
   transmittance keeps falling after 1e-4 and weights the background, as in
   the JAX package. Plain versions ``composite_tiles_reference`` and
   ``composite_from_macro_reference``, both kernel A's plain forward
-  (``composite_ad_fwd_reference``) without its final transmittance. The
-  kernels find the end of each list's valid slots themselves;
+  (``composite_ad_fwd_reference``) without its final transmittance. Both
+  kernels walk, per tile, only the slots kernel A's cull keeps
+  (``live_slots``): ``tiles_live`` and ``from_macro_live`` name them,
+  ``composite_tiles_culled_reference`` and
+  ``composite_from_macro_culled_reference`` emulate the culled walks, and
+  ``tiles_work`` and ``from_macro_work`` count the pairs behind the
+  bounds;
 * ``composite_macro_blocks`` (replaces ``composite_macro_blocks_pallas``):
   per macro block, the walk on quadratic coefficients ``[c0, cx, cy, cxx,
   cyy, cxy, opacity, 0]`` in block-local pixel coordinates, evaluated left
   to right as the TPU kernel does, bounded by the block's count and left
   at the first 32-row group start where no pixel of the block has T >
-  1e-4. Plain version ``composite_macro_blocks_reference``.
+  1e-4. Plain version ``composite_macro_blocks_reference``; the kernel's
+  cull per (row, 16 x 16 sub-tile), ``blocks_sub_tile_live``, its walk
+  emulated, ``composite_macro_blocks_culled_reference``, and the pairs
+  behind its bounds, ``blocks_work``.
+
+``composite_tiles`` and ``composite_macro_blocks`` take a private
+``_dense`` argument: on the card, the kernel's twin with the cull off,
+which walks every pair (the card's checks hold the two to the same bits).
 
 The plain walks repeat the kernels' float32 operations one by one in the
 same order, so on the card the two agree bit for bit.
@@ -73,8 +85,8 @@ import torch
 
 from aip_tpu_torch.kernels._build import library
 from aip_tpu_torch.kernels.composite_ad import (
-    TILE, _pixels, box_visible, composite_ad_fwd_culled_reference, composite_ad_fwd_reference,
-    live_slots, pack)
+    EXP_MARGIN, LN_ALPHA_MIN, TILE, _pixels, box_visible, composite_ad_fwd_culled_reference,
+    composite_ad_fwd_reference, live_slots, pack)
 
 GROUP = 64            # rows per early-exit check, as in the kernels
 BLOCK_SIZES = (16, 32, 64)
@@ -87,6 +99,7 @@ DEFAULT_LAYOUT = (16, 4)
 T_CUTOFF = 1e-4
 WALK_GROUP = 32       # composite_macro_blocks' rows per early-exit test
 MAX_MACRO = 32         # the largest macro block, in tiles a side, the fused kernel takes
+COEFF_MARGIN = 8 * 2.0 ** -24   # of S, the coefficient cull's float32 rounding (csrc/cull.cuh)
 
 
 @functools.cache
@@ -102,9 +115,9 @@ def _lib() -> ctypes.CDLL:
 def _walk_lib() -> ctypes.CDLL:
     lib = library("composite_walk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_composite_tiles.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.aip_composite_tiles.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.aip_composite_from_macro.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.aip_composite_macro_blocks.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.aip_composite_macro_blocks.argtypes = [p, p, p, p, p, i, i, i, i, p]
     for fn in (lib.aip_composite_tiles, lib.aip_composite_from_macro,
                lib.aip_composite_macro_blocks):
         fn.restype = ctypes.c_int
@@ -396,6 +409,15 @@ def from_macro_work(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles: int, ti
     ``from_macro_live``); and the pairs with a valid slot and alpha >=
     1/255, by the plain version's float32 expressions (the live pairs)."""
     rows_all = macro_of_tile(n_tiles, tile_w, macro, macro_tile_w, g_mean.device)
+    return _slot_work((g_mean, g_conic, g_color, g_op, slot_valid), rows_all, tile_w,
+                      tiles_per_chunk)
+
+
+def _slot_work(arrays, rows_all, tile_w, tiles_per_chunk):
+    """``from_macro_work`` and ``tiles_work``: tile t walks list
+    ``rows_all[t]`` of the slot arrays."""
+    g_mean, g_conic, g_color, g_op, slot_valid = arrays
+    n_tiles = rows_all.shape[0]
     ends = valid_ends(slot_valid).long()
     walked = int(ends[rows_all].sum()) * TILE * TILE if n_tiles else 0
     n = int(ends.max()) if ends.numel() else 0
@@ -416,6 +438,34 @@ def from_macro_work(g_mean, g_conic, g_color, g_op, slot_valid, n_tiles: int, ti
     return walked, kept, visible
 
 
+def tiles_live(g_mean, g_conic, g_color, g_op, slot_valid, tile_w: int):
+    """[T, K] bool: the slots of each tile's own list that the per-tile
+    walk's kernel keeps (``live_slots``, kernel A's cull)."""
+    return live_slots(pack(g_mean.float(), g_conic.float(), g_color.float(),
+                           g_op.float()[..., None]), slot_valid.float()[..., None], tile_w)
+
+
+def composite_tiles_culled_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
+                                     tile_w: int):
+    """The per-tile walk's kernel in plain torch: each tile walks, in list
+    order, the slots of its list that the cull keeps (``tiles_live``), the
+    per-pixel arithmetic the plain version's: kernel A's culled forward.
+    Where the cull is exact this equals ``composite_tiles_reference``
+    (``torch.equal``)."""
+    g = pack(g_mean.float(), g_conic.float(), g_color.float(), g_op.float()[..., None])
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=g_mean.device)
+    return composite_ad_fwd_culled_reference(g, slot_valid.float()[..., None], bg, tile_w)[0]
+
+
+def tiles_work(g_mean, g_conic, g_color, g_op, slot_valid, tile_w: int,
+               tiles_per_chunk: int = 256):
+    """(walked, kept, visible) (slot, pixel) pairs of one per-tile walk, as
+    ``from_macro_work`` counts them, each tile on its own list."""
+    rows_all = torch.arange(g_mean.shape[0], device=g_mean.device)
+    return _slot_work((g_mean, g_conic, g_color, g_op, slot_valid), rows_all, tile_w,
+                      tiles_per_chunk)
+
+
 def composite_macro_blocks_reference(coeff, colors, counts, bg_color, bs: int):
     """Plain coefficient walk: coeff [M, Kc, 8] (``[c0, cx, cy, cxx, cyy,
     cxy, opacity, 0]`` in block-local pixel coordinates), colours [M, Kc, 4]
@@ -432,16 +482,95 @@ def blocks_walked_rows(coeff, colors, counts, bs: int) -> int:
     return int(_macro_blocks_walk(coeff, colors, counts, (0.0, 0.0, 0.0), bs)[1].sum())
 
 
-def _macro_blocks_walk(coeff, colors, counts, bg_color, bs):
-    """The coefficient walk: ([M, 3, 1, bs*bs] planes, [M] rows walked)."""
+def blocks_sub_tile_live(coeff, counts, bs: int, blocks_per_chunk: int = 32):
+    """[M, Kc, (bs / 16)^2] bool: the rows the coefficient walk's kernel
+    keeps for each 16 x 16 sub-tile of each block (sub-tiles in raster
+    order), the twin of ``aip_cull::coeff_terms`` and
+    ``coeff_proved_invisible`` (``csrc/cull.cuh``): the same float64
+    expressions in the same order. A row inside its block's count stays
+    when a coefficient or its opacity is not finite, or when its quadratic
+    is not concave; it goes when its opacity is <= 0; otherwise it stays
+    unless ln op + Q_max + 8 u S + 1e-6 < ln(float(1/255)) over the
+    sub-tile's box of pixel centres (Q_max the exact maximum of the row's
+    quadratic, S the box's largest sum of its terms' sizes)."""
+    m, kc, _ = coeff.shape
+    cols = bs // TILE
+    s = torch.arange(cols * cols, device=coeff.device)
+    xa = ((s % cols) * TILE).to(torch.float64)
+    ya = ((s // cols) * TILE).to(torch.float64)
+    xb, yb = xa + (TILE - 1.0), ya + (TILE - 1.0)
+    in_count = torch.arange(kc, device=coeff.device)[None, :] < counts.long().clamp(0, kc)[:, None]
+    out = []
+    for b0 in range(0, m, blocks_per_chunk):
+        cf = coeff[b0:b0 + blocks_per_chunk, :, :7].float()
+        finite = torch.isfinite(cf).all(-1)
+        op = cf[..., 6]
+        c0, cx, cy, cxx, cyy, cxy = (cf[..., i].double()[..., None] for i in range(6))
+        d = (4.0 * cxx) * cyy - cxy * cxy
+        concave = ((cxx < 0) & (cyy < 0) & (d > 0))[..., 0]
+        keep_out = ~finite | ((op > 0) & ~concave)
+        test = finite & (op > 0) & concave
+
+        def q(x, y):
+            return ((((c0 + cx * x) + cy * y) + (cxx * x) * x) + (cyy * y) * y) + (cxy * x) * y
+
+        xs = (cxy * cy - (2.0 * cyy) * cx) / d
+        ys = (cxy * cx - (2.0 * cxx) * cy) / d
+        hx, hy = -0.5 / cxx, -0.5 / cyy
+        q_max = torch.fmax(
+            torch.fmax(q(xa, torch.clamp((cy + cxy * xa) * hy, ya, yb)),
+                       q(xb, torch.clamp((cy + cxy * xb) * hy, ya, yb))),
+            torch.fmax(q(torch.clamp((cx + cxy * ya) * hx, xa, xb), ya),
+                       q(torch.clamp((cx + cxy * yb) * hx, xa, xb), yb)))
+        inside = (xa <= xs) & (xs <= xb) & (ya <= ys) & (ys <= yb)
+        q_max = torch.where(inside, q(xs, ys), q_max)
+        size = (((((c0.abs() + cx.abs() * xb) + cy.abs() * yb) + (cxx.abs() * xb) * xb)
+                 + (cyy.abs() * yb) * yb) + (cxy.abs() * xb) * yb)
+        bound = ((torch.log(op.double())[..., None] + q_max) + COEFF_MARGIN * size) + EXP_MARGIN
+        out.append(keep_out[..., None] | (test[..., None] & ~(bound < LN_ALPHA_MIN)))
+    keep = torch.cat(out) if out else torch.zeros((0, kc, cols * cols), dtype=torch.bool,
+                                                   device=coeff.device)
+    return keep & in_count[..., None]
+
+
+def composite_macro_blocks_culled_reference(coeff, colors, counts, bg_color, bs: int):
+    """The coefficient walk's kernel in plain torch: each 16 x 16 sub-tile
+    walks only the rows the cull keeps for it (``blocks_sub_tile_live``),
+    the exit and the per-pixel arithmetic the plain version's. Where the
+    cull is exact this equals ``composite_macro_blocks_reference``
+    (``torch.equal``)."""
+    keep = blocks_sub_tile_live(coeff, counts, bs)
+    return _macro_blocks_walk(coeff, colors, counts, bg_color, bs, keep)[0]
+
+
+def blocks_work(coeff, colors, counts, bs: int) -> dict:
+    """The coefficient walk's work on one call, in (row, pixel) pairs: the
+    rows each block walks up to its exit at every pixel (the dense pairs),
+    those the cull keeps for each pixel's sub-tile (what the kernel
+    evaluates) and those with alpha >= 1/255 (the live pairs)."""
+    keep = blocks_sub_tile_live(coeff, counts, bs)
+    _, walked, live, kept = _macro_blocks_walk(coeff, colors, counts, (0.0, 0.0, 0.0), bs, keep)
+    rows = int(walked.sum())
+    return {"walked_rows": rows, "dense_pairs": rows * bs * bs, "kept_pairs": int(kept.sum()),
+            "live_pairs": int(live.sum())}
+
+
+def _macro_blocks_walk(coeff, colors, counts, bg_color, bs, keep=None):
+    """The coefficient walk: ([M, 3, 1, bs*bs] planes, [M] rows walked,
+    [M] walked pairs with alpha >= 1/255, [M] walked pairs the cull keeps).
+    With ``keep`` ([M, Kc, sub-tiles], ``blocks_sub_tile_live``) a pixel
+    takes only the rows kept for its sub-tile."""
     m, kc, _ = coeff.shape
     dev = coeff.device
     flat = torch.arange(bs * bs, device=dev)
     px = (flat % bs).float()[None]
     py = (flat // bs).float()[None]
+    sub_of = (flat // bs // TILE) * (bs // TILE) + (flat % bs) // TILE
     bxx, byy, bxy = px * px, py * py, px * py
     counts = counts.long().clamp(0, kc)
     walked = torch.zeros_like(counts)
+    live_pairs = torch.zeros_like(counts)
+    kept_pairs = torch.zeros_like(counts)
     zero = torch.zeros((), device=dev)
     trans = torch.ones((m, bs * bs), device=dev)
     r, g, b = torch.zeros_like(trans), torch.zeros_like(trans), torch.zeros_like(trans)
@@ -452,11 +581,16 @@ def _macro_blocks_walk(coeff, colors, counts, bg_color, bs):
         walked += torch.where(live, torch.clamp(counts - g0, max=WALK_GROUP), 0)
         for i in range(g0, min(g0 + WALK_GROUP, kc)):
             ok = (live & (i < counts))[:, None]
+            if keep is not None:
+                kept_i = ok & keep[:, i, sub_of]
+                kept_pairs += kept_i.sum(1)
+                ok = kept_i
             c = coeff[:, i].float()
             power = (c[:, 0:1] + c[:, 1:2] * px + c[:, 2:3] * py + c[:, 3:4] * bxx
                      + c[:, 4:5] * byy + c[:, 5:6] * bxy)
             alpha = torch.clamp(c[:, 6:7] * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
             alpha = torch.where(ok & (alpha >= 1.0 / 255.0), alpha, zero)
+            live_pairs += (alpha > 0).sum(1)
             contrib = torch.where(trans > T_CUTOFF, alpha * trans, zero)
             col = colors[:, i].float()
             r = r + contrib * col[:, 0:1]
@@ -465,7 +599,7 @@ def _macro_blocks_walk(coeff, colors, counts, bg_color, bs):
             trans = trans * (1.0 - alpha)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     out = torch.stack([r + trans * bg[0], g + trans * bg[1], b + trans * bg[2]], dim=1)
-    return out[:, :, None, :], walked
+    return out[:, :, None, :], walked, live_pairs, kept_pairs
 
 
 # ---------------------------------------------------------------------------
@@ -635,11 +769,13 @@ def _slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid):
     return tuple(t.data_ptr() for t in (g_mean, g_conic, g_color, g_op, slot_valid))
 
 
-def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w: int):
+def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w: int,
+                    _dense: bool = False):
     """Per-tile walk (replaces ``composite_tiles_pallas``): each tile walks
     its own K gathered slots. mean [T, K, 2], conic [T, K, 3], colour [T, K,
     3], opacity [T, K], valid [T, K] (1.0 where the slot holds a Gaussian),
-    all float32. Returns [T, 3, 16, 16] float32."""
+    all float32. Returns [T, 3, 16, 16] float32. On the card the kernel
+    walks, per tile, the slots its cull keeps."""
     if g_mean.device.type == "cpu":
         return composite_tiles_reference(g_mean, g_conic, g_color, g_op, slot_valid, bg_color,
                                          tile_w)
@@ -650,7 +786,7 @@ def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w
     if n_tiles:
         _launch(_walk_lib().aip_composite_tiles, dev,
                 (*_slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid), bg.data_ptr(),
-                 out.data_ptr(), n_tiles, k, tile_w))
+                 out.data_ptr(), n_tiles, k, tile_w, int(_dense)))
         composite_tiles.launches += 1
     return out
 
@@ -686,11 +822,12 @@ def composite_from_macro(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, n
     return out
 
 
-def composite_macro_blocks(coeff, colors, counts, bg_color, bs: int):
+def composite_macro_blocks(coeff, colors, counts, bg_color, bs: int, _dense: bool = False):
     """Coefficient walk (replaces ``composite_macro_blocks_pallas``): coeff
     [M, Kc, 8] and colours [M, Kc, 4] float32, counts [M] int32 (valid rows
     are a prefix). Returns [M, 3, 1, bs*bs] float32. The kernel takes macro
-    blocks of 16, 32 and 64 px (macro 1, 2 and 4)."""
+    blocks of 16, 32 and 64 px (macro 1, 2 and 4) and walks, per 16 x 16
+    sub-tile, the rows its cull keeps."""
     if coeff.device.type == "cpu":
         return composite_macro_blocks_reference(coeff, colors, counts, bg_color, bs)
     dev = coeff.device
@@ -714,7 +851,7 @@ def composite_macro_blocks(coeff, colors, counts, bg_color, bs: int):
     if n_blocks:
         _launch(_walk_lib().aip_composite_macro_blocks, dev,
                 (coeff.data_ptr(), colors.data_ptr(), counts.data_ptr(), bg.data_ptr(),
-                 out.data_ptr(), n_blocks, kc, bs))
+                 out.data_ptr(), n_blocks, kc, bs, int(_dense)))
         composite_macro_blocks.launches += 1
     return out
 

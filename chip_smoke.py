@@ -195,15 +195,19 @@ model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
 
 26. the three walk kernels against their plain versions, max abs <= 1e-5
     (both round every per-pixel operation alike), the fused walk's at max
-    abs 0: on the
+    abs 0, and kernels 5 and 7 against their dense twins (the cull off) at
+    max abs 0: on the
     inputs the paths below hand them (captured from one frame of each, the
     fused walk's at 1088x1920 and at 800^2, where the last macro-block
-    column holds 2 of 4 tiles) and on edge cases (empty tiles and blocks,
-    saturation, the 0.99 clamp, opacity below 1/255, invalid slots between
-    valid ones, K = 1, lists longer than one staged chunk, counts that are
-    no multiple of 32, blocks of 16, 32 and 64 px; fused lists of Kc = 2,
-    200 and 5120 at macro 1 to 5 with edge blocks, and splats just inside
-    and just outside the 1/255 contour at a tile's corner).
+    column holds 2 of 4 tiles; kernel 5's on each of the 8 cameras at
+    1088x1920, kernel 7's on each of the 8 views at 800^2 and on the
+    1088x1920 lists of rasterize_fast) and on edge cases (empty tiles and
+    blocks, saturation, the 0.99 clamp, opacity below 1/255, invalid slots
+    between valid ones, K = 1, lists longer than one staged chunk, counts
+    that are no multiple of 32, blocks of 16, 32 and 64 px; fused lists of
+    Kc = 2, 200 and 5120 at macro 1 to 5 with edge blocks; and splats just
+    inside and just outside the 1/255 contour at a tile's and a sub-tile's
+    corner, for kernels 5, 6 and 7).
 27. main path, per-tile walk: ``run_3dgs_rendering(renderer="pallas")``
     over the 8 views at 800^2; the GIF and 8 PNGs exist, > 10 % of pixels
     differ from the background, ``composite_tiles`` ran >= 8 times and no
@@ -218,15 +222,18 @@ model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
     (4 frames) and ``--gaussians``.
 30. times: ms per frame of the three paths at 800^2 and 1088x1920 (fitted
     selection, macro 4; CUDA events, median of 10), a torch.profiler
-    breakdown of one 1088x1920 frame of each with the busy share, and each
-    kernel's ms (100 calls in one window), launches per frame, plain ms and
-    bound; for the fused walk the dense bound (every slot up to its list's
-    last valid one, at every pixel of every tile), the live bound (the
-    (slot, pixel) pairs with alpha >= 1/255, ``bound_ms``), the share of
-    (tile, slot) pairs its cull keeps, ptxas's registers and spills, and
-    before -> after (the time PERF.md recorded for the
-    kernel this one replaced) with the fused frame's device ms and the
-    card's name and power limit.
+    breakdown of one 1088x1920 frame of each camera for each path with the
+    busy share, and each kernel's ms (100 calls in one window), launches
+    per frame, plain ms and bound; for the three culled walks the dense
+    bound (every slot or row walked, at every pixel), the live bound (the
+    pairs with alpha >= 1/255, ``bound_ms``), the share of pairs the cull
+    keeps, ptxas's registers and spills, and before -> after (the time
+    PERF.md recorded for the kernel this one replaced) with the path's
+    frame device ms and the card's name and power limit; kernel 5 on each
+    camera's inputs (its ``ms`` and ``bound_ms`` the medians over the 8
+    cameras, beside the profile's per-frame composite ms); kernel 7's P
+    sweep (P = 2, 4, 8, each equal to the default bit for bit), every
+    view's window and the 1088x1920 lists of rasterize_fast.
 
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
@@ -665,7 +672,8 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
     """torch.profiler over ``calls`` calls of ``fn`` after a warm-up, per
     call: each stage's device time, the rest, the heaviest kernels and the
     device's busy share of the host's wall time (one stream: kernel
-    durations do not overlap). Returns the device ms per call.
+    durations do not overlap). Returns the device ms per call and each
+    stage's.
 
     A CPU event that ``stage_of`` maps to a stage (by default a
     record_function span named in ``stages``) takes the kernels that it and
@@ -735,7 +743,7 @@ def _stage_profile(torch, label, fn, stages, named=(), stage_of=None, calls=1, *
          over_credited_ms_per_call=over,
          kernels=[{"name": name[:100], "ms_per_call": us / 1e3 / calls,
                    "launches_per_call": n / calls} for name, (us, n) in top])
-    return busy_us / 1e3 / calls if busy_us else "not measured"
+    return (busy_us / 1e3 / calls if busy_us else "not measured"), (ms if measured else {})
 
 
 def _head_work(x):
@@ -1528,7 +1536,8 @@ HASH_SHAPES = (("F=1: level 0 in shared memory", None, None, 1),
 # one window) for the kernels this port's kernel C and fused walk replaced:
 # kernel C zero-filled by its wrapper, two launches; the fused walk with one
 # block a tile, every slot of the list walked.
-BEFORE_MS = {"hash_grad": 0.1102, "composite_from_macro": 4.711}
+BEFORE_MS = {"hash_grad": 0.1102, "composite_from_macro": 4.711, "composite_macro_blocks": 0.8541,
+             "composite_tiles": 0.1005}
 
 
 def _hash_checks(torch, KH, CF, x01, g_out, shape, dev):
@@ -2475,6 +2484,7 @@ WALK_TOL = 1e-5
 # per-tile walk (rasterize_fast, render(renderer="pallas")).
 WALK_PATHS = {"pallas": "composite_macro_blocks", "fused": "composite_from_macro",
               "fast": "composite_tiles"}
+DENSE_TWINS = ("composite_macro_blocks", "composite_tiles")   # kernels with a dense twin
 WALK_KERNEL_NAMES = {"composite_macro_blocks": "macro_blocks_kernel",
                      "composite_from_macro": "from_macro_kernel",
                      "composite_tiles": "walk_tiles_kernel"}
@@ -2516,22 +2526,37 @@ def _walk_phases(torch, dev, bed):
     s800 = GR.settings_from_selection(sel, 800, 800, max_per_tile=sel["max_per_tile"])
     f1080 = _walk_frames(torch, GR, state, field, style_f, enc, bg, fitted("bed_0037_1088x1920"))
     f800 = _walk_frames(torch, GR, state, field, style_f, enc, bg, fitted("bed_0037_800"))
-    served, served_800 = {}, {}
-    with _capture(KC, "composite_tiles", served):   # what run_3dgs_rendering renders per view
-        GR.render(cams[0], state, field, bg, style_f=style_f, mode="inference", settings=s800,
-                  renderer="pallas", precomputed_enc=enc)
-    for path in ("pallas", "fused"):
-        with _capture(KC, WALK_PATHS[path], served):
-            f1080[path](cams_1080[0])
+    served, served_800, served_fast = {}, {}, {}
+    # Kernel 5's inputs on each 1088x1920 camera, kernel 7's on each 800^2
+    # view (what run_3dgs_rendering renders per view).
+    blocks_cams = [_captured(KC, "composite_macro_blocks", lambda: f1080["pallas"](c))
+                   for c in cams_1080]
+    tiles_views = [_captured(KC, "composite_tiles", lambda: GR.render(
+        c, state, field, bg, style_f=style_f, mode="inference", settings=s800, renderer="pallas",
+        precomputed_enc=enc)) for c in cams]
+    served["composite_macro_blocks"], served["composite_tiles"] = blocks_cams[0], tiles_views[0]
+    with _capture(KC, "composite_from_macro", served):
+        f1080["fused"](cams_1080[0])
     with _capture(KC, "composite_from_macro", served_800):
         f800["fused"](cams[0])
+    with _capture(KC, "composite_tiles", served_fast):
+        f1080["fast"](cams_1080[0])
     torch.cuda.synchronize()
     main_err = {name: _walk_check(torch, KC, name, plain[name], *served[name], "served")
                 for name in WALK_KERNEL_NAMES}
     _walk_check(torch, KC, "composite_from_macro", plain["composite_from_macro"],
                 *served_800["composite_from_macro"], "served 800^2 (edge macro blocks)")
+    for i, args in enumerate(blocks_cams[1:], 1):
+        _walk_check(torch, KC, "composite_macro_blocks", plain["composite_macro_blocks"], *args,
+                    f"served 1088x1920, camera {i}")
+    for i, args in enumerate(tiles_views[1:], 1):
+        _walk_check(torch, KC, "composite_tiles", plain["composite_tiles"], *args,
+                    f"served 800^2, view {i}")
+    _walk_check(torch, KC, "composite_tiles", plain["composite_tiles"],
+                *served_fast["composite_tiles"], "served 1088x1920 (rasterize_fast)")
     for name, (args, kw), case in (_walk_edge_cases(np, torch, dev)
-                                   + _fused_edge_cases(np, torch, dev)):
+                                   + _fused_edge_cases(np, torch, dev)
+                                   + _contour_walk_cases(np, torch, dev)):
         _walk_check(torch, KC, name, plain[name], args, kw, case)
 
     # 27. main path, per-tile walk: run_3dgs_rendering(renderer="pallas") ------------
@@ -2608,30 +2633,37 @@ def _walk_phases(torch, dev, bed):
             emit("gs_frame_time", scene=label, path=path, kernel=WALK_PATHS[path],
                  fitted_selection=bed["fitted_sel"][label], ms=ms, fps=1e3 / ms,
                  launches_per_frame={k: v / 12 for k, v in KC.launch_counts().items() if v})
-    frame_device_ms = {}
-    for path, fn in f1080.items():
+    frame_device_ms, frame_stage_ms = {}, {}
+    for path, fn in f1080.items():   # one frame of each camera
         kernel = WALK_PATHS[path]
-        frame_device_ms[path] = _stage_profile(
+        frame_device_ms[path], frame_stage_ms[path] = _stage_profile(
             torch, "gs_profile", _cycle(lambda f, c: f(c), fn, cams_1080), GS_SPANS,
-            named=(("gs.composite", WALK_KERNEL_NAMES[kernel]),), calls=3,
+            named=(("gs.composite", WALK_KERNEL_NAMES[kernel]),), calls=len(cams_1080),
             scene="bed_0037_1088x1920", path=path)
     lines = []
     per_frame = {"composite_tiles": main_launches["composite_tiles"] / len(pngs),
                  "composite_macro_blocks": main_launches["composite_macro_blocks"],
                  "composite_from_macro": main_launches["composite_from_macro"]}
+    blocks = _blocks_times(torch, KC, blocks_cams, frame_stage_ms["pallas"], len(cams_1080))
     for name in ("composite_macro_blocks", "composite_from_macro", "composite_tiles"):
         args, kw = served[name]
         flops, nbytes, pairs = _walk_work(KC, name, args, kw)
-        fused = None
+        work = None
         if name == "composite_from_macro":
-            fused = _fused_work(KC, args, kw)
-            flops = fused["live_pairs"] * TILE_PAIR_FLOPS   # the live bound
+            work = _fused_work(KC, args, kw)
+            flops = work["live_pairs"] * TILE_PAIR_FLOPS   # the live bound
+        elif name == "composite_tiles":
+            work = _tiles_work(KC, args)
+            flops = work["live_pairs"] * TILE_PAIR_FLOPS
         t_comp, t_mem = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+        if name == "composite_macro_blocks":   # the medians over the cameras
+            ms, (t_comp, t_mem) = blocks["median_ms_100_calls"], blocks["median_live_bound_s"]
+        else:
+            ms = _time_many_ms(torch, lambda: getattr(KC, name)(*args, **kw), MANY_CALLS)
         lines.append({
             "name": name, "route": "cuda", "source": f"aip_tpu_torch/csrc/{KERNELS[name][0]}.cu",
             "replaces": KERNELS[name][1], "launches": main_launches[name],
-            "max_abs_err": main_err[name],
-            "ms": _time_many_ms(torch, lambda: getattr(KC, name)(*args, **kw), MANY_CALLS),
+            "max_abs_err": main_err[name], "ms": ms,
             "plain_ms": _time_ms(torch, lambda: plain[name](*args, **kw), 2, 1),
             "bound_ms": max(t_comp, t_mem) * 1e3,
             "bound_by": "operations" if t_comp >= t_mem else "bytes",
@@ -2644,18 +2676,30 @@ def _walk_phases(torch, dev, bed):
              flops=flops, bytes=nbytes, ms_many_calls=lines[-1]["ms"], calls_in_window=MANY_CALLS,
              definition=_WALK_BOUND_NOTES[name],
              library_ms_reason="no single PyTorch call composites depth-sorted Gaussians")
-        if fused is not None:
-            _fused_times(torch, KC, args, kw, lines[-1], fused, nbytes,
+        if name == "composite_from_macro":
+            _fused_times(torch, KC, args, kw, lines[-1], work, nbytes,
                          frame_device_ms["fused"])
+        elif name == "composite_tiles":
+            _tiles_times(torch, KC, tiles_views, served_fast["composite_tiles"], lines[-1], work,
+                         nbytes, frame_device_ms["fast"], frame_stage_ms["fast"])
+        else:
+            emit("gs_blocks_walk_times", card=_card(), **blocks, ptxas=_walk_ptxas(),
+                 ms_single_call=_time_ms(torch, lambda: KC.composite_macro_blocks(*args, **kw)),
+                 plain_ms=lines[-1]["plain_ms"], frame_device_ms=frame_device_ms["pallas"],
+                 frame_stage_device_ms=frame_stage_ms["pallas"],
+                 before_ms=BEFORE_MS["composite_macro_blocks"], after_ms=ms,
+                 before_source="PERF.md section 6, row 5 (camera 0, 100 calls in one window)")
     return lines
 
 
 _WALK_BOUND_NOTES = {
     "composite_macro_blocks": (
         "pairs = sum over blocks of the rows walked up to the 32-row early exit (counted by the "
-        "plain version) x bs^2; operations = 12 float32 per pair at 67 TFLOP/s (H100 SXM, CUDA "
-        "cores; the contribution's 10 more only where alpha >= 1/255 are not counted); bytes = "
-        "the walked 48-byte rows, the counts and the planes once, at 3.35 TB/s"),
+        "plain version) x bs^2 (the dense bound), live pairs = those with alpha >= 1/255 (the "
+        "live bound; bound_ms, ms: the medians over the 8 cameras); operations = 12 float32 per "
+        "pair at 67 TFLOP/s (H100 SXM, CUDA cores; the contribution's 10 more only where alpha "
+        ">= 1/255 are not counted); bytes = the walked 48-byte rows, the counts and the planes "
+        "once, at 3.35 TB/s"),
     "composite_from_macro": (
         "pairs = sum over tiles of their block's slots up to its last valid one x 256 (the "
         "dense bound), live pairs = those (slot, pixel) pairs with alpha >= 1/255 (the live "
@@ -2664,10 +2708,11 @@ _WALK_BOUND_NOTES = {
         "40-byte slots, its whole valid row (scanned for the end) and the tiles once, at "
         "3.35 TB/s"),
     "composite_tiles": (
-        "pairs = sum over tiles of their slots up to the last valid one x 256; operations = 17 "
-        "float32 per pair at 67 TFLOP/s (the contribution's 10 more only where alpha >= 1/255 "
-        "are not counted); bytes = the walked 40-byte slots, the whole valid array (scanned "
-        "for the end) and the tiles once, at 3.35 TB/s"),
+        "pairs = sum over tiles of their slots up to the last valid one x 256 (the dense "
+        "bound), live pairs = those with a valid slot and alpha >= 1/255 (the live bound, "
+        "bound_ms); operations = 17 float32 per pair at 67 TFLOP/s (the contribution's 10 more "
+        "only where alpha >= 1/255 are not counted); bytes = the valid slots' 36 bytes, the "
+        "whole valid array and the tiles once, at 3.35 TB/s"),
 }
 
 
@@ -2701,17 +2746,32 @@ def _walk_frames(torch, GR, state, field, style_f, enc, bg, settings):
 def _walk_check(torch, KC, name, plain, args, kw, case):
     """A walk kernel against its plain version on one input: max abs <=
     WALK_TOL (both round every per-pixel operation alike), the fused walk's
-    at max abs 0. Returns the error."""
+    at max abs 0; kernels 5 and 7 also against their dense twins (the cull
+    off), max abs 0. Returns the error against the plain version."""
     out = getattr(KC, name)(*args, **kw)
+    dense = getattr(KC, name)(*args, **kw, _dense=True) if name in DENSE_TWINS else out
     torch.cuda.synchronize()
     ref = plain(*args, **kw)
     err = (out - ref).abs().max().item() if out.numel() else 0.0
+    dense_err = (out - dense).abs().max().item() if out.numel() else 0.0
     tol = 0.0 if name == "composite_from_macro" else WALK_TOL
     emit("gs_walk_vs_plain", kernel=name, case=case, in_shape=list(args[0].shape),
-         out_shape=list(out.shape), max_abs_err=err, tol_max_abs=tol)
-    if not (out.shape == ref.shape and err <= tol):
-        raise AssertionError(f"{name} ({case}) is {err} off its plain version")
+         out_shape=list(out.shape), max_abs_err=err, tol_max_abs=tol,
+         **({"dense_twin_max_abs_err": dense_err, "dense_twin_tol": 0.0}
+            if name in DENSE_TWINS else {}))
+    if not (out.shape == ref.shape and err <= tol and dense_err == 0.0):
+        raise AssertionError(f"{name} ({case}) is {err} off its plain version and {dense_err} "
+                             f"off its dense twin")
     return err
+
+
+def _captured(KC, name, fn):
+    """The (args, kw) of the first call of ``KC.<name>`` while ``fn()``
+    runs."""
+    store = {}
+    with _capture(KC, name, store):
+        fn()
+    return store[name]
 
 
 def _fused_slots(np, g, th, tw, macro, kc):
@@ -2807,15 +2867,17 @@ def _fused_work(KC, args, kw):
 
 def _walk_ptxas():
     """Registers and spills of the kernels of composite_walk.cu, from the
-    build's ptxas report: {"from_macro_kernel": {...}, ...}."""
+    build's ptxas report: {"from_macro_kernel": {...}, "macro_blocks_kernel
+    bs=64": {...}, "walk_tiles_kernel dense": {...}, ...}."""
     path = WORK / "build_composite_walk.log"
     report = path.read_text() if path.is_file() else ""
     out, cur = {}, None
     for line in report.splitlines():
         if "Compiling entry" in line:
             m = re.search(r"(from_macro_kernel|walk_tiles_kernel|macro_blocks_kernel)"
-                          r"(?:ILi(\d+)E)?", line)
-            cur = None if not m else m[1] + (f" bs={m[2]}" if m[2] else "")
+                          r"(?:I(?:Li(\d+)E)?Lb(\d)E)?", line)
+            cur = None if not m else (m[1] + (f" bs={m[2]}" if m[2] else "")
+                                      + (" dense" if m[3] == "0" else ""))
         elif cur is not None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
@@ -2840,6 +2902,111 @@ def _fused_times(torch, KC, args, kw, line, fused, nbytes, frame_device_ms):
          ptxas=_walk_ptxas(),
          fused_frame_device_ms=frame_device_ms, before_ms=BEFORE_MS["composite_from_macro"],
          after_ms=line["ms"], before_source="PERF.md section 6, row 6 (100 calls in one window)")
+
+
+def _contour_walk_cases(np, torch, dev):
+    """Kernels 5 and 7 on the fused walk's 1/255 contour sweep at pixel (48,
+    48) (``_fused_contour``): 16 tiles of a 4-tile row, each listing the
+    sweep (the pixel is tile (3, 3)'s top-left), and one 64 px block of the
+    sweep's rows packed by the rasterizer (the pixel is sub-tile (3, 3)'s
+    top-left)."""
+    from aip_tpu_torch.gs import rasterizer as R
+
+    arrays, _ = _fused_contour(np)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    bg = f([0.2, 0.1, 0.3])
+    tiles = [f(np.broadcast_to(a, (16,) + a.shape[1:])) for a in arrays]
+    mean, conic, color, op = (f(a[0]) for a in arrays[:4])
+    idx = torch.arange(op.shape[0], dtype=torch.int32, device=dev)[None]
+    coeff, gcol, gop, counts = R._macro_coeffs(idx, mean, conic, color, op, 1, 1, 64)
+    zero = torch.zeros_like(gop[..., None])
+    rows = [torch.cat([coeff, gop[..., None], zero], -1).contiguous(),
+            torch.cat([gcol, zero], -1).contiguous(), counts, bg]
+    return [("composite_tiles", (tiles + [bg, 4], {}), "1/255 contour sweep at a tile's corner"),
+            ("composite_macro_blocks", (rows, dict(bs=64)),
+             "1/255 contour sweep at a sub-tile's corner")]
+
+
+def _tiles_work(KC, args):
+    """The per-tile walk's work on one call (``tiles_work``), in (slot,
+    pixel) pairs: dense, kept by its cull, live."""
+    dense, kept, live = KC.tiles_work(*args[:5], args[6])
+    return {"dense_pairs": dense, "kept_pairs": kept, "kept_share": kept / max(dense, 1),
+            "live_pairs": live, "live_share": live / max(dense, 1)}
+
+
+def _blocks_times(torch, KC, cams_args, frame_stage_ms, n_frames):
+    """Phase 30, the coefficient walk on each 1088x1920 camera's inputs: ms
+    over 100 calls in one window, the rows walked up to the exit, the
+    dense, kept and live pairs and bounds (a line per camera); the medians
+    (the kernels line's ms and bound), the mean and the sum over the
+    cameras beside the profile's composite ms (one frame of each camera)."""
+    per, live_s = [], []
+    for i, (args, kw) in enumerate(cams_args):
+        coeff, colors, counts, _ = args
+        bs = kw["bs"]
+        work = KC.blocks_work(coeff, colors, counts, bs)
+        nbytes = (work["walked_rows"] * COEFF_ROW_BYTES + 4 * counts.numel()
+                  + counts.numel() * 3 * bs * bs * 4)
+        t_mem = nbytes / PEAK_BYTES
+        t_dense = work["dense_pairs"] * BLOCK_PAIR_FLOPS / PEAK_FLOPS_F32
+        t_live = work["live_pairs"] * BLOCK_PAIR_FLOPS / PEAK_FLOPS_F32
+        live_s.append((t_live, t_mem))
+        row = {"camera": i, "ms_100_calls": _time_many_ms(
+            torch, lambda: KC.composite_macro_blocks(*args, **kw), MANY_CALLS), **work,
+            "kept_share": work["kept_pairs"] / max(work["dense_pairs"], 1),
+            "live_share": work["live_pairs"] / max(work["dense_pairs"], 1), "bytes": nbytes,
+            "dense_bound_ms": max(t_dense, t_mem) * 1e3, "live_bound_ms": max(t_live, t_mem) * 1e3}
+        emit("gs_blocks_walk_camera", **row)
+        per.append(row)
+    ms = [r["ms_100_calls"] for r in per]
+    total = {k: sum(r[k] for r in per)
+             for k in ("dense_pairs", "kept_pairs", "live_pairs")}
+    composite = frame_stage_ms.get("gs.composite", "not measured")
+    return {"per_camera_ms_100_calls": ms, "median_ms_100_calls": statistics.median(ms),
+            "mean_ms_100_calls": statistics.mean(ms), "sum_ms_100_calls": sum(ms),
+            "profile_composite_ms_per_frame": composite,
+            "profile_composite_ms_all_cameras": (composite * n_frames
+                                                 if composite != "not measured" else composite),
+            "median_dense_bound_ms": statistics.median(r["dense_bound_ms"] for r in per),
+            "median_live_bound_ms": statistics.median(r["live_bound_ms"] for r in per),
+            "median_live_bound_s": (statistics.median(t for t, _ in live_s),
+                                    statistics.median(t for _, t in live_s)),
+            "kept_share": total["kept_pairs"] / max(total["dense_pairs"], 1),
+            "live_share": total["live_pairs"] / max(total["dense_pairs"], 1), **total}
+
+
+def _tiles_times(torch, KC, views, fast, line, work, nbytes, frame_device_ms, frame_stage_ms):
+    """Phase 30, the per-tile walk: every 800^2 view's window, the dense
+    and live bounds and the kept share, the 1088x1920 lists of
+    rasterize_fast, ptxas, before -> after with the per-tile frame's device
+    ms and the card."""
+    args, kw = views[0]
+    per_view = [_time_many_ms(torch, lambda: KC.composite_tiles(*a, **k), MANY_CALLS)
+                for a, k in views]
+    t_dense = work["dense_pairs"] * TILE_PAIR_FLOPS / PEAK_FLOPS_F32
+    t_mem = nbytes / PEAK_BYTES
+    fast_args, fast_kw = fast
+    fast_work = _tiles_work(KC, fast_args)
+    fast_bytes = _walk_work(KC, "composite_tiles", fast_args, fast_kw)[1] / PEAK_BYTES
+    emit("gs_tiles_walk_times", card=_card(), ms_100_calls=line["ms"],
+         ms_single_call=_time_ms(torch, lambda: KC.composite_tiles(*args, **kw)),
+         per_view_ms_100_calls=per_view, median_view_ms_100_calls=statistics.median(per_view),
+         dense_bound_ms=max(t_dense, t_mem) * 1e3, live_bound_ms=line["bound_ms"],
+         share_of_dense_bound=max(t_dense, t_mem) * 1e3 / line["ms"],
+         share_of_live_bound=line["bound_ms"] / line["ms"], **work, ptxas=_walk_ptxas(),
+         rasterize_fast_1088x1920={
+             "in_shape": list(fast_args[0].shape), **fast_work,
+             "ms_100_calls": _time_many_ms(torch, lambda: KC.composite_tiles(*fast_args,
+                                                                             **fast_kw),
+                                           MANY_CALLS),
+             "dense_bound_ms": max(fast_work["dense_pairs"] * TILE_PAIR_FLOPS / PEAK_FLOPS_F32,
+                                   fast_bytes) * 1e3,
+             "live_bound_ms": max(fast_work["live_pairs"] * TILE_PAIR_FLOPS / PEAK_FLOPS_F32,
+                                  fast_bytes) * 1e3},
+         frame_device_ms=frame_device_ms, frame_stage_device_ms=frame_stage_ms,
+         before_ms=BEFORE_MS["composite_tiles"], after_ms=line["ms"],
+         before_source="PERF.md section 6, row 7 (view 0, 100 calls in one window)")
 
 
 def _walk_edge_cases(np, torch, dev):

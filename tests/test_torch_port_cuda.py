@@ -727,6 +727,133 @@ def test_composite_macro_blocks_kernel_matches_plain(cuda, bs, kc):
     torch.testing.assert_close(out[0, :, 0].cpu(), bg.cpu()[:, None].expand(3, bs * bs))
 
 
+_SWEEP_EPS = (-1e-2, -1e-4, -1e-6, 0.0, 1e-6, 1e-4, 1e-2, 1e-1)
+_SWEEP_SHAPES = ((3.0, 3.0, 0.0), (2.0, 5.0, 0.0), (0.35, 40.0, 0.0), (60.0, 45.0, 0.0),
+                 (1.5, 9.0, 0.6), (0.4, 25.0, 2.3))   # (sigma 1, sigma 2, rotation)
+_SWEEP_OPS = (1.0, 0.05, 0.0045)
+
+
+def _contour_splats(corner):
+    """Splats up and left of pixel (corner, corner) on the diagonal, where
+    q(corner - mean) = L (1 + eps) and L = 2 ln(255 op) is the 1/255
+    contour, for every shape, opacity and eps: (mean, conic, op) float64."""
+    u = np.array([-1.0, -1.0]) / math.sqrt(2.0)
+    mean, conic, op = [], [], []
+    for s1, s2, theta in _SWEEP_SHAPES:
+        c, s = math.cos(theta), math.sin(theta)
+        i1, i2 = 1 / s1 ** 2, 1 / s2 ** 2
+        abc = [c * c * i1 + s * s * i2, c * s * (i1 - i2), s * s * i1 + c * c * i2]
+        qu = abc[0] * u[0] ** 2 + 2 * abc[1] * u[0] * u[1] + abc[2] * u[1] ** 2
+        for o in _SWEEP_OPS:
+            for e in _SWEEP_EPS:
+                d = math.sqrt(max(2 * math.log(255 * o) * (1 + e), 0.0) / qu)
+                mean.append([corner + d * u[0], corner + d * u[1]])
+                conic.append(abc)
+                op.append(o)
+    return np.asarray(mean), np.asarray(conic), np.asarray(op)
+
+
+def _blocks_cases(cuda):
+    """Coefficient rows packed by the rasterizer's ``_macro_coeffs``: the
+    1/255 contour sweep at pixel (32, 32) of a 64 px block (the corner of
+    sub-tile (2, 2)), rows near and far at bs 16, 32 and 64 (counts 0, 37
+    and full), and rows that are not finite or not concave."""
+    from aip_tpu_torch.gs import rasterizer as R
+
+    def pack(mean, conic, op, idx, mtw, bs, g):
+        f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+        coeff, gcol, gop, counts = R._macro_coeffs(
+            torch.from_numpy(idx.astype(np.int32)), f(mean), f(conic), f(g.random((len(op), 3))),
+            f(op), idx.shape[0], mtw, bs)
+        zero = torch.zeros_like(gop[..., None])
+        return (torch.cat([coeff, gop[..., None], zero], -1).contiguous().to(cuda),
+                torch.cat([gcol, zero], -1).contiguous().to(cuda), counts.to(cuda))
+
+    g = np.random.default_rng(31)
+    mean, conic, op = _contour_splats(32.0)
+    cases = {"contour sweep": (pack(mean, conic, op, np.arange(len(op))[None], 1, 64, g), 64)}
+    for bs in (16, 32, 64):
+        n, kc = 600, 300
+        far = np.where(np.arange(n) % 2, 150.0, 0.0)
+        mean = np.stack([g.uniform(-far, 2 * bs + far), g.uniform(-far, 2 * bs + far)], -1)
+        s1, s2, th = g.uniform(0.3, 12, n), g.uniform(0.3, 12, n), g.uniform(0, 3.2, n)
+        c, s = np.cos(th), np.sin(th)
+        conic = np.stack([c * c / s1 ** 2 + s * s / s2 ** 2, c * s * (1 / s1 ** 2 - 1 / s2 ** 2),
+                          s * s / s1 ** 2 + c * c / s2 ** 2], -1)
+        idx = np.stack([g.permutation(n)[:kc] for _ in range(4)])
+        idx[0], idx[1, 37:] = -1, -1
+        cases[f"near and far, bs={bs}"] = (
+            pack(mean, conic, np.exp(g.uniform(math.log(0.003), 0, n)), idx, 2, bs, g), bs)
+    odd = np.zeros((1, 12, 8), np.float32)
+    odd[0, :, 0], odd[0, :, 3:5], odd[0, :, 6] = -500.0, -0.1, 0.5
+    odd[0, 0, 3], odd[0, 1, 4], odd[0, 2, 5], odd[0, 3, 5] = 0.0, 0.2, 0.2, 0.3
+    odd[0, 4, 0], odd[0, 5, 1], odd[0, 6, 6], odd[0, 7, 6] = np.nan, np.inf, np.nan, np.inf
+    odd[0, 8, 6], odd[0, 9, 6] = 0.0, -0.5
+    cases["not finite or not concave"] = (
+        (torch.from_numpy(odd).to(cuda), torch.ones(1, 12, 4, device=cuda),
+         torch.tensor([12], dtype=torch.int32, device=cuda)), 32)
+    return cases
+
+
+@pytest.mark.cuda
+def test_composite_macro_blocks_kernel_equals_its_dense_twin(cuda):
+    """The culled coefficient walk against its twin with the cull off, bit
+    for bit (NaN for NaN), on the contour sweep, lists of near and far
+    splats and rows that are not finite or not concave; and against the
+    plain version, max abs 0, where every row is finite (for a NaN power
+    the kernel's fminf gives 0.99 where torch.clamp gives NaN)."""
+    from aip_tpu_torch.kernels import composite as C
+
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    for case, (args, bs) in _blocks_cases(cuda).items():
+        out = C.composite_macro_blocks(*args, bg, bs=bs)
+        dense = C.composite_macro_blocks(*args, bg, bs=bs, _dense=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, dense, rtol=0, atol=0, equal_nan=True, msg=case)
+        if case.startswith("not"):
+            continue
+        ref = C.composite_macro_blocks_reference(*args, bg, bs=bs)
+        assert float((out - ref).abs().max()) == 0.0, case
+        keep = C.blocks_sub_tile_live(*args[::2], bs)
+        assert 0 < int(keep.sum()) < keep.numel(), case
+
+
+def _tiles_contour(cuda):
+    """16 tiles of a 4-tile row, each listing the 1/255 contour sweep at
+    pixel (48, 48), the corner of tile (3, 3)."""
+    mean, conic, op = _contour_splats(48.0)
+    k = len(op)
+    rep = lambda a: np.broadcast_to(a[None], (16,) + a.shape).astype(np.float32)  # noqa: E731
+    arrays = [rep(mean), rep(conic), rep(np.random.default_rng(5).random((k, 3))), rep(op),
+              np.ones((16, k), np.float32)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K=1", "K=40", "K=300", "contour sweep"])
+def test_composite_tiles_kernel_equals_its_dense_twin(cuda, case):
+    """The culled per-tile walk against its twin with the cull off and the
+    plain version, max abs 0, on test_composite_tiles_kernel_matches_plain's
+    edge tiles (K = 300 spans two staged chunks) and on the contour
+    sweep."""
+    from aip_tpu_torch.kernels import composite as C
+
+    if case == "contour sweep":
+        arrays = _tiles_contour(cuda)
+    else:
+        k = int(case[2:])
+        g = np.random.default_rng(20 + k)
+        arrays = [torch.from_numpy(a).to(cuda) for a in _walk_edge_tiles(g, k)] if k > 1 else \
+            [torch.from_numpy(a).to(cuda) for a in _walk_slots(g, 8, 1, np.zeros(8), np.zeros(8))]
+    bg = torch.tensor([0.2, 0.5, 0.1], device=cuda)
+    out = C.composite_tiles(*arrays, bg, 4)
+    dense = C.composite_tiles(*arrays, bg, 4, _dense=True)
+    torch.cuda.synchronize()
+    ref = C.composite_tiles_reference(*arrays, bg, 4)
+    assert float((out - dense).abs().max()) == 0.0
+    assert float((out - ref).abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 def test_walk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from aip_tpu_torch.kernels import composite as C
