@@ -6,6 +6,11 @@ numpy arrays ("HWIO params"): that is the npz cache format, and the cache
 (``$AIP_TPU_WEIGHTS`` or ``~/.cache/aip_tpu``, files ``vgg_normalised.npz``
 and ``adain_decoder.npz``) is shared with ``aip_tpu``. ``from_jax_params``
 turns HWIO params, numpy or ``aip_tpu``'s own, into the port's modules.
+
+The models whose parameters the JAX package keeps as nested trees (ResNet,
+DeepLab, the LPIPS backbones, the ImageNet VGG-19) hold them as a
+``ParamTree``: the same keys and nesting, conv weights OIHW, every leaf a
+frozen ``nn.Parameter``; ``tree_from_jax`` builds one from the JAX tree.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from aip_tpu_torch.device import resolve_device
 from aip_tpu_torch.models import decoder as dec_mod
@@ -86,16 +92,77 @@ def from_jax_params(params, device=None):
     return module
 
 
-def _get_params(name: str, torch_path, torch_indices, init_fn, device):
+class ParamTree(nn.Module):
+    """A nested dict of tensors (lists allowed) as one module, read as the
+    JAX package reads its parameter trees: ``p["stages"][2][0]["conv1_w"]``.
+    Dicts become ``ParamTree``s, lists of trees ``nn.ModuleList``s, lists of
+    tensors ``nn.ParameterList``s, tensors frozen float32 parameters (the
+    models are inference networks; gradients still flow to the inputs)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            node = tree_module(value)
+            if isinstance(node, nn.Parameter):
+                self.register_parameter(key, node)
+            else:
+                self.add_module(key, node)
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def tree_module(value):
+    """A dict, list or tensor of a parameter tree as ``ParamTree``'s node."""
+    if isinstance(value, dict):
+        return ParamTree(value)
+    if isinstance(value, (list, tuple)):
+        if all(isinstance(v, (dict, list, tuple)) for v in value):
+            return nn.ModuleList(tree_module(v) for v in value)
+        return nn.ParameterList(tree_module(v) for v in value)
+    return nn.Parameter(torch.from_numpy(np.array(value, np.float32)), requires_grad=False)
+
+
+def _oihw_leaves(tree):
+    """The JAX tree with every 4-D (HWIO conv) leaf transposed to OIHW and
+    every leaf a float32 numpy array."""
+    if isinstance(tree, dict):
+        return {k: _oihw_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_oihw_leaves(v) for v in tree]
+    a = np.asarray(tree, np.float32)
+    return np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1))) if a.ndim == 4 else a
+
+
+def tree_from_jax(tree, device=None):
+    """A JAX parameter tree (dict or list of dicts; HWIO convs, numpy or JAX
+    arrays) -> a ``ParamTree`` (or ``nn.ModuleList`` of them) on ``device``."""
+    dev = resolve_device(device)
+    return tree_module(_oihw_leaves(tree)).to(dev)
+
+
+def he_normal(generator: torch.Generator, shape) -> torch.Tensor:
+    """He-normal OIHW conv weight ``shape`` drawn on the CPU from ``generator``."""
+    fan_in = int(np.prod(shape[1:]))
+    return torch.randn(shape, generator=generator) * (2.0 / fan_in) ** 0.5
+
+
+def _get_params(name: str, torch_path, torch_indices, init_fn, device,
+                build=from_jax_params):
+    """Cache, then checkpoint, then ``init_fn(device=...)``; ``build`` turns
+    HWIO params into the module (the AdaIN networks by default)."""
     device = resolve_device(device)
     cache = DEFAULT_WEIGHTS_DIR / f"{name}.npz"
     if cache.is_file():
-        return from_jax_params(load_params_npz(cache), device)
+        return build(load_params_npz(cache), device)
     if torch_path is not None and _is_real_checkpoint(Path(torch_path)):
         params = convert_torch_sequential(_load_torch_state_dict(Path(torch_path)),
                                           torch_indices)
         save_params_npz(params, cache)
-        return from_jax_params(params, device)
+        return build(params, device)
     # Deterministic fallback so every pipeline still runs without the
     # pretrained checkpoint. The seed gives other weights than aip_tpu's
     # PRNGKey fallback; point both packages at one cache to share weights.

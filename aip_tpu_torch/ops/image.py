@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aip_tpu_torch.device import fp32_convs
+
 
 # ---------------------------------------------------------------------------
 # Resize weight matrices (host-side numpy, cached per shape)
@@ -183,6 +185,45 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 def reflection_pad_2d(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     """``ReflectionPad2d`` on NHWC (reflect without repeating the edge)."""
     y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    return y.permute(0, 2, 3, 1)
+
+
+def reflect_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """3x3 stride-1 conv over a reflection-padded NHWC input without making
+    the padded copy. ``w`` is OIHW ``[Cout, Cin, 3, 3]`` (``nn.Conv2d``).
+
+    The JAX package's form (``aip_tpu/ops/image.py:218-283``): a zero-padded
+    SAME conv is exact in the interior, and the taps the zero pad dropped on
+    the 1-px border are added back as four strip convolutions. With
+    reflection x[-1] == x[1] and x[h] == x[h-2]:
+
+    * output row 0 misses the kernel-row-0 taps, which read input row 1
+      (reflected along the width at the corners): a width-wise 3-tap conv of
+      row 1 against ``w[..., 0, :]``; row h-1 likewise reads row h-2
+      against ``w[..., 2, :]``;
+    * output column 0 misses the kernel-column-0 taps of the rows inside
+      the image (the corners are in the row strips): a height-wise 3-tap conv
+      of column 1 with zero row padding; column wd-1 likewise.
+
+    The strips are added into the output's border rows and columns in place
+    (eager PyTorch has no fusion to make full-size padded strips free). The
+    convs run under ``fp32_convs``."""
+    n, h, wd, c = x.shape
+    t = x.permute(0, 3, 1, 2)
+    with fp32_convs():
+        y = F.conv2d(t, w, padding=1)
+        top = F.conv2d(F.pad(t[:, :, 1:2], (1, 1, 0, 0), mode="reflect"), w[:, :, 0:1])
+        bot = F.conv2d(F.pad(t[:, :, h - 2:h - 1], (1, 1, 0, 0), mode="reflect"),
+                       w[:, :, 2:3])
+        lef = F.conv2d(t[:, :, :, 1:2], w[:, :, :, 0:1], padding=(1, 0))
+        rig = F.conv2d(t[:, :, :, wd - 2:wd - 1], w[:, :, :, 2:3], padding=(1, 0))
+    y[:, :, 0:1] += top
+    y[:, :, h - 1:h] += bot
+    y[:, :, :, 0:1] += lef
+    y[:, :, :, wd - 1:wd] += rig
+    if b is not None:
+        y = y + b[:, None, None]
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,8 +1,9 @@
 """Quaternion utilities for Gaussian splatting.
 
 Port of ``aip_tpu/ops/quaternion.py`` (reference
-``Style_3DGS/utils/general_utils.py``): the inference part, the rotation
-matrix of a normalised quaternion and the inverse sigmoid.
+``Style_3DGS/utils/general_utils.py``): the rotation matrix of a
+normalised quaternion, the scale-rotation factor L = R diag(s), the 3D
+covariance L L^T, its upper-triangle packing and the inverse sigmoid.
 """
 
 from __future__ import annotations
@@ -26,6 +27,25 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return R.reshape(-1, 3, 3)
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """[N, 3] scales + [N, 4] quats -> L = R @ diag(s), [N, 3, 3]."""
+    return build_rotation(q) * s[:, None, :]
+
+
+def covariance_from_scaling_rotation(s: torch.Tensor, q: torch.Tensor,
+                                     scaling_modifier: float = 1.0) -> torch.Tensor:
+    """Per-Gaussian 3D covariance Sigma = L L^T, L = R diag(s·mod). [N, 3, 3]."""
+    L = build_scaling_rotation(s * scaling_modifier, q)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(sym: torch.Tensor) -> torch.Tensor:
+    """[N, 3, 3] symmetric -> [N, 6] upper-triangular packing
+    (general_utils.py:64-77 ordering: 00, 01, 02, 11, 12, 22)."""
+    return torch.stack([sym[:, 0, 0], sym[:, 0, 1], sym[:, 0, 2], sym[:, 1, 1], sym[:, 1, 2],
+                        sym[:, 2, 2]], dim=-1)
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:

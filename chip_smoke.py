@@ -235,6 +235,41 @@ model of phase 9 (kernels 5-7 of ``csrc/composite_walk.cu``):
     sweep (P = 2, 4, 8, each equal to the default bit for bit), every
     view's window and the 1088x1920 lists of rasterize_fast.
 
+Localized style transfer, DeepLabV3-ResNet101 and the 3DGS evaluation tools
+(no new kernel; these paths run the fp32 AdaIN kernels and A, B, C and a
+render compositor), on a 1024x768 content image from numpy seed 0 (a plain
+border colour, a shaded object, noise) and a 512^2 style image:
+
+31. main path, localized: ``run_localized_style_transfer`` on the card with
+    the classical segmenter, under PyTorch's default TF32 flags, with the
+    launch counts set to 0 just before and read just after (the fp32
+    ``encode_head`` and ``decode_tail`` each launched); the mask keeps 20-80
+    % background; the card's mask equals the CPU's except where the
+    background probability lies within 1e-4 of 0.5 (counts printed); the
+    combined array before the JPEG (the card's mask handed to the CPU run)
+    within 1e-3 mean abs of the CPU's; the fp32 kernels held against their
+    plain versions on the arguments the call gave them (phase 3's rule);
+    the call's wall ms (median of 3) and a profile; then
+    ``cli.run_semantic_segm.main``.
+32. DeepLabV3-ResNet101 at full depth (101 layers, output stride 8, the
+    port's deterministic init) on the same image in fp32: the card's logits
+    against the port on the CPU, max abs over max |logit| <= DEEPLAB_TOL,
+    with TF32 off and with PyTorch's default flags; a control with the
+    defaults and ``fp32_convs`` undone in the DeepLab and ResNet modules,
+    which must miss that limit; the segmenter registered with
+    ``register_segmenter`` for one localized call on the card; the
+    forward's ms (CUDA events, median of 10), FLOPs and a profile by op
+    group with the busy share.
+33. ``gs.full_eval.run_full_eval`` with both Deep Blending scene names on
+    phase 18's training scene, 60 iterations (freeze 40) at full width: A,
+    B, C and a render compositor launched; ``{model: {}}`` for both scenes,
+    as the JAX package returns (the render step writes ``<model>/renders``,
+    the metrics step reads ``<model>/test``); then
+    ``<model>/test/ours_60/{renders,gt}`` from the 800^2 renders and the
+    scene's images, ``gs.metrics_cli.evaluate`` with LPIPS (uniform lin
+    weights, recorded); one 800^2 LPIPS VGG16 pair card against CPU under
+    PyTorch's default flags, relative error <= 1e-5, and its ms.
+
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
@@ -546,6 +581,9 @@ def main():
     torch.cuda.empty_cache()
     # 26-30. the other 3DGS render paths and the novel-view video -----------------
     lines += _walk_phases(torch, dev, bed)
+    torch.cuda.empty_cache()
+    # 31-33. localized style transfer, DeepLab, 3DGS evaluation -------------------
+    _slice5_phases(torch, dev, default_tf32)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2348,14 +2386,18 @@ MAGENTA_FP32_TOL = 1e-6
 
 
 class _without_fp32_convs:
-    """Within the block, ``fp32_convs`` of FP32_CONV_MODULES does nothing:
-    cuDNN's TF32 flag alone decides how their fp32 convs run."""
+    """Within the block, ``fp32_convs`` of ``modules`` (FP32_CONV_MODULES by
+    default) does nothing: cuDNN's TF32 flag alone decides how their fp32
+    convs run."""
+
+    def __init__(self, modules=FP32_CONV_MODULES):
+        self.names = modules
 
     def __enter__(self):
         import contextlib
         import importlib
 
-        self.mods = [importlib.import_module(m) for m in FP32_CONV_MODULES]
+        self.mods = [importlib.import_module(m) for m in self.names]
         self.orig = [m.fp32_convs for m in self.mods]
         for m in self.mods:
             m.fp32_convs = contextlib.nullcontext
@@ -3134,6 +3176,405 @@ def _render_video_phase(torch, KC, RV, cli_render_video, model_dir, style_png, n
          jittered_pngs=jittered, wall_s=time.perf_counter() - t0)
     if not (circular == 4 and jittered == 10 * n_views):
         raise AssertionError("the render_video CLI did not write its frames")
+
+
+
+# ---------------------------------------------------------------------------
+# Localized style transfer, DeepLabV3-ResNet101 and 3DGS evaluation (31-33)
+# ---------------------------------------------------------------------------
+
+SLICE5_WORK = WORK / "slice5"
+CONTENT_HW = (768, 1024)   # the localized content image, H x W (non-square)
+MASK_BAND = 1e-4           # masks may differ where background_probability is this near 0.5
+LOCALIZED_TOL = 1e-3       # the combined array, card against CPU, mean abs (BASELINE.md)
+# DeepLab logits, card against the port on the CPU: max abs over max |logit|.
+# On an H100 at 1x768x1024 fp32 convs read 6.4e-6 (TF32 off and under
+# PyTorch's defaults alike), the same convs in TF32 1.8e-3: the limit lies
+# an order of magnitude from each.
+DEEPLAB_TOL = 1e-4
+LPIPS_TOL = 1e-5           # one 800^2 LPIPS VGG16 pair, card against CPU, relative
+EVAL_ITERS, EVAL_FREEZE = 60, 40
+# Phase 32's device time by op group: the top-level aten op a kernel was
+# launched under.
+DEEPLAB_GROUPS = {"aten::conv2d": "convolutions", "aten::einsum": "bilinear resize",
+                  "aten::max_pool2d": "stem max pool", "aten::mean": "ASPP image pooling",
+                  "aten::cat": "ASPP concat", "aten::sub": "BN and ReLU",
+                  "aten::mul": "BN and ReLU", "aten::add": "BN, ReLU and residual",
+                  "aten::rsqrt": "BN and ReLU", "aten::relu": "BN and ReLU",
+                  "aten::softmax": "softmax and threshold", "aten::gt": "softmax and threshold"}
+# The modules whose fp32 convs phase 32's control runs without fp32_convs.
+DEEPLAB_CONV_MODULES = ("aip_tpu_torch.models.deeplab", "aip_tpu_torch.models.resnet")
+
+
+def _object_content(np, h, w, seed=0):
+    """A content image whose classical mask is meaningful: a plain border
+    colour, a shaded elliptical object of another colour covering about a
+    third of the frame, and noise (numpy ``seed``)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    img[:] = (0.35, 0.55, 0.75)
+    r2 = ((yy - 0.55 * h) / (0.34 * h)) ** 2 + ((xx - 0.45 * w) / (0.3 * w)) ** 2
+    shade = 0.75 + 0.25 * np.cos(xx / w * 9.0) * np.sin(yy / h * 7.0)
+    obj = r2 < 1
+    img[obj] = np.stack([0.85 * shade, 0.3 * shade, 0.2 + 0.1 * shade], -1)[obj]
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip(img, 0, 1)
+
+
+def _deeplab_group(name):
+    return DEEPLAB_GROUPS.get(name)
+
+
+def _slice5_phases(torch, dev, default_tf32):
+    """Phases 31-33 (localized style transfer with the classical and the
+    DeepLab segmenter, DeepLabV3-ResNet101 at full depth, the 3DGS
+    evaluation tools). No kernel is new: the localized path runs the fp32
+    AdaIN kernels, the evaluation's training and render runs A, B, C and a
+    render compositor."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.cli import run_semantic_segm
+    from aip_tpu_torch.kernels import adain_head as KA
+    from aip_tpu_torch.models import decoder as DEC
+    from aip_tpu_torch.models import deeplab as DL
+    from aip_tpu_torch.models import segmenter as SEG
+    from aip_tpu_torch.models import vgg as VGG
+    from aip_tpu_torch.models.vgg19_std import normalize_imagenet
+    from aip_tpu_torch.pipelines import localized as LOC
+    from aip_tpu_torch.pipelines.adain_infer import _to_array
+
+    shutil.rmtree(SLICE5_WORK, ignore_errors=True)
+    SLICE5_WORK.mkdir(parents=True)
+    h, w = CONTENT_HW
+    content_png, style_png = SLICE5_WORK / "content.png", SLICE5_WORK / "style.png"
+    Image.fromarray((_object_content(np, h, w) * 255).astype(np.uint8)).save(content_png)
+    g = np.random.default_rng(1)
+    Image.fromarray((g.random((512, 512, 3)) * 255).astype(np.uint8)).save(style_png)
+    content = _to_array(content_png)
+
+    # 31. localized, full width, the classical segmenter ----------------------------
+    _set_tf32(torch, default_tf32)
+    try:
+        prob_card = SEG.background_probability(torch.from_numpy(content).to(dev)).cpu()
+        mask_card = SEG.extract_background_mask(content, device=dev).cpu().numpy()
+        served = {}
+
+        def by_shape(name):
+            return lambda a: (name, tuple(a[0].shape), a[0].dtype)
+
+        KA.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _capture(VGG, "encode_head", served, key=by_shape("encode_head")), \
+                _capture(DEC, "decode_tail", served, key=by_shape("decode_tail")):
+            result = LOC.run_localized_style_transfer(
+                str(content_png), str(style_png), output_path=str(SLICE5_WORK / "card"),
+                device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        fp32_launches = KA.route_launch_counts()["fp32"]
+        combined_card = LOC.composite_localized(
+            content, _to_array(SLICE5_WORK / "card" / "test.jpg"), mask_card, device=dev)
+    finally:
+        _set_tf32(torch, (False, False))
+    prob_cpu = SEG.background_probability(torch.from_numpy(content))
+    mask_cpu = SEG.extract_background_mask(content, device="cpu").numpy()
+    differ = mask_card != mask_cpu
+    in_band = (prob_cpu - 0.5).abs().numpy() <= MASK_BAND
+    LOC.run_localized_style_transfer(str(content_png), str(style_png),
+                                     output_path=str(SLICE5_WORK / "cpu"),
+                                     segment_fn=lambda _img: mask_card, device="cpu")
+    combined_cpu = LOC.composite_localized(
+        content, _to_array(SLICE5_WORK / "cpu" / "test.jpg"), mask_card, device="cpu")
+    err = np.abs(combined_card - combined_cpu)
+    bg_share = float(mask_card.mean())
+    emit("localized_main", entry="aip_tpu_torch.pipelines.localized.run_localized_style_transfer",
+         segmenter="classical (border colour)", content_hw=[h, w], style_hw=[512, 512],
+         flags="pytorch_defaults", tf32_conv=default_tf32[0], tf32_matmul=default_tf32[1],
+         result=str(Path(result).relative_to(ROOT)), result_size=Image.open(result).size,
+         background_share=bg_share, fp32_launches=fp32_launches, wall_s_first_call=first_s,
+         masks_differ_px=int(differ.sum()), masks_differ_outside_band_px=int(
+             (differ & ~in_band).sum()), pixels_in_band=int(in_band.sum()), band=MASK_BAND,
+         combined_mean_abs=float(err.mean()), combined_max_abs=float(err.max()),
+         tol_combined_mean_abs=LOCALIZED_TOL, card_max_abs_prob_diff=float(
+             (prob_card - prob_cpu).abs().max()))
+    if not (Path(result).is_file() and Image.open(result).size == (w, h)):
+        raise AssertionError("the localized call wrote no result of the content's size")
+    if not 0.2 <= bg_share <= 0.8:
+        raise AssertionError(f"the classical mask keeps {bg_share} background, not 20-80 %")
+    if min(fp32_launches.values()) <= 0:
+        raise AssertionError(f"an fp32 AdaIN kernel was not launched: {fp32_launches}")
+    if (differ & ~in_band).any():
+        raise AssertionError("card and CPU masks differ outside the threshold band")
+    if not err.mean() <= LOCALIZED_TOL:
+        raise AssertionError(f"the combined arrays differ by {err.mean()} mean abs")
+    for (name, _, _), (a, _) in served.items():
+        _adain_check(torch, KA, name, a[0], a[1:], "localized served")
+    del served
+
+    _set_tf32(torch, default_tf32)
+    try:
+        wall_ms = [1e3 * _wall_s(torch, lambda: LOC.run_localized_style_transfer(
+            str(content_png), str(style_png), output_path=str(SLICE5_WORK / "card"),
+            device=dev)) for _ in range(3)]
+        _profile(torch, lambda: LOC.run_localized_style_transfer(
+            str(content_png), str(style_png), output_path=str(SLICE5_WORK / "card"), device=dev),
+            calls=1, label="localized_profile",
+            call="run_localized_style_transfer, 1024x768 content, 512^2 style, fp32")
+        _conv_profile(torch, lambda: LOC.run_localized_style_transfer(
+            str(content_png), str(style_png), output_path=str(SLICE5_WORK / "card"), device=dev),
+            "localized_conv_profile")
+        KA.reset_launch_counts()
+        cli_out = run_semantic_segm.main(["--content", str(content_png), "--style",
+                                          str(style_png), "--output", str(SLICE5_WORK / "cli")])
+        torch.cuda.synchronize()
+    finally:
+        _set_tf32(torch, (False, False))
+    cli_launches = KA.route_launch_counts()["fp32"]
+    emit("localized_time", wall_ms=statistics.median(wall_ms), wall_ms_runs=wall_ms,
+         timing="host clock, median of 3, JPEG IO included")
+    emit("localized_cli", entry="aip_tpu_torch.cli.run_semantic_segm.main",
+         output=str(Path(cli_out).relative_to(ROOT)), fp32_launches=cli_launches)
+    if not (Path(cli_out).is_file() and min(cli_launches.values()) > 0):
+        raise AssertionError("the run_semantic_segm CLI wrote nothing or launched no kernel")
+
+    # 32. DeepLabV3-ResNet101 at full depth, fp32 ------------------------------------
+    t0 = time.perf_counter()
+    params_cpu = DL.get_deeplab_params(device="cpu")
+    params = copy.deepcopy(params_cpu).to(dev)
+    x_cpu = normalize_imagenet(torch.from_numpy(content))[None]
+    x = x_cpu.to(dev)
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        ref = DL.deeplab_logits(params_cpu, x_cpu)
+        cpu_s = time.perf_counter() - t1
+    scale = ref.abs().max().item()
+    depth = [len(s) for s in params["stages"]]
+    errs = {}
+    for flags, tf32, held in (("tf32_off", (False, False), True),
+                              ("pytorch_defaults", default_tf32, True),
+                              ("pytorch_defaults_without_fp32_convs", default_tf32, False)):
+        _set_tf32(torch, tf32)
+        try:
+            with torch.no_grad():
+                if held:
+                    out = DL.deeplab_logits(params, x).cpu()
+                else:
+                    with _without_fp32_convs(DEEPLAB_CONV_MODULES):
+                        out = DL.deeplab_logits(params, x).cpu()
+        finally:
+            _set_tf32(torch, (False, False))
+        errs[flags] = (out - ref).abs().max().item() / scale
+        emit("deeplab_card_vs_cpu", flags=flags, tf32_conv=tf32[0], tf32_matmul=tf32[1],
+             fp32_convs=held, control_must_miss=not held, blocks_per_stage=depth,
+             input_hw=[h, w], out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()),
+             max_abs_logit=scale, rel_max_abs_err=errs[flags], tol=DEEPLAB_TOL,
+             cpu_forward_s=cpu_s)
+        if held and not (out.shape == (1, h, w, DL.NUM_CLASSES) and torch.isfinite(out).all()
+                         and errs[flags] <= DEEPLAB_TOL):
+            raise AssertionError(f"DeepLab logits on the card disagree with the CPU ({flags})")
+        if not held and not errs[flags] > DEEPLAB_TOL:
+            raise AssertionError("with fp32_convs undone under TF32 the DeepLab logits still "
+                                 "meet their gate: the gate cannot tell fp32 from TF32")
+    del out, ref, params_cpu
+    SEG.register_segmenter(DL.make_background_segmenter(params))
+    try:
+        KA.reset_launch_counts()
+        deeplab_result = LOC.run_localized_style_transfer(
+            str(content_png), str(style_png), output_path=str(SLICE5_WORK / "deeplab"),
+            device=dev)
+        torch.cuda.synchronize()
+        dl_mask = SEG.extract_background_mask(content, device=dev)
+    finally:
+        SEG.register_segmenter(None)
+    dl_launches = KA.route_launch_counts()["fp32"]
+    emit("localized_deeplab", segmenter="deeplab.make_background_segmenter (registered)",
+         result=str(Path(deeplab_result).relative_to(ROOT)), fp32_launches=dl_launches,
+         background_share=float(dl_mask.float().mean()))
+    if not (Path(deeplab_result).is_file() and min(dl_launches.values()) > 0):
+        raise AssertionError("the registered DeepLab segmenter's localized run failed")
+
+    def forward():
+        with torch.no_grad():
+            return DL.deeplab_logits(params, x)
+
+    fwd_ms = _time_ms(torch, forward)
+    flops = _deeplab_flops(params, h, w)
+    dev_ms, groups = _stage_profile(torch, "deeplab_profile", forward,
+                                    tuple(dict.fromkeys(DEEPLAB_GROUPS.values())),
+                                    stage_of=_deeplab_group,
+                                    call="deeplab_logits, 1x768x1024, fp32, TF32 off")
+    emit("deeplab_time", ms=fwd_ms, timing="CUDA events, median of 10", input_hw=[h, w],
+         flops=flops, achieved_tflops=flops / fwd_ms / 1e9,
+         fp32_cuda_core_bound_ms=flops / PEAK_FLOPS_F32 * 1e3, device_ms=dev_ms,
+         group_device_ms=groups)
+    del params, x
+    torch.cuda.empty_cache()
+
+    # 33. 3DGS evaluation ------------------------------------------------------------
+    _eval_phase(torch, np, Image, dev, default_tf32)
+
+
+def _conv_profile(torch, fn, label):
+    """torch.profiler over one call of ``fn`` after a warm-up: the device
+    time and launches of each ``aten::conv2d`` by its input and weight
+    shapes, heaviest first (cuDNN picks an algorithm per shape). Each CPU
+    event's kernels are credited once, as in ``_stage_profile``: kineto
+    links a blocked launch's kernels to a second event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    credited, rows = set(), {}
+
+    def kernels(e):
+        us, n = 0.0, 0
+        if e.kernels and e.id not in credited:
+            credited.add(e.id)
+            us, n = sum(k.duration for k in e.kernels), len(e.kernels)
+        for c in e.cpu_children:
+            cu, cn = kernels(c)
+            us, n = us + cu, n + cn
+        return us, n
+
+    for e in prof.events():
+        if e.name == "aten::conv2d":
+            key = json.dumps(e.input_shapes[:2])
+            us, n = kernels(e)
+            calls, total_us, launches = rows.get(key, (0, 0.0, 0))
+            rows[key] = (calls + 1, total_us + us, launches + n)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])
+    emit(label, convs=[{"input_weight_shapes": json.loads(k), "calls": c, "device_ms": us / 1e3,
+                        "launches": n} for k, (c, us, n) in top[:8]],
+         conv_device_ms=sum(us for _, us, _ in rows.values()) / 1e3)
+
+
+def _set_tf32(torch, flags):
+    """Set cuDNN's and the matmuls' TF32 flags to ``flags``."""
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _wall_s(torch, fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _deeplab_flops(params, h, w):
+    """2 x the multiply-adds of the convs of ``deeplab_logits`` at h x w."""
+    def out(n, stride):
+        return (n - 1) // stride + 1
+
+    total = 0
+    hh, ww = out(h, 2), out(w, 2)
+    total += hh * ww * params["stem_w"].numel()
+    hh, ww = out(hh, 2), out(ww, 2)
+    for si, stage in enumerate(params["stages"]):
+        for bi, block in enumerate(stage):
+            s = 2 if si == 1 and bi == 0 else 1
+            total += hh * ww * block["conv1_w"].numel()
+            if "down_w" in block:
+                total += out(hh, s) * out(ww, s) * block["down_w"].numel()
+            hh, ww = out(hh, s), out(ww, s)
+            total += hh * ww * (block["conv2_w"].numel() + block["conv3_w"].numel())
+    a = params["aspp"]
+    total += hh * ww * (sum(c.numel() for c in a["convs"]) + a["project_w"].numel()
+                        + params["head_w"].numel() + params["cls_w"].numel())
+    total += a["pool_w"].numel()
+    return 2 * total
+
+
+def _eval_phase(torch, np, Image, dev, default_tf32):
+    """Phase 33: ``run_full_eval`` over phase 18's training scene as both
+    Deep Blending scenes, 60 iterations at full width, then the evaluation
+    of the 800^2 renders against the scene's images, and LPIPS card vs CPU."""
+    import copy
+
+    from aip_tpu_torch.gs import full_eval as FE
+    from aip_tpu_torch.gs import metrics_cli as MC
+    from aip_tpu_torch.gs.dataset import Scene
+    from aip_tpu_torch.kernels import composite as KC
+    from aip_tpu_torch.kernels import composite_ad as KAD
+    from aip_tpu_torch.kernels import hashgrad as KH
+    from aip_tpu_torch.models import lpips as LP
+
+    scene_dir = TRAIN_WORK / "scene"
+    style_png = GS_WORK / "style.png"
+    db = SLICE5_WORK / "deepblending"
+    db.mkdir(parents=True)
+    for name in FE.DEEP_BLENDING:
+        (db / name).symlink_to(scene_dir, target_is_directory=True)
+    out_root = SLICE5_WORK / "eval"
+    for mod in (KAD, KH, KC):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = FE.run_full_eval(str(style_png), str(out_root), deepblending=str(db),
+                           iterations=EVAL_ITERS, freeze_iters=EVAL_FREEZE, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**KAD.launch_counts(), **KH.launch_counts()}
+    render = KC.launch_counts()
+    models = [str(out_root / n) for n in FE.DEEP_BLENDING]
+    emit("full_eval", entry="aip_tpu_torch.gs.full_eval.run_full_eval", scenes=FE.DEEP_BLENDING,
+         iterations=EVAL_ITERS, freeze_iters=EVAL_FREEZE, result=res, wall_s=wall_s,
+         launches=launches, render_launches=render)
+    if res != {m: {} for m in models}:
+        raise AssertionError(f"run_full_eval returned {res}, not {{model: {{}}}} for each scene")
+    if min(launches.values()) <= 0 or sum(render.values()) <= 0:
+        raise AssertionError(f"a kernel of the evaluation path was not launched: {launches}, "
+                             f"{render}")
+
+    cams = Scene(str(scene_dir), shuffle=False).getTrainCameras()
+    for m in models:
+        method = Path(m) / "test" / f"ours_{EVAL_ITERS}"
+        (method / "renders").mkdir(parents=True)
+        (method / "gt").mkdir()
+        for i, cam in enumerate(cams):
+            shutil.copy(Path(m) / "renders" / f"{i:05d}.png", method / "renders" / f"{i:05d}.png")
+            shutil.copy(scene_dir / "images" / f"{cam.image_name}.png",
+                        method / "gt" / f"{i:05d}.png")
+    _set_tf32(torch, default_tf32)
+    try:
+        t0 = time.perf_counter()
+        metrics = MC.evaluate(models, use_lpips=True, device=dev)
+        eval_s = time.perf_counter() - t0
+    finally:
+        _set_tf32(torch, (False, False))
+    emit("evaluate", entry="aip_tpu_torch.gs.metrics_cli.evaluate", views=len(cams),
+         size=[cams[0].image_height, cams[0].image_width], results=metrics, wall_s=eval_s)
+    for m in models:
+        r = metrics[m][f"ours_{EVAL_ITERS}"]
+        if not (r["lpips_weights"] == "uniform-fallback"
+                and all(np.isfinite(r[k]) for k in ("PSNR", "SSIM", "LPIPS"))):
+            raise AssertionError(f"evaluate gave {r}")
+
+    vgg = LP.get_vgg16_params(device=dev)
+    vgg_cpu = copy.deepcopy(vgg).cpu()
+    method = Path(models[0]) / "test" / f"ours_{EVAL_ITERS}"
+    pair = [torch.from_numpy(np.asarray(Image.open(method / d / "00000.png").convert("RGB"),
+                                        np.float32) / 255.0)[None] for d in ("renders", "gt")]
+    with torch.no_grad():
+        ref = LP.lpips(*pair, vgg_cpu)
+        _set_tf32(torch, default_tf32)
+        try:
+            on_card = LP.lpips(*[p.to(dev) for p in pair], vgg).cpu()
+            lpips_ms = _time_ms(torch, lambda: LP.lpips(*[p.to(dev) for p in pair], vgg))
+        finally:
+            _set_tf32(torch, (False, False))
+    rel = ((on_card - ref).abs() / ref.abs()).max().item()
+    emit("lpips_card_vs_cpu", net="vgg", size=list(pair[0].shape[1:3]), flags="pytorch_defaults",
+         card=on_card.item(), cpu=ref.item(), rel_err=rel, tol=LPIPS_TOL, pair_ms=lpips_ms,
+         timing="CUDA events, median of 10, the pair's host-to-card copies included")
+    if not rel <= LPIPS_TOL:
+        raise AssertionError(f"LPIPS on the card is {rel} from the CPU")
 
 
 if __name__ == "__main__":

@@ -1311,3 +1311,99 @@ def test_tvl1_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     big, big_p = _tvl1_inputs(np.random.default_rng(12), 1, 80, 8, cuda)
     with pytest.raises(ValueError):   # more than FRAME_SIDE rows cannot run whole
         KT._launch(*big, big_p, *consts, k=0)
+
+
+# ---------------------------------------------------------------------------
+# Localized style transfer and 3DGS evaluation (DeepLab, LPIPS, the mask)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_deeplab_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch):
+    """DeepLabV3-ResNet101 at full depth (the port's deterministic init) on a
+    97x129 image: with cuDNN's TF32 on, as PyTorch starts, the card's logits
+    stay within 1e-4 of the largest |logit| of the CPU's (every conv runs
+    under ``fp32_convs``; chip_smoke phase 32's gate), and the process's
+    flag is as it was. The control: with ``fp32_convs`` undone in the
+    DeepLab and ResNet modules, TF32 moves the logits past that gate."""
+    import contextlib
+    import copy
+
+    from aip_tpu_torch.models import deeplab, resnet
+
+    params_cpu = deeplab.get_deeplab_params(device="cpu")
+    params = copy.deepcopy(params_cpu).to(cuda)
+    g = np.random.default_rng(32)
+    x = torch.from_numpy(g.standard_normal((1, 97, 129, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref = deeplab.deeplab_logits(params_cpu, x)
+
+        def on_card_with_tf32():
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                out = deeplab.deeplab_logits(params, x.to(cuda)).cpu()
+                assert torch.backends.cudnn.allow_tf32
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            return out
+
+        assert _max_rel_err(on_card_with_tf32(), ref) <= 1e-4
+        for mod in (deeplab, resnet):
+            monkeypatch.setattr(mod, "fp32_convs", contextlib.nullcontext)
+        assert _max_rel_err(on_card_with_tf32(), ref) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,hw", [("vgg", (160, 136)), ("alex", (129, 96)),
+                                    ("squeeze", (97, 130))])
+def test_lpips_card_matches_cpu_under_pytorchs_default_tf32_flags(cuda, net, hw):
+    """LPIPS of two image pairs, card against CPU within 1e-5 relative
+    (chip_smoke phase 33's gate), with cuDNN's TF32 on as PyTorch starts."""
+    import copy
+
+    from aip_tpu_torch.models import lpips
+
+    if net == "squeeze":
+        params_cpu = lpips.init_squeezenet_params(torch.Generator().manual_seed(0), "cpu")
+    else:
+        init = lpips.init_vgg16_params if net == "vgg" else lpips.init_alexnet_params
+        params_cpu = init(torch.Generator().manual_seed(0), "cpu")
+    params = copy.deepcopy(params_cpu).to(cuda)
+    g = np.random.default_rng(33)
+    a = torch.from_numpy(g.random((2, *hw, 3)).astype(np.float32))
+    b = torch.clamp(a + torch.from_numpy(g.normal(0, 0.1, a.shape).astype(np.float32)), 0, 1)
+    lins = [torch.rand(c, generator=torch.Generator().manual_seed(c))
+            for c in lpips.NET_CHANNELS[net]]
+    with torch.no_grad():
+        ref = lpips.lpips(a, b, params_cpu, lin_weights=lins, net=net)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = lpips.lpips(a.to(cuda), b.to(cuda), params, net=net,
+                              lin_weights=[w.to(cuda) for w in lins]).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_background_mask_and_harmonization_card_match_cpu(cuda):
+    """The classical mask on the card equals the CPU's wherever the
+    background probability lies more than 1e-4 from 0.5, and the localized
+    composite (harmonization included) on the card is within 1e-3 mean abs
+    of the CPU's on the same mask."""
+    from aip_tpu_torch.models import segmenter
+    from aip_tpu_torch.pipelines import localized
+
+    g = np.random.default_rng(31)
+    img = np.empty((90, 120, 3), np.float32)
+    img[:] = (0.3, 0.5, 0.7)
+    img[25:70, 30:90] = (0.8, 0.3, 0.2)
+    img = np.clip(img + g.normal(0, 0.03, img.shape), 0, 1).astype(np.float32)
+    prob = segmenter.background_probability(torch.from_numpy(img)).numpy()
+    mask = segmenter.extract_background_mask(img, device=cuda).cpu().numpy()
+    ref = segmenter.extract_background_mask(img, device="cpu").numpy()
+    far = np.abs(prob - 0.5) > 1e-4
+    assert np.array_equal(mask[far], ref[far])
+    stylized = g.random((72, 96, 3)).astype(np.float32)
+    out = localized.composite_localized(img, stylized, ref, device=cuda)
+    cpu = localized.composite_localized(img, stylized, ref, device="cpu")
+    assert np.abs(out - cpu).mean() <= 1e-3

@@ -61,7 +61,12 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.models.magenta", "aip_tpu_torch.models.mobilenet",
                  "aip_tpu_torch.cli.run_video", "aip_tpu_torch.cli.adain_video",
                  "aip_tpu_torch.gs.pose_paths", "aip_tpu_torch.gs.render_video",
-                 "aip_tpu_torch.cli.render_video"):
+                 "aip_tpu_torch.cli.render_video", "aip_tpu_torch.ops.color",
+                 "aip_tpu_torch.models.vgg19_std", "aip_tpu_torch.models.resnet",
+                 "aip_tpu_torch.models.deeplab", "aip_tpu_torch.models.segmenter",
+                 "aip_tpu_torch.models.lpips", "aip_tpu_torch.pipelines.localized",
+                 "aip_tpu_torch.cli.run_semantic_segm", "aip_tpu_torch.cli.sweep_depth",
+                 "aip_tpu_torch.gs.metrics_cli", "aip_tpu_torch.gs.full_eval"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
