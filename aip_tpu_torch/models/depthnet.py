@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aip_tpu_torch.device import fp32_convs, resolve_device
+from aip_tpu_torch.device import resolve_device
 
 _REGISTERED = None
 
@@ -23,15 +23,35 @@ def register_depth_model(fn) -> None:
     _REGISTERED = fn
 
 
+def _window_sum(p: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """out[j] = p[j] + ... + p[j + k - 1] along ``dim``, in a fixed order:
+    sums of 2^m neighbours by doubling, then the blocks of k's set bits from
+    the lowest. Plain adds of slices, so the card and the CPU round alike,
+    in about 2 log2(k) operations."""
+    n = p.shape[dim] - k + 1
+    acc, off, size, block = None, 0, 1, p
+    while k:
+        if k & 1:
+            part = block.narrow(dim, off, n)
+            acc = part if acc is None else acc + part
+            off += size
+        k >>= 1
+        if k:
+            m = block.shape[dim] - size
+            block = block.narrow(dim, 0, m) + block.narrow(dim, size, m)
+            size *= 2
+    return acc
+
+
 def _box_blur(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Separable k-tap box blur of [H, W] with edge padding."""
+    """Separable k-tap box blur of [H, W] with edge padding. No convolution:
+    cuDNN picks a conv's algorithm per call site and state, and the proxy
+    divides by the blur's range, which magnifies any difference in rounding
+    (a card test once read 2.24e-5 from the CPU against its 1e-5 gate)."""
     pad = k // 2
-    y = F.pad(x[None, None], (pad, pad, pad, pad), mode="replicate")
-    kernel = torch.full((1, 1, 1, k), 1.0 / k, dtype=torch.float32, device=x.device)
-    with fp32_convs():
-        y = F.conv2d(y, kernel)
-        y = F.conv2d(y, kernel.transpose(2, 3))
-    return y[0, 0]
+    y = F.pad(x[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    y = _window_sum(y * (1.0 / k), k, 1)
+    return _window_sum(y * (1.0 / k), k, 0)
 
 
 def _proximity_core(img: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,15 @@ def _gaussian_1d(window_size: int, sigma: float) -> np.ndarray:
     return g / g.sum()
 
 
+@functools.lru_cache(maxsize=8)
+def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
+    """The JAX package's 2D window: the float64 outer product of the 1D
+    Gaussian, renormalised and cast to float32 (NST's feathered masks)."""
+    g = _gaussian_1d(window_size, sigma)
+    w2d = np.outer(g, g)
+    return (w2d / w2d.sum()).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=16)
 def _band_matrix(n: int, window_size: int, sigma: float) -> np.ndarray:
     """[n, n] matrix M with (M @ v)[i] = sum_k g[k] v[i + k - r], zero

@@ -179,7 +179,8 @@ iterations), blend 0.7:
     PyTorch's default flags (cuDNN's fp32 convs in TF32 unless a call says
     otherwise); and, as a control that must fail the magenta gate, with
     the default flags and ``fp32_convs`` undone in the flow, Farneback,
-    depth, magenta and MobileNet modules (what TF32 does to those convs).
+    magenta and MobileNet modules (what TF32 does to those convs; the depth
+    proxy's blur has no conv).
 25. times: frames/s of the phase-22 call (host clock, median of 3) with its
     stages (CUDA events); per pyramid level the ``tvl1`` kernel's form
     (whole frame, or tile and k), ms per (level, warp) call, ms per
@@ -269,6 +270,54 @@ border colour, a shaded object, noise) and a 512^2 style image:
     scene's images, ``gs.metrics_cli.evaluate`` with LPIPS (uniform lin
     weights, recorded); one 800^2 LPIPS VGG16 pair card against CPU under
     PyTorch's default flags, relative error <= 1e-5, and its ms.
+
+The pixel-art page, optimisation NST and the style mixer (no new kernel; the
+pixel-art page's AdaIN branch runs the fp32 AdaIN kernels), on a 1024x768
+photograph-like image from numpy seed 0 (colour gradients, a shaded disc,
+noise) and a 48x64 sprite from seed 0 (flat colours, rectangles, diagonal
+lines, a 2x2 block whose diagonals cross, a one-pixel island). The checks of
+these four phases are all made; any that fails raises after phase 37:
+
+34. ``pipelines.pixel_art.pixelize`` at downsample 4 with brightness 0.05
+    and contrast 0.2, with ``pico-8`` and ``sweetie-16`` and each of RGB,
+    kd-tree, LAB and Floyd-Steinberg, and RGB and LAB at downsample 1: the
+    card against the port on the CPU, equal except LAB, whose differing
+    pixels must be near-ties (``_lab_picks``: the two picks' squared 8-bit
+    LAB distances no further apart than the two devices' LAB values and the
+    float32 distance's rounding can move them); each call's wall ms and the
+    palette op's device ms; the Floyd-Steinberg wavefront's step count.
+35. ``depixelize`` (host seconds; the same bytes in two calls and as the
+    JAX package's raster of this sprite, by its sha256),
+    ``depixelize_and_stylize(method="adain")`` at scale 10 with
+    TF32 off and under PyTorch's default flags, the launch counts set to 0
+    before and read after (the fp32 ``encode_head`` and ``decode_tail``
+    launched), the image the call saves within STYLIZE_TOL mean abs of the
+    CPU's, both kernels held against their plain versions on the arguments
+    the call gave them (phase 3's rule); the ``"fast"`` branch on the
+    committed magenta checkpoint, card against CPU; ``cli.run_vectorize``
+    (equal to ``depixelize``) and ``cli.run_pixelize``.
+36. optimisation NST at full width (VGG-19 to conv5_1, the reference's
+    layers and weights; seeded weights): ``run_style_transfer`` on the
+    1024x768 content at max_dim 1024, ``mix_styles`` with 3 styles at 256^2,
+    ``spatially_varying_style_transfer`` with a seeded R/G/B mask and
+    ``cli.run_nst.main``, each with its step count cut (NST_STEPS, printed
+    beside the default) and its ms a step; card against CPU at 512^2: step
+    1's loss within NST_LOSS_TOL relative with TF32 off and under PyTorch's
+    defaults, its image gradient's errors printed (of the largest entry,
+    relative L2, summed over 32^2 blocks) beside the CPU's own against
+    float64 (near-ties of a 2x2 max route a few entries' gradient to a
+    neighbour, so no fp32 gradient through the pools is within 1e-3 of the
+    largest entry); the conv1_1 style term's gradient, which crosses no
+    pool, within NST_GRAD_TOL of its largest entry, and a control with the
+    backward outside ``fp32_convs`` that must miss that limit; the image
+    after 10 steps within NST_10_STEP_TOL mean abs; a profile of one step at
+    512^2 by kernel group, with the busy share.
+37. ``pipelines.style_mixer.stylize_with_palette`` at 256^2 with each of
+    ResNet, DenseNet, Swin and VGG (the iterations cut), ms an iteration;
+    DenseNet-121 and Swin-T at full depth and width at 256^2, card against
+    CPU under PyTorch's defaults, within NET_TOL of the largest |value|;
+    ``map_colors`` (differing pixels only at LAB near-ties) and
+    ``extract_palette`` from the same starting pixels (within PALETTE_TOL).
 
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
@@ -584,6 +633,9 @@ def main():
     torch.cuda.empty_cache()
     # 31-33. localized style transfer, DeepLab, 3DGS evaluation -------------------
     _slice5_phases(torch, dev, default_tf32)
+    torch.cuda.empty_cache()
+    # 34-37. the pixel-art page, optimisation NST, the style mixer ------------------
+    _slice6_phases(torch, dev, default_tf32)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2376,8 +2428,7 @@ def _tvl1_check(torch, KT, args, case):
 # The modules whose fp32 convs run under device.fp32_convs: phase 24 undoes it
 # in them once, to show that its magenta gate catches cuDNN's TF32 there.
 FP32_CONV_MODULES = ("aip_tpu_torch.ops.flow", "aip_tpu_torch.ops.farneback",
-                     "aip_tpu_torch.models.depthnet", "aip_tpu_torch.models.magenta",
-                     "aip_tpu_torch.models.mobilenet")
+                     "aip_tpu_torch.models.magenta", "aip_tpu_torch.models.mobilenet")
 
 
 # The magenta frame's gate, card against CPU, mean abs: fp32 convs read about
@@ -3575,6 +3626,531 @@ def _eval_phase(torch, np, Image, dev, default_tf32):
          timing="CUDA events, median of 10, the pair's host-to-card copies included")
     if not rel <= LPIPS_TOL:
         raise AssertionError(f"LPIPS on the card is {rel} from the CPU")
+
+
+SLICE6_WORK = WORK / "slice6"
+PHOTO_HW = (768, 1024)       # the pixelize and NST content image, H x W
+SPRITE_HW = (48, 64)         # the depixelized sprite
+# The sha256 of the JAX package's depixelize of that sprite (numpy seed 0)
+# at scale 10, taken on the CPU with Pillow 12.1.0; the port's raster on the
+# card's machine must have the same bytes.
+SPRITE_RASTER_SHA256 = "84ca4e5fb142b54acf08a6e6fbd59f8777e6fc741ea9de3f5e8dcdac6679e896"
+PALETTES = ("pico-8", "sweetie-16")
+PIXELIZE_KW = dict(brightness=0.05, contrast=0.2)
+STYLIZE_TOL = 1e-3           # both stylize branches, card against CPU, mean abs (BASELINE.md)
+NST_LOSS_TOL = 1e-4          # NST step 1 at 512^2, card against CPU: loss, relative
+# ... and the conv1_1 style term's image gradient, of its largest entry: an
+# H100 80GB HBM3 (700 W) read 1.22e-5 with TF32 off and under PyTorch's
+# defaults (the card's data-gradient conv sums in another order than the
+# CPU's) and 3.83e-4 with the backward in TF32, the control.
+NST_GRAD_TOL = 1e-4
+# The image after 10 steps at 512^2, card against CPU, mean abs in [0, 1]:
+# the same card read 2.79-2.87e-5 (max 2.3-2.5e-3, where a max-pool near-tie
+# flips an early update).
+NST_10_STEP_TOL = 1e-4
+NET_TOL = 1e-4               # DenseNet-121 and Swin-T features, of the largest |value|
+PALETTE_TOL = 1e-3           # k-means palettes from the same starts, max abs RGB
+# The NST step's profile groups, by the op that launched the kernels.
+NST_GROUPS = {"aten::conv2d": "conv forward", "aten::convolution_backward": "conv data gradient",
+              "aten::max_pool2d": "max pools", "aten::max_pool2d_with_indices_backward":
+              "max pools' backward", "aten::bmm": "Gram matrices and their gradient",
+              "aten::relu": "ReLU and its backward", "aten::threshold_backward":
+              "ReLU and its backward"}
+# Steps and iterations of each full-width call, beside the JAX package's
+# defaults; only these are cut.
+NST_STEPS = {"run_style_transfer": (30, 800), "mix_styles": (100, 2000),
+             "spatially_varying_style_transfer": (10, 800), "cli.run_nst": (5, 800),
+             "stylize_with_palette": (20, 300)}
+
+
+def _photo(np, h, w, seed=0):
+    """A photograph-like float image: smooth colour gradients, a shaded
+    disc and noise (numpy ``seed``)."""
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    img = np.stack([0.5 + 0.4 * np.sin(6 * xx + 1.3), 0.5 + 0.4 * np.cos(5 * yy + 0.4),
+                    0.5 + 0.4 * np.sin(4 * (xx + yy))], -1)
+    disc = (xx - 0.45) ** 2 + (yy - 0.35) ** 2 < 0.04
+    img[disc] = img[disc] * 0.4 + np.array([0.5, 0.3, 0.1], np.float32)
+    img += g.normal(0, 0.05, img.shape)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def _sprite(np, h, w, seed=0):
+    """A pixel-art sprite (numpy ``seed``): flat colours, rectangles,
+    diagonal lines, a 2x2 block whose diagonals cross, a one-pixel island."""
+    g = np.random.default_rng(seed)
+    pal = g.integers(0, 256, (6, 3)).astype(np.uint8)
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = pal[0]
+    for _ in range(4):
+        y0, x0 = g.integers(0, h - 3), g.integers(0, w - 3)
+        img[y0:y0 + g.integers(2, h // 2), x0:x0 + g.integers(2, w // 2)] = pal[g.integers(1, 6)]
+    for _ in range(3):
+        c, d, s = pal[g.integers(1, 6)], g.integers(0, w), (1, -1)[g.integers(0, 2)]
+        for y in range(h):
+            if 0 <= d + s * y < w:
+                img[y, d + s * y] = c
+    y, x = g.integers(1, h - 3), g.integers(1, w - 3)
+    img[y, x] = img[y + 1, x + 1] = pal[1]
+    img[y, x + 1] = img[y + 1, x] = pal[2]
+    img[g.integers(0, h), g.integers(0, w)] = 255 - pal[0]
+    return img
+
+
+def _lab_picks(torch, to_lab, nearest, pixels, pal, dev):
+    """Nearest palette colours in LAB on the card and on the CPU, computed as
+    the ops compute them (``to_lab``, then ``nearest`` in float32). Where the
+    picks differ, each must be a near-tie: on the CPU's LAB values (float64)
+    the two picks' squared distances differ by no more than the two
+    devices' LAB values (at most ``e`` apart, measured) and the float32
+    distance's rounding (16 ulps of its largest term) can move them.
+    Returns the picks (card, CPU) and the numbers."""
+    lab = {d: (to_lab(pixels.to(d)).reshape(-1, 3), to_lab(pal.to(d)))
+           for d in ("cpu", dev)}
+    picks = {d: nearest(*lab[d]).cpu() for d in lab}
+    (x_cpu, p_cpu), (x_card, p_card) = [(a.double().cpu(), b.double().cpu())
+                                        for a, b in (lab["cpu"], lab[dev])]
+    e = max((x_card - x_cpu).norm(dim=1).max().item(), (p_card - p_cpu).norm(dim=1).max().item())
+    differ = (picks[dev] != picks["cpu"]).nonzero().flatten()
+    x, a, b = x_cpu[differ], p_cpu[picks[dev][differ]], p_cpu[picks["cpu"][differ]]
+    d_a, d_b = ((x - a) ** 2).sum(1), ((x - b) ** 2).sum(1)
+    terms = torch.stack([(a * a).sum(1), (b * b).sum(1), 2 * (x * a).sum(1).abs(),
+                         2 * (x * b).sum(1).abs(), (x * x).sum(1)], 1).amax(1)
+    bound = 4 * (d_a.sqrt() + d_b.sqrt()) * e + 8 * e * e + 16 * 2.0 ** -24 * terms
+    gap = (d_a - d_b).abs()
+    return picks[dev], picks["cpu"], {
+        "differing_px": int(differ.numel()), "lab_card_vs_cpu_max": e,
+        "largest_distance_gap": gap.max().item() if differ.numel() else 0.0,
+        "largest_gap_over_bound": (gap / bound).max().item() if differ.numel() else 0.0}
+
+
+def _slice6_phases(torch, dev, default_tf32):
+    """Phases 34-37 (the pixel-art page, optimisation NST and the style
+    mixer). No kernel is new: the AdaIN branch of the pixel-art page runs
+    the fp32 AdaIN kernels. Every check is made; a failing one raises after
+    phase 37 has printed its lines."""
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            emit("slice6_check_failed", what=what)
+
+    shutil.rmtree(SLICE6_WORK, ignore_errors=True)
+    SLICE6_WORK.mkdir(parents=True)
+    _pixelize_phase(torch, dev, check)
+    _depixelize_phase(torch, dev, default_tf32, check)
+    torch.cuda.empty_cache()
+    _nst_phase(torch, dev, default_tf32, check)
+    torch.cuda.empty_cache()
+    _style_mixer_phase(torch, dev, default_tf32, check)
+    if failures:
+        raise AssertionError(f"slice 6 checks failed: {failures}")
+
+
+def _pixelize_phase(torch, dev, check):
+    """Phase 34: ``pixelize`` of a 1024x768 image with each method and two
+    16-colour palettes, card against the port on the CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.ops import palette as PAL
+    from aip_tpu_torch.pipelines import pixel_art as PIX
+
+    photo = SLICE6_WORK / "photo.png"
+    Image.fromarray((_photo(np, *PHOTO_HW) * 255).astype(np.uint8)).save(photo)
+    palettes = PIX.load_lospec_palettes()
+    runs = [(name, method, 4) for name in PALETTES
+            for method in ("RGB", "kd-tree", "LAB", "Floyd-Steinberg")]
+    runs += [(name, method, 1) for name in PALETTES for method in ("RGB", "LAB")]
+    for name, method, ds in runs:
+        pal = PIX.hex_palette_to_rgb(palettes[name])
+        kw = dict(downsampling_factor=ds, palette=pal, method=method, **PIXELIZE_KW)
+        out = PIX.pixelize(str(photo), device=dev, **kw)
+        ref = PIX.pixelize(str(photo), device="cpu", **kw)
+        wall_ms = [1e3 * _wall_s(torch, lambda: PIX.pixelize(str(photo), device=dev, **kw))
+                   for _ in range(3)]
+        base = PIX.pixelize(str(photo), device="cpu", downsampling_factor=ds, **PIXELIZE_KW)
+        x, p = torch.from_numpy(base).to(dev), torch.from_numpy(pal).to(dev)
+        op = {"RGB": PAL.recolor_rgb, "kd-tree": PAL.recolor_rgb, "LAB": PAL.recolor_lab,
+              "Floyd-Steinberg": PAL.floyd_steinberg}[method]
+        op_ms = _time_ms(torch, lambda: op(x, p), runs=5, warmup=1)
+        fields = {}
+        if method == "LAB":
+            card, cpu, fields = _lab_picks(torch, PAL.rgb_to_cielab_u8, PAL._nearest_indices,
+                                           torch.from_numpy(base), torch.from_numpy(pal), dev)
+            ok = (fields["largest_gap_over_bound"] <= 1.0
+                  and np.array_equal(pal[card.numpy()].reshape(out.shape), out)
+                  and np.array_equal(pal[cpu.numpy()].reshape(ref.shape), ref))
+        else:
+            fields = {"differing_px": int((out != ref).any(-1).sum())}
+            ok = fields["differing_px"] == 0
+        if method == "Floyd-Steinberg":
+            fields["wavefront_steps"] = PAL.wavefront_steps(*base.shape[:2])
+            fields["serial_pixel_steps"] = base.shape[0] * base.shape[1]
+        emit("pixelize", entry="aip_tpu_torch.pipelines.pixel_art.pixelize", palette=name,
+             colours=len(pal), method=method, downsample=ds, out_hw=list(out.shape[:2]),
+             in_hw=list(PHOTO_HW), wall_ms=statistics.median(wall_ms),
+             timing_wall="host clock, median of 3: PNG read, PIL resize, copies, the op",
+             op_ms=op_ms, timing_op="CUDA events, median of 5, the palette op alone",
+             card_equals_cpu=ok, **fields)
+        check(ok and out.dtype == np.uint8, f"pixelize {name} {method} ds {ds}")
+
+
+def _depixelize_phase(torch, dev, default_tf32, check):
+    """Phase 35: the depixelizer on a 48x64 sprite, both stylize branches on
+    its raster (card against CPU), and the two pixel-art CLIs."""
+    import hashlib
+
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.cli import run_pixelize, run_vectorize
+    from aip_tpu_torch.kernels import adain_head as KA
+    from aip_tpu_torch.models import decoder as DEC
+    from aip_tpu_torch.models import magenta as MAG
+    from aip_tpu_torch.models import vgg as VGG
+    from aip_tpu_torch.pipelines import adain_infer as INF
+    from aip_tpu_torch.pipelines import pixel_art as PIX
+
+    sprite = _sprite(np, *SPRITE_HW)
+    sprite_png = SLICE6_WORK / "sprite.png"
+    Image.fromarray(sprite).save(sprite_png)
+    t0 = time.perf_counter()
+    raster = PIX.depixelize(sprite, scale=10)
+    host_s = time.perf_counter() - t0
+    style_png = SLICE6_WORK / "style.png"
+    Image.fromarray((_photo(np, 512, 512, seed=1)[::-1] * 255).astype(np.uint8)).save(style_png)
+
+    saved = {}
+    orig_save = INF.save_image
+
+    def spy(arr, path):
+        saved[str(path)] = arr.detach().float().cpu().numpy() if isinstance(
+            arr, torch.Tensor) else np.asarray(arr, np.float32)
+        return orig_save(arr, path)
+
+    INF.save_image = spy
+    try:
+        ref_path = PIX.depixelize_and_stylize(sprite, str(style_png), output=str(
+            SLICE6_WORK / "adain_cpu"), device="cpu")
+        ref = saved[str(ref_path)]
+        for flags, tf32 in (("tf32_off", (False, False)), ("pytorch_defaults", default_tf32)):
+            served = {}
+
+            def by_shape(name):
+                return lambda a: (name, tuple(a[0].shape), a[0].dtype)
+
+            _set_tf32(torch, tf32)
+            KA.reset_launch_counts()
+            try:
+                with _capture(VGG, "encode_head", served, key=by_shape("encode_head")), \
+                        _capture(DEC, "decode_tail", served, key=by_shape("decode_tail")):
+                    t0 = time.perf_counter()
+                    path = PIX.depixelize_and_stylize(
+                        sprite, str(style_png), output=str(SLICE6_WORK / f"adain_{flags}"),
+                        device=dev)
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+            finally:
+                _set_tf32(torch, (False, False))
+            launches = KA.route_launch_counts()["fp32"]
+            err = float(np.abs(saved[str(path)] - ref).mean())
+            emit("depixelize_and_stylize", method="adain", flags=flags, tf32_conv=tf32[0],
+                 sprite_hw=list(SPRITE_HW), scale=10, raster_hw=list(raster.shape[:2]),
+                 out_shape=list(saved[str(path)].shape), fp32_launches=launches,
+                 mean_abs_err=err, tol=STYLIZE_TOL, wall_s=wall_s,
+                 timing="host clock, the first call in these flags: depixelize, depth, "
+                        "AdaIN fp32, JPEG")
+            check(err <= STYLIZE_TOL, f"adain branch {flags}: {err}")
+            check(launches["encode_head"] >= 1 and launches["decode_tail"] >= 1,
+                  f"adain branch {flags} launched {launches}")
+            for (name, _, _), (a, _) in served.items():
+                _adain_check(torch, KA, name, a[0], a[1:], "depixelize_and_stylize served")
+    finally:
+        INF.save_image = orig_save
+
+    outs, orig_make = {}, MAG.make_fast_stylizer
+    for label, d in (("cpu", "cpu"), ("card", dev)):
+        def make(params=None, device=None, _label=label):
+            fn = orig_make(params, device)
+
+            def stylizer(frames, style):
+                res = fn(frames, style)
+                outs[_label] = res.detach().cpu()
+                return res
+            return stylizer
+
+        MAG.make_fast_stylizer = make
+        try:
+            t0 = time.perf_counter()
+            fast = PIX.depixelize_and_stylize(
+                sprite, str(style_png), method="fast", output=str(SLICE6_WORK / f"fast_{label}"),
+                magenta_params=MAG.load_magenta_npz(DISTILLED, device=d), device=d)
+            fast_s = time.perf_counter() - t0
+        finally:
+            MAG.make_fast_stylizer = orig_make
+    err = float((outs["card"] - outs["cpu"]).abs().mean())
+    emit("depixelize_and_stylize", method="fast", checkpoint=str(DISTILLED.relative_to(ROOT)),
+         out_shape=list(outs["card"].shape), result=str(Path(fast).relative_to(ROOT)),
+         mean_abs_err=err, tol=STYLIZE_TOL, wall_s=fast_s, flags="tf32_off")
+    check(err <= STYLIZE_TOL, f"fast branch: {err}")
+
+    t0 = time.perf_counter()
+    again = PIX.depixelize(sprite, scale=10)
+    emit("depixelize", entry="aip_tpu_torch.pipelines.pixel_art.depixelize",
+         sprite_hw=list(SPRITE_HW), scale=10, out_hw=list(raster.shape[:2]),
+         pillow=Image.__version__,
+         host_s=host_s, host_s_second=time.perf_counter() - t0,
+         sha256=hashlib.sha256(raster.tobytes()).hexdigest(), reference_sha256=SPRITE_RASTER_SHA256,
+         equal_across_calls=raster.tobytes() == again.tobytes())
+    check(raster.tobytes() == again.tobytes()
+          and hashlib.sha256(raster.tobytes()).hexdigest() == SPRITE_RASTER_SHA256,
+          "depixelize differs across calls or from the JAX package's raster")
+    vec = run_vectorize.main(["--input", str(sprite_png), "--output",
+                              str(SLICE6_WORK / "cli_vectorized")])
+    vec_ok = np.asarray(Image.open(vec)).tobytes() == raster.tobytes()
+    pix = run_pixelize.main(["--input", str(SLICE6_WORK / "photo.png"), "--output",
+                             str(SLICE6_WORK / "cli_pixelized.png"), "--method",
+                             "Floyd-Steinberg", "--downsample", "4"])
+    emit("pixel_art_cli", vectorize=str(Path(vec).relative_to(ROOT)),
+         vectorize_equals_depixelize=vec_ok, pixelize=str(Path(pix).relative_to(ROOT)),
+         pixelize_hw=list(np.asarray(Image.open(pix)).shape[:2]))
+    check(vec_ok and Path(pix).is_file(), "a pixel-art CLI")
+
+
+def _nst_phase(torch, dev, default_tf32, check):
+    """Phase 36: optimisation NST at full width (VGG-19 to conv5_1, the
+    reference's layers and weights), the step counts cut."""
+    import contextlib
+    import copy
+    import functools
+
+    import torch.nn.functional as F
+
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.cli import run_nst
+    from aip_tpu_torch.models import vgg19_std as V19
+    from aip_tpu_torch.pipelines import nst as NST
+
+    photo = SLICE6_WORK / "photo.png"
+    styles = []
+    for i in range(3):
+        p = SLICE6_WORK / f"nst_style{i}.png"
+        Image.fromarray((_photo(np, 512, 512, seed=10 + i)[:, ::-1] * 255).astype(
+            np.uint8)).save(p)
+        styles.append(str(p))
+    params = V19.get_vgg19_params(device=dev)
+
+    def timed(name, fn):
+        steps, default = NST_STEPS[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(steps)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        return out, dict(steps=steps, default_steps=default, wall_s=s, ms_a_step=1e3 * s / steps,
+                         timing="host clock around the call, synchronised; targets included")
+
+    out, t = timed("run_style_transfer", lambda n: NST.run_style_transfer(
+        str(photo), styles[0], max_dim=1024, num_steps=n, params=params, device=dev))
+    emit("nst", entry="aip_tpu_torch.pipelines.nst.run_style_transfer", content_hw=list(PHOTO_HW),
+         out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), **t)
+    check(tuple(out.shape) == (*PHOTO_HW, 3) and bool(torch.isfinite(out).all()),
+          "run_style_transfer")
+    out, t = timed("mix_styles", lambda n: NST.mix_styles(
+        str(photo), list(zip(styles, (1.0, 2.0, 0.5))), num_steps=n, params=params, device=dev))
+    emit("nst", entry="aip_tpu_torch.pipelines.nst.mix_styles", size=256, styles=3,
+         out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), **t)
+    check(tuple(out.shape) == (256, 256, 3) and bool(torch.isfinite(out).all()), "mix_styles")
+    mask = np.zeros((*PHOTO_HW, 3), np.uint8)
+    g = np.random.default_rng(0)
+    cuts = np.sort(g.integers(PHOTO_HW[1] // 5, 4 * PHOTO_HW[1] // 5, 2))
+    mask[:, :cuts[0], 0] = mask[:, cuts[0]:cuts[1], 1] = mask[:, cuts[1]:, 2] = 255
+    mask_png = SLICE6_WORK / "nst_mask.png"
+    Image.fromarray(mask).save(mask_png)
+    out, t = timed("spatially_varying_style_transfer", lambda n: (
+        NST.spatially_varying_style_transfer(str(photo), *styles, str(mask_png), params=params,
+                                             device=dev, num_steps=n)))
+    emit("nst", entry="aip_tpu_torch.pipelines.nst.spatially_varying_style_transfer",
+         mask_cuts=cuts.tolist(), out_shape=list(out.shape),
+         finite=bool(torch.isfinite(out).all()), **t)
+    check(tuple(out.shape) == (*PHOTO_HW, 3), "spatially_varying_style_transfer")
+    cli_out, t = timed("cli.run_nst", lambda n: run_nst.main(
+        ["--content", str(photo), "--style", styles[0], "--steps", str(n),
+         "--output", str(SLICE6_WORK / "cli_nst.png")]))
+    emit("nst", entry="aip_tpu_torch.cli.run_nst.main", output=str(Path(cli_out).relative_to(
+        ROOT)), size=list(Image.open(cli_out).size), **t)
+    check(Image.open(cli_out).size == PHOTO_HW[::-1], "run_nst CLI")
+
+    # Card against CPU at 512^2: step 1, then 10 steps.
+    params_cpu = copy.deepcopy(params).cpu()
+    c = torch.from_numpy(_photo(np, 512, 512, seed=3))[None]
+    s = torch.from_numpy(_photo(np, 512, 512, seed=4)[::-1].copy())[None]
+    one = torch.ones(1)
+    full, pre_pool = V19.NST_STYLE_LAYERS, ("conv1_1",)
+
+    def step(p, d, layers, dtype=torch.float32):
+        content = V19.NST_CONTENT_LAYER if layers == full else layers[0]
+        targets = NST.nst_targets(p, c.to(d, dtype), s.to(d, dtype), one.to(d, dtype), layers,
+                                  content)
+        loss, grad = NST.nst_loss_and_grad(p, *targets, style_layers=layers,
+                                           content_layer=content)
+        return loss.item(), grad.double().cpu()
+
+    def grad_errors(g, ref):
+        d = g - ref
+        blocks = [F.avg_pool2d(t.permute(0, 3, 1, 2), 32) for t in (d, ref)]
+        return {"of_largest_entry": (d.abs().max() / ref.abs().max()).item(),
+                "relative_l2": (d.norm() / ref.norm()).item(),
+                "summed_over_32x32_blocks_of_largest": (blocks[0].abs().max()
+                                                        / blocks[1].abs().max()).item()}
+
+    t0 = time.perf_counter()
+    loss_cpu, grad_cpu = step(params_cpu, "cpu", full)
+    cpu_step_s = time.perf_counter() - t0
+    f64 = functools.partial(V19.extract_features, compute_dtype=torch.float64)
+    NST.backbone.extract_features, orig_extract = f64, V19.extract_features
+    try:
+        loss64, grad64 = step(copy.deepcopy(params_cpu).double(), "cpu", full, torch.float64)
+    finally:
+        NST.backbone.extract_features = orig_extract
+    emit("nst_step1_cpu_vs_float64", size=[512, 512], loss_rel_err=abs(loss_cpu - loss64) / loss64,
+         grad_errors=grad_errors(grad_cpu, grad64),
+         note="fp32 on the CPU against float64: the floor of any fp32 gradient through the pools")
+    loss_pre_cpu, grad_pre_cpu = step(params_cpu, "cpu", pre_pool)
+    for flags, tf32, held in (("tf32_off", (False, False), True),
+                              ("pytorch_defaults", default_tf32, True),
+                              ("pytorch_defaults_backward_outside_fp32_convs", default_tf32, False)):
+        _set_tf32(torch, tf32)
+        try:
+            with contextlib.ExitStack() as stack:
+                if not held:
+                    stack.enter_context(_without_fp32_convs(("aip_tpu_torch.pipelines.nst",)))
+                loss, grad = step(params, dev, full)
+                _, grad_pre = step(params, dev, pre_pool)
+        finally:
+            _set_tf32(torch, (False, False))
+        loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+        pre_err = ((grad_pre - grad_pre_cpu).abs().max() / grad_pre_cpu.abs().max()).item()
+        emit("nst_step1_card_vs_cpu", flags=flags, tf32_conv=tf32[0], backward_in_fp32_convs=held,
+             control_must_miss=not held, size=[512, 512], loss_card=loss, loss_cpu=loss_cpu,
+             loss_rel_err=loss_rel, loss_tol=NST_LOSS_TOL,
+             grad_errors=grad_errors(grad, grad_cpu), grad_max_abs=grad_cpu.abs().max().item(),
+             conv1_1_term_grad_err_of_largest=pre_err, conv1_1_term_grad_tol=NST_GRAD_TOL,
+             cpu_step_s=cpu_step_s)
+        if held:
+            check(loss_rel <= NST_LOSS_TOL and pre_err <= NST_GRAD_TOL, f"NST step 1 {flags}")
+        else:
+            check(pre_err > NST_GRAD_TOL, "NST step 1 control met the conv1_1 gradient gate")
+    t0 = time.perf_counter()
+    ten_cpu = NST.nst_optimize(params_cpu, c, s, one, num_steps=10, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _set_tf32(torch, default_tf32)
+    try:
+        ten = NST.nst_optimize(params, c.to(dev), s.to(dev), one.to(dev), num_steps=10,
+                               device=dev).cpu()
+    finally:
+        _set_tf32(torch, (False, False))
+    diff = (ten - ten_cpu).abs()
+    emit("nst_10_steps_card_vs_cpu", flags="pytorch_defaults", size=[512, 512],
+         mean_abs_err=diff.mean().item(), max_abs_err=diff.max().item(),
+         tol_mean_abs=NST_10_STEP_TOL, moved_mean_abs=(ten_cpu - c).abs().mean().item(),
+         cpu_s=cpu_s)
+    check(diff.mean().item() <= NST_10_STEP_TOL, "NST 10 steps card against CPU")
+    _nst_profile(torch, NST, params, c.to(dev), s.to(dev), one.to(dev))
+    del params_cpu
+
+
+def _nst_profile(torch, NST, params, c, s, one):
+    """torch.profiler over one NST step at 512^2 (TF32 off): device ms by
+    op group (``NST_GROUPS``) and the busy share."""
+    targets = NST.nst_targets(params, c, s, one)
+    _stage_profile(torch, "nst_step_profile", lambda: NST.nst_loss_and_grad(params, *targets),
+                   tuple(dict.fromkeys(NST_GROUPS.values())), stage_of=NST_GROUPS.get,
+                   call="nst_loss_and_grad at 512^2, VGG-19 to conv5_1, TF32 off")
+
+
+def _style_mixer_phase(torch, dev, default_tf32, check):
+    """Phase 37: ``stylize_with_palette`` with each backbone at 256^2 (the
+    iterations cut), DenseNet-121 and Swin-T at full depth card against CPU,
+    ``map_colors`` and ``extract_palette`` from the same starts."""
+    import copy
+
+    import numpy as np
+
+    from aip_tpu_torch.models import densenet as DN
+    from aip_tpu_torch.models import swin as SW
+    from aip_tpu_torch.models.vgg19_std import normalize_imagenet
+    from aip_tpu_torch.pipelines import style_mixer as MIX
+
+    photo = SLICE6_WORK / "photo.png"
+    style = SLICE6_WORK / "nst_style0.png"
+    n, default = NST_STEPS["stylize_with_palette"]
+    result = None
+    for model in MIX.MODEL_LIST:
+        walls = {}
+        MIX.stylize_with_palette(str(photo), str(style), model=model, iterations=1, device=dev)
+        for iters in (1, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = MIX.stylize_with_palette(str(photo), str(style), model=model,
+                                              iterations=iters, device=dev)
+            torch.cuda.synchronize()
+            walls[iters] = time.perf_counter() - t0
+        ok = tuple(result.shape) == (256, 256, 3) and bool(torch.isfinite(result).all())
+        emit("stylize_with_palette", model=model, size=256, iterations=n,
+             default_iterations=default, wall_s=walls[n], wall_s_1_iteration=walls[1],
+             ms_an_iteration=1e3 * (walls[n] - walls[1]) / (n - 1),
+             timing="host clock, synchronised, after a warm-up call; an iteration's ms from the "
+                    f"difference of an {n}-iteration and a 1-iteration call (each builds its "
+                    "backbone)",
+             out_shape=list(result.shape), finite=ok)
+        check(ok, f"stylize_with_palette {model}")
+
+    x = normalize_imagenet(torch.from_numpy(_photo(np, 256, 256, seed=5)))[None]
+    for name, get, feats in (("DenseNet-121", DN.get_densenet121_params, DN.densenet121_features),
+                             ("Swin-T", SW.get_swin_t_params, SW.swin_t_features)):
+        params_cpu = get(device="cpu")
+        params = copy.deepcopy(params_cpu).to(dev)
+        with torch.no_grad():
+            ref = feats(params_cpu, x)
+            _set_tf32(torch, default_tf32)
+            try:
+                out = {k: v.cpu() for k, v in feats(params, x.to(dev)).items()}
+                ms = _time_ms(torch, lambda: feats(params, x.to(dev)), runs=5)
+            finally:
+                _set_tf32(torch, (False, False))
+        errs = {k: (out[k] - ref[k]).abs().max().item() / ref[k].abs().max().item() for k in ref}
+        emit("backbone_card_vs_cpu", net=name, flags="pytorch_defaults", input_hw=[256, 256],
+             taps={k: list(v.shape) for k, v in out.items()}, rel_max_abs_err=errs, tol=NET_TOL,
+             forward_ms=ms, timing="CUDA events, median of 5")
+        check(max(errs.values()) <= NET_TOL, f"{name} features card against CPU")
+
+    img = result.detach().cpu()
+    pal = torch.tensor(MIX.adjust_palette_hsl(MIX.hex_to_rgb_palette(
+        MIX.PREDEFINED_PALETTES["Vintage"])), dtype=torch.float32)
+    card, cpu, picks = _lab_picks(
+        torch, MIX.rgb_to_cielab, lambda x, p: torch.argmin(MIX._sq_distances(x, p), dim=1),
+        img, pal, dev)
+    mapped_cpu = MIX.map_colors(img, pal)
+    mapped = MIX.map_colors(img.to(dev), pal.to(dev)).cpu()
+    lab_pal = MIX.rgb_to_cielab(pal)
+    same_picks = (torch.equal(mapped_cpu, MIX.cielab_to_rgb(lab_pal[cpu].reshape(img.shape)))
+                  and torch.equal(mapped, MIX.cielab_to_rgb(
+                      MIX.rgb_to_cielab(pal.to(dev))[card.to(dev)].reshape(img.shape)).cpu()))
+    init = torch.randperm(img.shape[0] * img.shape[1], generator=torch.Generator().manual_seed(0))[:5]
+    pal_cpu = MIX.extract_palette(img, 5, init_idx=init)
+    pal_card = MIX.extract_palette(img.to(dev), 5, init_idx=init).cpu()
+    pal_err = (pal_card - pal_cpu).abs().max().item()
+    emit("palette_card_vs_cpu", image="the last stylize_with_palette result, 256^2",
+         map_colors=picks, map_colors_picks_reproduced=same_picks,
+         extract_palette_max_abs_err=pal_err, tol=PALETTE_TOL, init_idx=init.tolist())
+    check(picks["largest_gap_over_bound"] <= 1.0 and same_picks and pal_err <= PALETTE_TOL,
+          "map_colors / extract_palette card vs CPU")
 
 
 if __name__ == "__main__":

@@ -290,10 +290,38 @@ def test_fp32_convs_outside_adain_hold_fp32_under_pytorchs_default_tf32_flags(cu
     assert float((fb - fb_c).abs().mean()) <= 1e-4
     assert float((prox - prox_c).abs().max()) <= 1e-5
     assert float((frame - frame_c).abs().mean()) <= 1e-6
-    for mod in (flow, farneback, depthnet, magenta, mobilenet):
+    for mod in (flow, farneback, magenta, mobilenet):
         monkeypatch.setattr(mod, "fp32_convs", contextlib.nullcontext)
     *_, frame_tf32 = on_card_with_tf32()
     assert float((frame_tf32 - frame_c).abs().mean()) > 1e-6
+
+
+@pytest.mark.cuda
+def test_depth_proxy_repeats_within_its_gate_with_the_allocator_empty_and_full(cuda):
+    """The depth proxy (the default depth of ``adain_inference`` and of the
+    pixel-art page) 24 times in one process under PyTorch's default TF32
+    flags, on new shapes with the 9-tap blur, with the caching allocator
+    emptied and with all but 64 MiB of the card held: each within 1e-5 max
+    abs of the CPU, the gate of the test above."""
+    from aip_tpu_torch.models import depthnet
+
+    for i in range(24):
+        g = np.random.default_rng(200 + i)
+        img = torch.from_numpy(g.random((64 + i % 16, 64 + (7 * i) % 16, 3)).astype(np.float32))
+        ref = depthnet.estimate_proximity(img)
+        torch.cuda.empty_cache()
+        held = None
+        if i % 2:
+            free = torch.cuda.mem_get_info()[0]
+            held = torch.empty(free - (64 << 20), dtype=torch.uint8, device=cuda)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = depthnet.estimate_proximity(img.to(cuda)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            del held
+            torch.cuda.empty_cache()  # cuBLAS's handles need memory outside the cache
+        assert float((out - ref).abs().max()) <= 1e-5, (i, img.shape)
 
 
 @pytest.mark.cuda
@@ -1407,3 +1435,73 @@ def test_background_mask_and_harmonization_card_match_cpu(cuda):
     out = localized.composite_localized(img, stylized, ref, device=cuda)
     cpu = localized.composite_localized(img, stylized, ref, device="cpu")
     assert np.abs(out - cpu).mean() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The pixel-art page and optimisation NST (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(64, 96), (1, 9), (37, 1), (192, 256)])
+def test_floyd_steinberg_and_recolor_rgb_on_the_card_equal_the_cpu(cuda, h, w):
+    """The wavefront rounds each operation on its own and argmin keeps the
+    first index, on the card as on the CPU: equal, as RGB's integer
+    distances make ``recolor_rgb``."""
+    from aip_tpu_torch.ops import palette
+
+    g = np.random.default_rng(h * w)
+    img = torch.from_numpy((g.random((h, w, 3)) * 255).astype(np.uint8))
+    pal = torch.from_numpy((g.random((16, 3)) * 255).astype(np.uint8))
+    pal[9] = pal[2]
+    for fn in (palette.floyd_steinberg, palette.recolor_rgb):
+        out = fn(img.to(cuda), pal.to(cuda)).cpu()
+        assert torch.equal(out, fn(img, pal)), fn.__name__
+
+
+@pytest.mark.cuda
+def test_nst_gradient_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch):
+    """NST's step 1 at 512^2 on the port's VGG-19, with cuDNN's TF32 on as
+    PyTorch starts: the loss within 1e-4 relative of the CPU's; the image
+    gradient of the conv1_1 style term, which crosses no max pool, within
+    1e-4 of its largest entry (the backward convs run inside ``fp32_convs``
+    too; chip_smoke.py phase 36's gate). The whole gradient is compared by
+    its loss only: near-ties of a 2x2 max send a few entries' gradient to a
+    neighbour, and fp32 on the CPU is as far from float64 as the card is.
+    The control: with the backward outside ``fp32_convs``, the conv1_1
+    gradient misses 1e-4."""
+    import contextlib
+    import copy
+
+    from aip_tpu_torch.models import vgg19_std
+    from aip_tpu_torch.pipelines import nst
+
+    params_cpu = vgg19_std.init_vgg19_params(torch.Generator().manual_seed(0), "cpu")
+    params = copy.deepcopy(params_cpu).to(cuda)
+    g = np.random.default_rng(36)
+    c = torch.from_numpy(g.random((1, 512, 512, 3)).astype(np.float32))
+    s = torch.from_numpy(g.random((1, 512, 512, 3)).astype(np.float32))
+
+    def step(dev, layers):
+        targets = nst.nst_targets(params if dev == cuda else params_cpu, c.to(dev), s.to(dev),
+                                  torch.ones(1, device=dev), layers, layers[0])
+        loss, grad = nst.nst_loss_and_grad(params if dev == cuda else params_cpu, *targets,
+                                           style_layers=layers, content_layer=layers[0])
+        return loss.item(), grad.cpu()
+
+    def on_card_with_tf32(layers):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = step(cuda, layers)
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        return out
+
+    full = vgg19_std.NST_STYLE_LAYERS
+    loss, _ = on_card_with_tf32(full)
+    loss_ref, _ = step("cpu", full)
+    assert abs(loss - loss_ref) <= 1e-4 * abs(loss_ref)
+    _, grad_ref = step("cpu", ("conv1_1",))
+    assert _max_rel_err(on_card_with_tf32(("conv1_1",))[1], grad_ref) <= 1e-4
+    monkeypatch.setattr(nst, "fp32_convs", contextlib.nullcontext)
+    assert _max_rel_err(on_card_with_tf32(("conv1_1",))[1], grad_ref) > 1e-4

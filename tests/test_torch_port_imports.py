@@ -66,7 +66,12 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.models.deeplab", "aip_tpu_torch.models.segmenter",
                  "aip_tpu_torch.models.lpips", "aip_tpu_torch.pipelines.localized",
                  "aip_tpu_torch.cli.run_semantic_segm", "aip_tpu_torch.cli.sweep_depth",
-                 "aip_tpu_torch.gs.metrics_cli", "aip_tpu_torch.gs.full_eval"):
+                 "aip_tpu_torch.gs.metrics_cli", "aip_tpu_torch.gs.full_eval",
+                 "aip_tpu_torch.ops.palette", "aip_tpu_torch.pipelines.pixel_art",
+                 "aip_tpu_torch.cli.run_pixelize", "aip_tpu_torch.cli.run_vectorize",
+                 "aip_tpu_torch.ops.gram", "aip_tpu_torch.pipelines.nst",
+                 "aip_tpu_torch.cli.run_nst", "aip_tpu_torch.models.densenet",
+                 "aip_tpu_torch.models.swin", "aip_tpu_torch.pipelines.style_mixer"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
