@@ -5,7 +5,8 @@ Parameters travel as the reference's flat list of ``{"w": HWIO, "b": [C]}``
 numpy arrays ("HWIO params"): that is the npz cache format, and the cache
 (``$AIP_TPU_WEIGHTS`` or ``~/.cache/aip_tpu``, files ``vgg_normalised.npz``
 and ``adain_decoder.npz``) is shared with ``aip_tpu``. ``from_jax_params``
-turns HWIO params, numpy or ``aip_tpu``'s own, into the port's modules.
+turns HWIO params, numpy or ``aip_tpu``'s own, into the port's modules;
+``hwio_params`` turns them back.
 
 The models whose parameters the JAX package keeps as nested trees (ResNet,
 DeepLab, the LPIPS backbones, the ImageNet VGG-19) hold them as a
@@ -90,6 +91,14 @@ def from_jax_params(params, device=None):
             conv.weight.copy_(torch.tensor(w))
             conv.bias.copy_(torch.tensor(np.asarray(p["b"], dtype=np.float32)))
     return module
+
+
+def hwio_params(module) -> list[dict]:
+    """A ``VGGEncoder``'s or ``AdaINDecoder``'s convs as HWIO params (numpy,
+    on the host): the inverse of ``from_jax_params``, the form
+    ``save_params_npz`` writes."""
+    return [{"w": c.weight.detach().permute(2, 3, 1, 0).cpu().numpy(),
+             "b": c.bias.detach().cpu().numpy()} for c in module.convs]
 
 
 class ParamTree(nn.Module):

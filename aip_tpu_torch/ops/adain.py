@@ -1,7 +1,7 @@
 """Adaptive instance normalisation and CORAL colour transfer.
 
 Port of ``aip_tpu.ops.adain`` (reference ``AdaIN/function.py``). NHWC;
-statistics are float32 whatever the feature dtype.
+statistics are float32 whatever the feature dtype (float64 stays float64).
 """
 
 from __future__ import annotations
@@ -9,15 +9,20 @@ from __future__ import annotations
 import torch
 
 
+def _stat_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or t's dtype where that is wider."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def calc_mean_std(feat: torch.Tensor, eps: float = 1e-5):
     """Per-(batch, channel) spatial mean and std of an NHWC feature map.
 
     Unbiased variance over H*W (torch ``.var`` default), ``eps`` added
     before the square root. Returns ``(mean, std)``, each ``[N, 1, 1, C]``
-    float32.
+    float32 (float64 for a float64 map).
     """
     n, h, w, c = feat.shape
-    x = feat.float()
+    x = feat.to(_stat_dtype(feat))
     mean = x.mean(dim=(1, 2), keepdim=True)
     var = ((x - mean) ** 2).sum(dim=(1, 2), keepdim=True) / max(h * w - 1, 1)
     return mean, torch.sqrt(var + eps)
@@ -28,7 +33,7 @@ def adain(content_feat: torch.Tensor, style_feat: torch.Tensor,
     """Renormalise content features to the style's per-channel mean/std."""
     c_mean, c_std = calc_mean_std(content_feat, eps)
     s_mean, s_std = calc_mean_std(style_feat, eps)
-    out = (content_feat.float() - c_mean) / c_std * s_std + s_mean
+    out = (content_feat.to(c_mean.dtype) - c_mean) / c_std * s_std + s_mean
     return out.to(content_feat.dtype)
 
 

@@ -319,6 +319,34 @@ these four phases are all made; any that fails raises after phase 37:
     ``map_colors`` (differing pixels only at LAB near-ties) and
     ``extract_palette`` from the same starting pixels (within PALETTE_TOL).
 
+The trainers and MiDaS (slice 7; no new kernel: the fp32 head and tail run
+on a training path, their backward recomputing through cuDNN convs), on 16
+content and 16 style images at 512^2 (numpy seed 0):
+
+38. ``cli.train_adain.main`` at the reference's defaults (VGG-19 to relu4_1
+    and the 9-conv decoder at full width, batch 8, crop 256, fp32, style
+    weight 10, lr 1e-4, decay 5e-5), 20 of 160,000 steps: the checkpoint
+    and the log written, the fp32 head and tail launched once a step
+    (counts set to 0 just before). Step 1 card against the port on the CPU:
+    the loss within TRAIN_LOSS_TOL, the relu1_1 style term's decoder
+    gradient (no max pool) within ``_fp32_gate`` (each parameter's relative
+    L2 error within 1e-5 plus 4 times the CPU's own distance from float64
+    there), with TF32 off, under PyTorch's defaults, and a control with the
+    backward outside ``fp32_convs`` that must miss; the head and tail
+    against their plain versions on the step's arguments (phase 3's rule);
+    ms a step, one step's device ms by op group (``TRAIN_GROUPS``), the
+    busy share, and the tail's recompute backward timed alone.
+39. ``cli.train_magenta.main`` (the compact trunk, batch 8, crop 256, lr
+    1e-3), 20 of 40,000 steps, the same checks (the pixel term's gradient:
+    the stylizer alone, no max pool); the saved npz stylizes a 256^2 frame
+    within MAGENTA_FP32_TOL mean abs of the CPU.
+40. MiDaS-small at full width from the seeded init at the hub's 256^2,
+    card against CPU within MIDAS_TOL, TF32 off and under the defaults, its
+    forward ms; ``use_midas(None)`` then ``adain_inference(use_depth=True)``
+    at 512^2 fp32 card against CPU within DEPTH_CALL_TOL mean abs, the fp32
+    kernels launched, its wall and device ms; then the classical estimator
+    put back and ``estimate_proximity`` equal to what it gave before.
+
 The line before the last lists every kernel (``{"kernels": [...]}``); the
 last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
@@ -483,8 +511,8 @@ def main():
 
     # 5. end to end, card vs CPU, fp32 --------------------------------------
     img, sty = rand(1, 256, 256, 3).cpu(), rand(1, 256, 256, 3).cpu()
-    vgg_cpu = weights.from_jax_params(_hwio(vgg), "cpu")
-    dec_cpu = weights.from_jax_params(_hwio(dec), "cpu")
+    vgg_cpu = weights.from_jax_params(weights.hwio_params(vgg), "cpu")
+    dec_cpu = weights.from_jax_params(weights.hwio_params(dec), "cpu")
     m, s = adain_infer.precompute_style_stats(vgg_cpu, sty, compute_dtype=f32, device="cpu")
     on_cpu = adain_infer.stylize_with_stats(vgg_cpu, dec_cpu, img, m, s, compute_dtype=f32,
                                             device="cpu")
@@ -636,6 +664,13 @@ def main():
     torch.cuda.empty_cache()
     # 34-37. the pixel-art page, optimisation NST, the style mixer ------------------
     _slice6_phases(torch, dev, default_tf32)
+    torch.cuda.empty_cache()
+    # 38-40. AdaIN decoder training, magenta distillation, MiDaS -------------------
+    by_path = _slice7_phases(torch, dev, default_tf32)
+    for line in lines:
+        if line["name"] in ("encode_head_fp32", "decode_tail_fp32"):
+            line["launches_by_path"] = {path: counts[line["name"][:-5]]
+                                        for path, counts in by_path.items()}
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -687,12 +722,6 @@ def _adain_check(torch, K, name, x, ws, case):
         raise AssertionError(f"{name} {list(x.shape)} {x.dtype} ({case}) failed: "
                              f"error {err} > {tol}, {fields} or the wrong route")
     return fields["bf16_plain_max_abs_err"] if bf16 else err
-
-
-def _hwio(module):
-    """A module's convs as HWIO params, the form ``from_jax_params`` takes."""
-    return [{"w": c.weight.detach().permute(2, 3, 1, 0).cpu().numpy(),
-             "b": c.bias.detach().cpu().numpy()} for c in module.convs]
 
 
 def _time_ms(torch, fn, runs=10, warmup=2):
@@ -2490,8 +2519,8 @@ def _video_card_vs_cpu(torch, np, Image, video, weights, magenta, KT, vgg, dec, 
         return (imgs, trace["flows"].cpu(), frame, KT.launch_counts()["tvl1"],
                 KT.iteration_counts()["tvl1"])
 
-    i_cpu, f_cpu, m_cpu, n_cpu, it_cpu = run("cpu", weights.from_jax_params(_hwio(vgg), "cpu"),
-                                             weights.from_jax_params(_hwio(dec), "cpu"))
+    i_cpu, f_cpu, m_cpu, n_cpu, it_cpu = run(
+        "cpu", *(weights.from_jax_params(weights.hwio_params(m), "cpu") for m in (vgg, dec)))
     for flags, tf32, held in (("tf32_off", (False, False), True),
                               ("pytorch_defaults", default_tf32, True),
                               ("pytorch_defaults_without_fp32_convs", default_tf32, False)):
@@ -4151,6 +4180,494 @@ def _style_mixer_phase(torch, dev, default_tf32, check):
          extract_palette_max_abs_err=pal_err, tol=PALETTE_TOL, init_idx=init.tolist())
     check(picks["largest_gap_over_bound"] <= 1.0 and same_picks and pal_err <= PALETTE_TOL,
           "map_colors / extract_palette card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# AdaIN decoder training, magenta distillation, MiDaS (phases 38-40)
+# ---------------------------------------------------------------------------
+
+SLICE7_WORK = WORK / "slice7"
+# Steps of each trainer's run, beside the reference's defaults; only these
+# are cut.
+TRAIN_STEPS = {"train_adain": (20, 160_000), "train_magenta": (20, 40_000)}
+TRAIN_LOSS_TOL = 1e-4        # step 1's loss, card against CPU, relative
+MIDAS_TOL = 1e-4             # MiDaS's forward, card against CPU, of the largest |value|
+DEPTH_CALL_TOL = 1e-3        # the depth-aware call, card against CPU, mean abs (BASELINE.md)
+# A training step's profile groups, by the op that launched the kernels; the
+# fp32 head and tail kernels by name (launched through ctypes).
+TRAIN_GROUPS = {"aten::conv2d": "conv forward", "aten::convolution_backward": "conv backward",
+                "aten::reflection_pad2d": "reflection pads and their backward",
+                "aten::reflection_pad2d_backward": "reflection pads and their backward",
+                "aten::max_pool2d": "max pools and their backward",
+                "aten::max_pool2d_with_indices_backward": "max pools and their backward",
+                "aten::upsample_nearest2d": "upsampling and its backward",
+                "aten::upsample_nearest2d_backward": "upsampling and its backward"}
+TRAIN_KERNELS = (("fp32 head kernel", "encode_head_kernel"),
+                 ("fp32 tail kernel", "decode_tail_kernel"))
+
+
+def _slice7_phases(torch, dev, default_tf32):
+    """Phases 38-40. Each check raises as it fails, after its line is
+    printed. Returns the fp32 head's and tail's launches on each path."""
+    import numpy as np
+    from PIL import Image
+
+    shutil.rmtree(SLICE7_WORK, ignore_errors=True)
+    dirs = {}
+    g = np.random.default_rng(0)
+    for kind in ("content", "style"):
+        d = dirs[kind] = SLICE7_WORK / kind
+        d.mkdir(parents=True)
+        for i in range(16):
+            img = (_photo(np, 512, 512, seed=int(g.integers(1 << 31))) if kind == "content"
+                   else _texture(np, g, 512))
+            Image.fromarray((img * 255).astype(np.uint8)).save(d / f"{i:02d}.png")
+    by_path = {"adain_train": _adain_train_phase(torch, dev, default_tf32, dirs)}
+    torch.cuda.empty_cache()
+    by_path["magenta_distill"] = _distill_phase(torch, dev, default_tf32, dirs)
+    torch.cuda.empty_cache()
+    by_path["midas_depth_call"] = _midas_phase(torch, dev, default_tf32, dirs)
+    return by_path
+
+
+def _texture(np, g, size):
+    """A style-like texture: a few random plane waves in random colours."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    img = np.zeros((size, size, 3), np.float32)
+    for _ in range(4):
+        f, th, ph = g.uniform(4, 40), g.uniform(0, np.pi), g.uniform(0, 2 * np.pi)
+        wave = 0.5 + 0.5 * np.sin(2 * np.pi * f * (xx * np.cos(th) + yy * np.sin(th)) + ph)
+        img += wave[..., None] * g.uniform(0, 0.5, 3).astype(np.float32)
+    return np.clip(img + g.normal(0, 0.03, img.shape), 0, 1).astype(np.float32)
+
+
+class _plain_kernels:
+    """Within the block the models call the head's and tail's plain
+    versions: the float64 references on the card, which the kernels refuse."""
+
+    def __enter__(self):
+        from aip_tpu_torch.kernels import adain_head as K
+        from aip_tpu_torch.models import decoder, vgg
+
+        self.orig = (vgg.encode_head, decoder.decode_tail)
+        vgg.encode_head, decoder.decode_tail = K.encode_head_reference, K.decode_tail_reference
+
+    def __exit__(self, *exc):
+        from aip_tpu_torch.models import decoder, vgg
+
+        vgg.encode_head, decoder.decode_tail = self.orig
+
+
+class _capture_kernel_args:
+    """Within the block every call of the models' head and tail is recorded
+    (``head``, ``tail``: lists of argument tuples) and then made."""
+
+    def __enter__(self):
+        from aip_tpu_torch.models import decoder, vgg
+
+        self.head, self.tail = [], []
+        self.orig = (vgg.encode_head, decoder.decode_tail)
+
+        def record(calls, fn):
+            def wrapper(*args):
+                calls.append(tuple(a.detach() for a in args))
+                return fn(*args)
+            return wrapper
+
+        vgg.encode_head = record(self.head, self.orig[0])
+        decoder.decode_tail = record(self.tail, self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from aip_tpu_torch.models import decoder, vgg
+
+        vgg.encode_head, decoder.decode_tail = self.orig
+
+
+def _fp32_gate(ref, ref64):
+    """(check, report) of a gradient against the CPU's ``ref``: each
+    parameter's relative L2 error within 1e-5 plus 4 times the CPU's own
+    fp32 distance from float64 (``ref`` from ``ref64``) there. The floor
+    differs by parameter (the decoder's deep convs read 1e-4 on the CPU,
+    where per-channel style statistics make their sums cancel; the rest
+    1e-6). A parameter whose float64 gradient is below 1e-6 of the largest
+    (a CIN beta before another CIN: 0 in exact arithmetic) is left out."""
+    norm = {k: float(v.double().norm()) for k, v in ref64.items()}
+    keep = [k for k in norm if norm[k] >= 1e-6 * max(norm.values())]
+
+    def errors(grads, against):
+        return {k: float((grads[k].double().cpu() - against[k].double().cpu()).norm()) / norm[k]
+                for k in keep}
+
+    floor = errors(ref, ref64)
+
+    def ratios(grads):
+        return {k: e / (1e-5 + 4 * floor[k]) for k, e in errors(grads, ref).items()}
+
+    def report(grads):
+        r = ratios(grads)
+        worst = sorted(r, key=r.get, reverse=True)[:3]
+        return {"largest_over_gate": r[worst[0]],
+                "worst": [{"param": k, "rel_l2_err": r[k] * (1e-5 + 4 * floor[k]),
+                           "cpu_fp32_from_float64": floor[k]} for k in worst],
+                "params_held": len(keep), "params_left_out": len(norm) - len(keep)}
+
+    return (lambda grads: max(ratios(grads).values()) <= 1.0), report
+
+
+def _train_cli(torch, K, name, main, argv):
+    """Run a trainer's CLI with the launch counts set to 0 just before and
+    read just after; returns (wall s, fp32 and bf16 launches)."""
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, K.route_launch_counts()
+
+
+def _step_checks(torch, K, default_tf32, label, module, loss_fn, grads_fn, loss_cpu, ref, ref64):
+    """Step 1 card against CPU, TF32 off, under PyTorch's defaults, and the
+    control with ``module``'s ``fp32_convs`` undone (the backward outside
+    it), which must miss the gradient gate."""
+    import contextlib
+
+    held, report = _fp32_gate(ref, ref64)
+    for flags, tf32, inside in (("tf32_off", (False, False), True),
+                                ("pytorch_defaults", default_tf32, True),
+                                ("pytorch_defaults_backward_outside_fp32_convs", default_tf32,
+                                 False)):
+        _set_tf32(torch, tf32)
+        try:
+            with contextlib.ExitStack() as stack:
+                if not inside:
+                    stack.enter_context(_without_fp32_convs((module,)))
+                loss = loss_fn()
+                grads = grads_fn()
+        finally:
+            _set_tf32(torch, (False, False))
+        loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+        ok = held(grads)
+        emit(f"{label}_step1_card_vs_cpu", flags=flags, tf32_conv=tf32[0],
+             backward_in_fp32_convs=inside, control_must_miss=not inside, loss_card=loss,
+             loss_cpu=loss_cpu, loss_rel_err=loss_rel, loss_tol=TRAIN_LOSS_TOL,
+             no_pool_term_grad=report(grads), grad_gate_met=ok)
+        if inside and not (loss_rel <= TRAIN_LOSS_TOL and ok):
+            raise AssertionError(f"{label} step 1 ({flags}): card and CPU disagree")
+        if not inside and ok:
+            raise AssertionError(f"{label} step 1: the control met the gradient gate")
+
+
+def _kernels_on_step_args(torch, K, label, cap, head_index=0):
+    """Rows 1f and 2f against their plain versions on the arguments a
+    step gave them (phase 3's rule)."""
+    for name, args in (("encode_head", cap.head[head_index]), ("decode_tail", cap.tail[0])):
+        _adain_check(torch, K, name, args[0].contiguous(), args[1:], label)
+
+
+def _train_timing(torch, K, label, one, call, tail_args):
+    """ms a step (CUDA events, median of 10 after 2), one step's device ms
+    by op group and the busy share, and the tail's kernel and its recompute
+    backward (the plain version's forward and backward) alone."""
+    step_ms = _time_ms(torch, one)
+    stages = tuple(dict.fromkeys(TRAIN_GROUPS.values())) + tuple(s for s, _ in TRAIN_KERNELS)
+    device_ms, stage_ms = _stage_profile(torch, f"{label}_step_profile", one, stages,
+                                         named=TRAIN_KERNELS, stage_of=TRAIN_GROUPS.get,
+                                         call=call)
+    y, *w = tail_args
+    y = y.detach().requires_grad_()
+    w = [t.detach().requires_grad_() for t in w]
+    out = K.decode_tail(y, *w)
+    g_out = torch.randn_like(out)
+    recompute_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        K.decode_tail_reference(y, *w), [y, *w], g_out))
+    kernel_ms = _time_ms(torch, lambda: K.decode_tail(y.detach(), *[t.detach() for t in w]))
+    emit(f"{label}_step_time", ms_a_step=step_ms, timing="CUDA events, median of 10 after 2",
+         device_ms_a_step=device_ms, tail_shape=list(y.shape), tail_kernel_ms=kernel_ms,
+         tail_recompute_backward_ms=recompute_ms,
+         recompute_note="the tail's backward: its plain version run again, forward and "
+                        "backward, on the saved input (cuDNN convs)")
+    return step_ms
+
+
+def _loader_time(dirs, batches=10):
+    """The CLI's data loader alone (16 decoding threads, batch 8, crop 256):
+    ms a batch over ``batches`` batches after the first, host clock."""
+    from aip_tpu_torch.data.images import FlatFolderDataset, infinite_batches
+
+    it = infinite_batches(FlatFolderDataset(dirs["content"]), 8, seed=0, crop=256,
+                          num_workers=16)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    emit("train_data_loader", batch=8, crop=256, image_size=512, workers=16,
+         ms_a_batch=1e3 * (time.perf_counter() - t0) / batches, batches=batches,
+         cpu_count=os.cpu_count(), timing="host clock, after the first batch; a step of "
+         "train_adain reads two such batches (content and style)")
+
+
+def _first_batches(dirs, batch, torch):
+    from aip_tpu_torch.data.images import FlatFolderDataset, infinite_batches
+
+    c = next(infinite_batches(FlatFolderDataset(dirs["content"]), batch, seed=0, crop=256))
+    s = next(infinite_batches(FlatFolderDataset(dirs["style"]), batch, seed=1, crop=256))
+    return torch.from_numpy(c), torch.from_numpy(s)
+
+
+def _adain_train_phase(torch, dev, default_tf32, dirs):
+    """Phase 38."""
+    import copy
+    import json as _json
+
+    import numpy as np
+
+    from aip_tpu_torch.cli import train_adain
+    from aip_tpu_torch.kernels import adain_head as K
+    from aip_tpu_torch.models import decoder as D
+    from aip_tpu_torch.models import weights
+    from aip_tpu_torch.parallel import train as PT
+
+    steps, default = TRAIN_STEPS["train_adain"]
+    out = SLICE7_WORK / "adain"
+    wall, routes = _train_cli(torch, K, "train_adain", train_adain.main, [
+        "--content_dir", str(dirs["content"]), "--style_dir", str(dirs["style"]),
+        "--save_dir", str(out / "experiments"), "--log_dir", str(out / "logs"),
+        "--max_iter", str(steps), "--save_model_interval", str(steps)])
+    ckpt = out / "experiments" / f"decoder_iter_{steps}.npz"
+    log = out / "logs" / "train_log.jsonl"
+    saved = weights.load_params_npz(ckpt) if ckpt.is_file() else []
+    finite = bool(saved) and all(np.isfinite(p["w"]).all() and np.isfinite(p["b"]).all()
+                                 for p in saved)
+    records = [_json.loads(l) for l in log.read_text().splitlines()] if log.is_file() else None
+    emit("adain_train_cli", entry="aip_tpu_torch.cli.train_adain.main", batch=8, crop=256,
+         dtype="float32", steps=steps, default_steps=default, wall_s=wall,
+         ms_a_step_with_data=1e3 * wall / steps, route_launches=routes,
+         launches_a_step={k: v / steps for k, v in routes["fp32"].items()},
+         checkpoint=str(ckpt.relative_to(ROOT)), checkpoint_convs=len(saved),
+         checkpoint_finite=finite, log_written=records is not None, log_records=records,
+         log_note="a record every 100 iterations, as the JAX package writes")
+    if not (finite and records is not None and min(routes["fp32"].values()) > 0
+            and not any(routes["bf16"].values())):
+        raise AssertionError(f"train_adain: checkpoint, log or fp32 launches missing: {routes}")
+    _loader_time(dirs)
+
+    # Step 1 from the CLI's start, card against the port on the CPU.
+    vgg = weights.get_vgg_params(device=dev).requires_grad_(False)
+    dec = D.init_decoder_params(0, device=dev)
+    c, s = _first_batches(dirs, 8, torch)
+    vgg_cpu, dec_cpu = copy.deepcopy(vgg).cpu(), copy.deepcopy(dec).cpu()
+    term = dict(style_weight=1.0, content_weight=0.0, style_taps=("relu1_1",))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_cpu = PT.adain_train_loss(dec_cpu, vgg_cpu, c, s)[0].item()
+    _, _, ref = PT.train_loss_and_grads(dec_cpu, vgg_cpu, c, s, **term)
+    cpu_s = time.perf_counter() - t0
+    del vgg_cpu, dec_cpu
+    with _plain_kernels():
+        _, _, ref64 = PT.train_loss_and_grads(
+            copy.deepcopy(dec).double(), copy.deepcopy(vgg).double(), c.to(dev).double(),
+            s.to(dev).double(), compute_dtype=torch.float64, **term)
+    cd, sd = c.to(dev), s.to(dev)
+
+    def loss_fn():
+        with torch.no_grad():
+            return PT.adain_train_loss(dec, vgg, cd, sd)[0].item()
+
+    emit("adain_train_cpu_reference", batch=8, crop=256, cpu_s=cpu_s,
+         note="the loss, and the relu1_1 style term's gradient; float64 on the card through "
+              "the plain versions")
+    _step_checks(torch, K, default_tf32, "adain_train", "aip_tpu_torch.parallel.train",
+                 loss_fn, lambda: PT.train_loss_and_grads(dec, vgg, cd, sd, **term)[2],
+                 loss_cpu, ref, ref64)
+    del ref64
+    with _capture_kernel_args() as cap:
+        PT.train_loss_and_grads(dec, vgg, cd, sd)
+    _kernels_on_step_args(torch, K, "adain_train_step", cap)
+
+    opt = PT.make_optimizer()
+    vgg_t, state = PT.shard_train_setup([dev], vgg, dec, opt)
+    step = PT.compile_train_step([dev], opt, vgg_t)
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], cd, sd)[0]
+
+    _train_timing(torch, K, "adain_train", one,
+                  "one make_train_step step, batch 8 x 256^2, fp32, TF32 off", cap.tail[0])
+    return routes["fp32"]
+
+
+def _distill_phase(torch, dev, default_tf32, dirs):
+    """Phase 39."""
+    import copy
+
+    import numpy as np
+
+    from aip_tpu_torch.cli import train_magenta
+    from aip_tpu_torch.kernels import adain_head as K
+    from aip_tpu_torch.models import magenta as M
+    from aip_tpu_torch.models import magenta_train as MT
+    from aip_tpu_torch.models import weights
+    from aip_tpu_torch.parallel.train import make_optimizer
+
+    steps, default = TRAIN_STEPS["train_magenta"]
+    save = SLICE7_WORK / "magenta" / "magenta.npz"
+    wall, routes = _train_cli(torch, K, "train_magenta", train_magenta.main, [
+        "--content_dir", str(dirs["content"]), "--style_dir", str(dirs["style"]),
+        "--save_path", str(save), "--max_iter", str(steps), "--save_model_interval", str(steps)])
+    emit("magenta_distill_cli", entry="aip_tpu_torch.cli.train_magenta.main", batch=8,
+         crop=256, trunk="compact", lr=1e-3, steps=steps, default_steps=default, wall_s=wall,
+         ms_a_step_with_data=1e3 * wall / steps, route_launches=routes,
+         launches_a_step={k: v / steps for k, v in routes["fp32"].items()},
+         saved=str(save.relative_to(ROOT)) if save.is_file() else None)
+    if not (save.is_file() and min(routes["fp32"].values()) > 0
+            and not any(routes["bf16"].values())):
+        raise AssertionError(f"train_magenta: no checkpoint or fp32 launches missing: {routes}")
+
+    vgg = weights.get_vgg_params(device=dev).requires_grad_(False)
+    dec = weights.get_decoder_params(device=dev).requires_grad_(False)
+    stu = M.init_magenta_params(torch.Generator().manual_seed(0), device=dev)
+    c, s = _first_batches(dirs, 8, torch)
+    s = s[0]
+    cpu = [copy.deepcopy(m).cpu() for m in (vgg, dec)]
+    stu_cpu = M.MagentaParams(*(copy.deepcopy(m).cpu() for m in stu))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_cpu = MT.distill_loss(stu_cpu, *cpu, c, s).item()
+    _, ref = MT.distill_loss_and_grads(stu_cpu, *cpu, c, s, lambda_feat=0.0)
+    cpu_s = time.perf_counter() - t0
+    del cpu, stu_cpu
+    with _plain_kernels():
+        _, ref64 = MT.distill_loss_and_grads(
+            M.MagentaParams(*(copy.deepcopy(m).double() for m in stu)),
+            copy.deepcopy(vgg).double(), copy.deepcopy(dec).double(), c.to(dev).double(),
+            s.to(dev).double(), lambda_feat=0.0)
+    cd, sd = c.to(dev), s.to(dev)
+
+    def loss_fn():
+        with torch.no_grad():
+            return MT.distill_loss(stu, vgg, dec, cd, sd).item()
+
+    emit("magenta_distill_cpu_reference", batch=8, crop=256, cpu_s=cpu_s,
+         note="the loss, and the pixel term's gradient (lambda_feat 0); float64 on the card "
+              "through the plain versions")
+    _step_checks(torch, K, default_tf32, "magenta_distill", "aip_tpu_torch.models.magenta_train",
+                 loss_fn, lambda: MT.distill_loss_and_grads(stu, vgg, dec, cd, sd,
+                                                            lambda_feat=0.0)[1],
+                 loss_cpu, ref, ref64)
+    del ref64
+    with _capture_kernel_args() as cap:
+        MT.distill_loss_and_grads(stu, vgg, dec, cd, sd)
+    # The head's calls: teacher content, teacher style, student (with a
+    # gradient), teacher features.
+    emit("magenta_distill_head_calls", shapes=[list(a[0].shape) for a in cap.head],
+         tail_calls=len(cap.tail))
+    _kernels_on_step_args(torch, K, "magenta_distill_step", cap, head_index=2)
+
+    opt = make_optimizer(1e-3)
+    opt_state = opt.init({k: p.detach() for k, p in MT._named(stu)})
+    step = MT.make_distill_step(opt, vgg, dec)
+    holder = [opt_state]
+
+    def one():
+        holder[0] = step(stu, holder[0], cd, sd)[1]
+
+    _train_timing(torch, K, "magenta_distill", one,
+                  "one make_distill_step step, batch 8 x 256^2, fp32, TF32 off", cap.tail[0])
+
+    # The saved stylizer, card against CPU on a 256^2 frame (phase 24's gate).
+    frame = torch.from_numpy(_photo(np, 256, 256, seed=7))[None]
+    sty = torch.from_numpy(_texture(np, np.random.default_rng(7), 256))
+    with torch.no_grad():
+        ref_frame = M.stylize(M.load_magenta_npz(save, device="cpu"), frame, sty)
+        _set_tf32(torch, default_tf32)
+        try:
+            out = M.stylize(M.load_magenta_npz(save, device=dev), frame.to(dev), sty.to(dev))
+            out = out.cpu()
+        finally:
+            _set_tf32(torch, (False, False))
+    err = (out - ref_frame).abs().mean().item()
+    emit("magenta_distilled_frame_card_vs_cpu", flags="pytorch_defaults", size=256,
+         mean_abs_err=err, tol=MAGENTA_FP32_TOL, finite=bool(torch.isfinite(out).all()))
+    if not err <= MAGENTA_FP32_TOL:
+        raise AssertionError(f"the distilled stylizer's frame: card {err} from the CPU")
+    return routes["fp32"]
+
+
+def _midas_phase(torch, dev, default_tf32, dirs):
+    """Phase 40."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.kernels import adain_head as K
+    from aip_tpu_torch.models import depthnet
+    from aip_tpu_torch.models import midas as MD
+    from aip_tpu_torch.pipelines.adain_infer import adain_inference
+
+    net = MD.init_midas_params(device=dev)
+    net_cpu = copy.deepcopy(net).cpu()
+    x = torch.from_numpy(_photo(np, 256, 256, seed=40))[None]
+    with torch.no_grad():
+        ref = MD.midas_inverse_depth(net_cpu, x)
+        for flags, tf32 in (("tf32_off", (False, False)), ("pytorch_defaults", default_tf32)):
+            _set_tf32(torch, tf32)
+            try:
+                out = MD.midas_inverse_depth(net, x.to(dev)).cpu()
+            finally:
+                _set_tf32(torch, (False, False))
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            emit("midas_card_vs_cpu", flags=flags, input_hw=[256, 256], rel_max_abs_err=err,
+                 tol=MIDAS_TOL, finite=bool(torch.isfinite(out).all()))
+            if not err <= MIDAS_TOL:
+                raise AssertionError(f"MiDaS ({flags}): card {err} from the CPU")
+        xd = x.to(dev)
+        fwd_ms = _time_ms(torch, lambda: MD.midas_inverse_depth(net, xd))
+    params = sum(p.numel() for p in net.parameters())
+    emit("midas_forward_time", input_hw=[256, 256], ms=fwd_ms, parameters=params,
+         timing="CUDA events, median of 10 after 2, TF32 off")
+
+    content = dirs["content"] / "00.png"
+    style = dirs["style"] / "00.png"
+    img = torch.from_numpy(np.asarray(Image.open(content), np.float32) / 255.0).to(dev)
+    before = depthnet.estimate_proximity(img)
+    outs, calls = {}, {}
+    for where in ("cpu", dev):
+        MD.use_midas(None, device=where)
+        try:
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = adain_inference(str(content), str(style), output=str(SLICE7_WORK / "depth"),
+                                   file_name=f"midas_{torch.device(where).type}",
+                                   save_ext=".png", use_depth=True, device=where)
+            torch.cuda.synchronize()
+            calls[torch.device(where).type] = (time.perf_counter() - t0, K.route_launch_counts())
+            outs[torch.device(where).type] = np.asarray(Image.open(path), np.float32) / 255.0
+            if where == dev:
+                device_ms, _ = _stage_profile(
+                    torch, "midas_depth_call_profile", lambda: adain_inference(
+                        str(content), str(style), output=str(SLICE7_WORK / "depth"),
+                        file_name="midas_profiled", save_ext=".png", use_depth=True,
+                        device=dev), (), named=(), call="adain_inference(use_depth=True) with "
+                    "MiDaS at 512^2, fp32, TF32 off, PNG IO included")
+        finally:
+            depthnet.register_depth_model(None)
+    err = float(np.abs(outs["cuda"] - outs["cpu"]).mean())
+    wall, routes = calls["cuda"]
+    after = depthnet.estimate_proximity(img)
+    same = bool(torch.equal(before, after))
+    emit("midas_depth_call", entry="adain_inference(use_depth=True) after use_midas(None)",
+         size=512, dtype="float32", out_shape=list(outs["cuda"].shape), mean_abs_err=err,
+         tol=DEPTH_CALL_TOL, wall_ms=1e3 * wall, cpu_wall_ms=1e3 * calls["cpu"][0],
+         device_ms=device_ms, route_launches=routes,
+         classical_proxy_restored=same)
+    if not (err <= DEPTH_CALL_TOL and min(routes["fp32"].values()) > 0 and same):
+        raise AssertionError(f"the MiDaS depth call failed: err {err}, launches {routes}, "
+                             f"classical proxy restored {same}")
+    return routes["fp32"]
 
 
 if __name__ == "__main__":

@@ -1505,3 +1505,155 @@ def test_nst_gradient_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeyp
     assert _max_rel_err(on_card_with_tf32(("conv1_1",))[1], grad_ref) <= 1e-4
     monkeypatch.setattr(nst, "fp32_convs", contextlib.nullcontext)
     assert _max_rel_err(on_card_with_tf32(("conv1_1",))[1], grad_ref) > 1e-4
+
+
+def _fp32_gate(ref, ref64):
+    """A check of a gradient dict against the CPU's ``ref``: each parameter's
+    relative L2 error within 1e-5 plus 4 times the CPU's own fp32 distance
+    from float64 (``ref`` from ``ref64``) there (chip_smoke.py's
+    ``_fp32_gate``). The floor differs by parameter: the decoder's deep
+    convs read 1e-4 (per-channel style statistics make their sums cancel),
+    the rest 1e-6. A parameter whose float64 gradient is below 1e-6 of the
+    largest (a CIN beta before another CIN: 0 in exact arithmetic) is left
+    out. Returns the largest error over its gate."""
+    norm = {k: float(v.double().norm()) for k, v in ref64.items()}
+    keep = [k for k in norm if norm[k] >= 1e-6 * max(norm.values())]
+
+    def errors(grads, against):
+        return {k: float((grads[k].double().cpu() - against[k].double().cpu()).norm()) / norm[k]
+                for k in keep}
+
+    floor = errors(ref, ref64)
+    return lambda grads: max(e / (1e-5 + 4 * floor[k]) for k, e in errors(grads, ref).items())
+
+
+def _on_card_with_tf32(fn):
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+@pytest.mark.cuda
+def test_decoder_train_step_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch):
+    """The decoder trainer's forward and backward (``train_loss_and_grads``,
+    what each step runs) at 2 x 64^2 with cuDNN's TF32 on, as PyTorch
+    starts: the loss within 1e-5 relative of the CPU's; the gradient of the
+    relu1_1 style term, which reaches no max pool, within ``_fp32_gate``
+    (chip_smoke.py phase 38's gate), the fp32 head and tail kernels
+    launched. The control: with the backward outside ``fp32_convs``, the
+    gradient misses the gate."""
+    import contextlib
+    import copy
+
+    from aip_tpu_torch.parallel import train as ptrain
+
+    vgg_c, dec_c = tvgg.init_vgg_params(0, "cpu"), tdec.init_decoder_params(1, "cpu")
+    vgg, dec = copy.deepcopy(vgg_c).to(cuda), copy.deepcopy(dec_c).to(cuda)
+    g = np.random.default_rng(38)
+    c = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32))
+    s = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32))
+    term = dict(style_weight=1.0, content_weight=0.0, style_taps=("relu1_1",))
+
+    loss_ref, _, _ = ptrain.train_loss_and_grads(dec_c, vgg_c, c, s)
+    _, _, ref = ptrain.train_loss_and_grads(dec_c, vgg_c, c, s, **term)
+    _, _, ref64 = ptrain.train_loss_and_grads(copy.deepcopy(dec_c).double(),
+                                              copy.deepcopy(vgg_c).double(), c.double(),
+                                              s.double(), compute_dtype=torch.float64, **term)
+    held = _fp32_gate(ref, ref64)
+    K.reset_launch_counts()
+    loss, _, _ = _on_card_with_tf32(lambda: ptrain.train_loss_and_grads(
+        dec, vgg, c.to(cuda), s.to(cuda)))
+    assert K.route_launch_counts()["fp32"] == {"encode_head": 1, "decode_tail": 1}
+    assert abs(loss.item() - loss_ref.item()) <= 1e-5 * abs(loss_ref.item())
+    _, _, grads = _on_card_with_tf32(lambda: ptrain.train_loss_and_grads(
+        dec, vgg, c.to(cuda), s.to(cuda), **term))
+    assert held(grads) <= 1.0
+    monkeypatch.setattr(ptrain, "fp32_convs", contextlib.nullcontext)
+    _, _, grads = _on_card_with_tf32(lambda: ptrain.train_loss_and_grads(
+        dec, vgg, c.to(cuda), s.to(cuda), **term))
+    assert held(grads) > 1.0
+
+
+@pytest.mark.cuda
+def test_distillation_step_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch):
+    """The distillation's forward and backward (``distill_loss_and_grads``)
+    at 2 x 64^2, one style, with cuDNN's TF32 on: the loss within 1e-5
+    relative of the CPU's, the fp32 head kernel launched 4 times (teacher
+    content and style, student, teacher features) and the tail once; the
+    gradient of the pixel term (``lambda_feat=0``: the stylizer alone, no
+    max pool) within ``_fp32_gate``. The control: with the backward outside
+    ``fp32_convs``, it misses."""
+    import contextlib
+    import copy
+
+    from aip_tpu_torch.models import magenta
+    from aip_tpu_torch.models import magenta_train as mt
+
+    vgg_c, dec_c = tvgg.init_vgg_params(0, "cpu"), tdec.init_decoder_params(1, "cpu")
+    vgg, dec = copy.deepcopy(vgg_c).to(cuda), copy.deepcopy(dec_c).to(cuda)
+    stu_c = magenta.init_magenta_params(device="cpu")
+    stu = magenta.MagentaParams(*(copy.deepcopy(m).to(cuda) for m in stu_c))
+    g = np.random.default_rng(39)
+    c = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32))
+    s = torch.from_numpy(g.random((64, 64, 3)).astype(np.float32))
+
+    loss_ref, _ = mt.distill_loss_and_grads(stu_c, vgg_c, dec_c, c, s)
+    _, ref = mt.distill_loss_and_grads(stu_c, vgg_c, dec_c, c, s, lambda_feat=0.0)
+    stu64 = magenta.MagentaParams(*(copy.deepcopy(m).double() for m in stu_c))
+    _, ref64 = mt.distill_loss_and_grads(stu64, copy.deepcopy(vgg_c).double(),
+                                         copy.deepcopy(dec_c).double(), c.double(), s.double(),
+                                         lambda_feat=0.0)
+    held = _fp32_gate(ref, ref64)
+    K.reset_launch_counts()
+    loss, _ = _on_card_with_tf32(lambda: mt.distill_loss_and_grads(
+        stu, vgg, dec, c.to(cuda), s.to(cuda)))
+    assert K.route_launch_counts()["fp32"] == {"encode_head": 4, "decode_tail": 1}
+    assert abs(loss.item() - loss_ref.item()) <= 1e-5 * abs(loss_ref.item())
+    run = lambda: mt.distill_loss_and_grads(stu, vgg, dec, c.to(cuda), s.to(cuda),  # noqa: E731
+                                            lambda_feat=0.0)
+    assert held(_on_card_with_tf32(run)[1]) <= 1.0
+    monkeypatch.setattr(mt, "fp32_convs", contextlib.nullcontext)
+    assert held(_on_card_with_tf32(run)[1]) > 1.0
+
+
+@pytest.mark.cuda
+def test_midas_on_the_card_matches_the_cpu(cuda):
+    """MiDaS-small at full width from the seeded init, 1 x 256^2, with
+    cuDNN's TF32 on: within 1e-4 of the CPU's largest |value|; the depth
+    estimator on a 40x52 image likewise, on the card."""
+    import copy
+
+    from aip_tpu_torch.models import midas
+
+    net_c = midas.init_midas_params(device="cpu")
+    net = copy.deepcopy(net_c).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(40).random((1, 256, 256, 3)).astype(np.float32))
+    ref = midas.midas_inverse_depth(net_c, x)
+    out = _on_card_with_tf32(lambda: midas.midas_inverse_depth(net, x.to(cuda)))
+    assert _max_rel_err(out.cpu(), ref) <= 1e-4
+    img = np.random.default_rng(41).random((40, 52, 3)).astype(np.float32)
+    ref = midas.make_depth_estimator(net_c)(img)
+    out = _on_card_with_tf32(lambda: midas.make_depth_estimator(net)(img))
+    assert out.device.type == "cuda" and _max_rel_err(out.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_midas_estimator_refuses_a_tensor_on_another_device(cuda):
+    """Weights on the card, the image on the CPU: the estimator raises
+    rather than move either."""
+    from aip_tpu_torch.models import depthnet, midas
+
+    est = midas.make_depth_estimator(midas.init_midas_params(device=cuda))
+    with pytest.raises(ValueError, match="move one of them"):
+        est(torch.zeros(40, 52, 3))
+    depthnet.register_depth_model(est)
+    try:
+        with pytest.raises(ValueError, match="move one of them"):
+            depthnet.estimate_proximity(torch.zeros(40, 52, 3))
+    finally:
+        depthnet.register_depth_model(None)

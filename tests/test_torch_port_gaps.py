@@ -210,3 +210,184 @@ def test_gap_entry_points_without_cuda_raise(tmp_path, monkeypatch):
                  lambda: tv19.init_vgg19_params()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: every public name of the new modules, the host utilities and the
+# COLMAP runner
+# ---------------------------------------------------------------------------
+
+# (module under aip_tpu / aip_tpu_torch, JAX names the port leaves out, why)
+SLICE7_MODULES = (
+    ("data", (), ""),
+    ("data.images", (), ""),
+    ("parallel", ("make_mesh", "best_grid", "conv_param_sharding", "batch_sharding",
+                  "replicated"), "meshes and shardings: ROADMAP queue 1 item 9"),
+    ("parallel.train", (), ""),
+    ("cli.train_adain", (), ""),
+    ("cli.train_magenta", (), ""),
+    ("models.magenta_train", (), ""),
+    ("models.midas", (), ""),
+    ("utils", (), ""),
+    ("utils.logging", (), ""),
+    ("utils.profiling", ("jnp_flat",), "a jax.numpy helper of device_sync"),
+    ("utils.system", (), ""),
+    ("gs.convert", (), ""),
+)
+
+
+def _public_names(mod):
+    """Functions and classes a module defines or, for a package, exports."""
+    import inspect
+
+    is_pkg = hasattr(mod, "__path__")
+    return {name for name, obj in vars(mod).items()
+            if not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
+            and (is_pkg or obj.__module__ == mod.__name__)}
+
+
+@pytest.mark.parametrize("name,left_out,why", SLICE7_MODULES, ids=[m[0] for m in SLICE7_MODULES])
+def test_slice7_public_names_match_jax(name, left_out, why):
+    import importlib
+
+    jax_names = _public_names(importlib.import_module(f"aip_tpu.{name}"))
+    port_names = _public_names(importlib.import_module(f"aip_tpu_torch.{name}"))
+    assert jax_names - port_names == set(left_out), why
+
+
+def test_scalar_logger_matches_jax(tmp_path):
+    import json
+
+    from aip_tpu.utils.logging import ScalarLogger as JLogger
+    from aip_tpu_torch.utils.logging import ScalarLogger as TLogger
+
+    for cls, d in ((JLogger, tmp_path / "j"), (TLogger, tmp_path / "t")):
+        log = cls(d, use_tensorboard=False)
+        log.scalar("loss", 1.5, 1)
+        log.scalar("lr", np.float32(0.25), np.int64(2))
+        log.close()
+    recs = [[{k: v for k, v in json.loads(l).items() if k != "t"}
+             for l in (d / "scalars.jsonl").read_text().splitlines()]
+            for d in (tmp_path / "j", tmp_path / "t")]
+    assert recs[0] == recs[1] == [{"tag": "loss", "value": 1.5, "step": 1},
+                                  {"tag": "lr", "value": 0.25, "step": 2}]
+
+
+def test_system_utils_match_jax(tmp_path, monkeypatch):
+    import random
+    import sys
+
+    from aip_tpu.utils import system as jsys
+    from aip_tpu_torch.utils import system as tsys
+
+    for i, mod in enumerate((jsys, tsys)):
+        d = tmp_path / f"d{i}"
+        mod.mkdir_p(str(d / "a" / "b"))
+        mod.mkdir_p(str(d / "a" / "b"))
+        for n in ("iteration_7000", "iteration_30000", "ours_15000", "notes"):
+            (d / n).mkdir()
+        assert mod.search_for_max_iteration(d) == 30000
+        (d / "file").write_text("x")
+        with pytest.raises(OSError):
+            mod.mkdir_p(str(d / "file"))
+    draws = []
+    for mod in (jsys, tsys):
+        monkeypatch.setattr(sys, "stdout", sys.stdout)
+        mod.safe_state(silent=True, seed=3)
+        print("silenced")
+        draws.append((random.random(), np.random.rand()))
+    assert draws[0] == draws[1]
+    torch.manual_seed(0)
+    tsys.safe_state(silent=True, seed=3)
+    a = torch.rand(4)
+    torch.manual_seed(3)
+    assert torch.equal(a, torch.rand(4))
+
+
+def test_profiling_utils(tmp_path):
+    from aip_tpu_torch.utils import profiling as tprof
+
+    timer = tprof.StepTimer(ema=0.5)
+    for _ in range(2):
+        timer.start()
+        x = torch.ones(4) * 2
+        dt = timer.stop(sync_on=[x])
+        assert dt >= 0.0
+    assert timer.value is not None
+    tprof.device_sync(x)
+    with tprof.trace(tmp_path / "tr"):
+        torch.ones(8).sum()
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+FAKE_COLMAP = """#!{python}
+import json, shutil, sys
+from pathlib import Path
+
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(json.dumps(args) + "\\n")
+opt = dict(zip(args[1::2], args[2::2]))
+if args[0] == "mapper":
+    out = Path(opt["--output_path"]) / "0"
+    out.mkdir(parents=True, exist_ok=True)
+if args[0] == "image_undistorter":
+    out = Path(opt["--output_path"])
+    (out / "sparse").mkdir(parents=True, exist_ok=True)
+    for n in ("cameras.bin", "images.bin", "points3D.bin"):
+        (out / "sparse" / n).write_bytes(b"stub")
+    (out / "images").mkdir(exist_ok=True)
+    for p in Path(opt["--image_path"]).iterdir():
+        shutil.copy(p, out / "images" / p.name)
+"""
+
+
+@pytest.mark.parametrize("skip_matching", [False, True])
+def test_convert_scene_matches_jax(tmp_path, rng, skip_matching):
+    """The same colmap calls (paths relative to each scene) and a byte-equal
+    resize pyramid; a missing binary raises the same error."""
+    import json
+    import sys
+
+    from aip_tpu.gs import convert as jconv
+    from aip_tpu_torch.gs import convert as tconv
+
+    imgs = [(rng.random((24, 40, 3)) * 255).astype(np.uint8) for _ in range(2)]
+    calls = {}
+    for name, mod in (("j", jconv), ("t", tconv)):
+        src = tmp_path / name / "scene"
+        (src / "input").mkdir(parents=True)
+        if skip_matching:
+            (src / "distorted" / "sparse" / "0").mkdir(parents=True)
+        for i, a in enumerate(imgs):
+            Image.fromarray(a).save(src / "input" / f"im{i}.png")
+        log = tmp_path / name / "calls.jsonl"
+        exe = tmp_path / name / "colmap"
+        exe.write_text(FAKE_COLMAP.format(python=sys.executable, log=str(log)))
+        exe.chmod(0o755)
+        assert mod.convert_scene(src, colmap_executable=str(exe), resize=True,
+                                 skip_matching=skip_matching) == str(src)
+        calls[name] = [[a.replace(str(src), "SRC") for a in json.loads(l)]
+                       for l in log.read_text().splitlines()]
+    assert calls["t"] == calls["j"] and len(calls["t"]) == (1 if skip_matching else 4)
+    for factor in (2, 4, 8):
+        for i in range(2):
+            rel = f"scene/images_{factor}/im{i}.png"
+            assert (tmp_path / "t" / rel).read_bytes() == (tmp_path / "j" / rel).read_bytes()
+    assert sorted(p.name for p in (tmp_path / "t" / "scene" / "sparse" / "0").iterdir()) == [
+        "cameras.bin", "images.bin", "points3D.bin"]
+
+
+def test_convert_without_colmap_raises_as_jax(tmp_path, monkeypatch):
+    import shutil
+
+    from aip_tpu.gs import convert as jconv
+    from aip_tpu_torch.gs import convert as tconv
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    msgs = []
+    for mod in (jconv, tconv):
+        with pytest.raises(RuntimeError, match="colmap binary not found") as err:
+            mod.main(["-s", str(tmp_path)])
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]

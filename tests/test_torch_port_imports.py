@@ -71,7 +71,13 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.cli.run_pixelize", "aip_tpu_torch.cli.run_vectorize",
                  "aip_tpu_torch.ops.gram", "aip_tpu_torch.pipelines.nst",
                  "aip_tpu_torch.cli.run_nst", "aip_tpu_torch.models.densenet",
-                 "aip_tpu_torch.models.swin", "aip_tpu_torch.pipelines.style_mixer"):
+                 "aip_tpu_torch.models.swin", "aip_tpu_torch.pipelines.style_mixer",
+                 "aip_tpu_torch.data", "aip_tpu_torch.data.images", "aip_tpu_torch.parallel",
+                 "aip_tpu_torch.parallel.train", "aip_tpu_torch.cli.train_adain",
+                 "aip_tpu_torch.cli.train_magenta", "aip_tpu_torch.models.magenta_train",
+                 "aip_tpu_torch.models.midas", "aip_tpu_torch.utils",
+                 "aip_tpu_torch.utils.logging", "aip_tpu_torch.utils.profiling",
+                 "aip_tpu_torch.utils.system", "aip_tpu_torch.gs.convert"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
