@@ -2,8 +2,9 @@
 argument surface: ellipse video, circular orbit, gaussian-jittered views).
 
 Port of ``aip_tpu/cli/render_video.py``, plus ``--device`` (the CUDA card
-by default, ``cpu`` for the plain path). ``--mesh_dp`` above 1 is the
-multi-GPU slice and raises.
+by default, ``cpu`` for the plain path). ``--mesh_dp N`` above 1 renders
+the ellipse video with the Gaussians split over N devices (N cards, or N
+repeated CPU devices with ``--device cpu``).
 
     python -m aip_tpu_torch.cli.render_video -m MODEL_DIR --video --n_frames 120
 """
@@ -24,8 +25,7 @@ def main(argv=None):
     parser.add_argument("--mean", type=float, default=0.0)
     parser.add_argument("--fps", type=int, default=30)
     parser.add_argument("--mesh_dp", type=int, default=0,
-                        help="Gaussian-sharded rendering over the first N cards (the "
-                             "multi-GPU slice; above 1 it raises).")
+                        help="Gaussian-sharded rendering over the first N cards.")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card).")
     args = parser.parse_args(argv)

@@ -2,8 +2,10 @@
 
 Port of ``aip_tpu/cli/run_3dgs.py``: ``run_3dgs_training`` then
 ``run_3dgs_rendering`` of the saved model. ``--device`` picks the card
-(default) or ``cpu``; ``--views_per_step`` above 1, ``--mesh_dp`` above 1
-and ``--gaussian_shard`` are the multi-GPU slice and raise.
+(default) or ``cpu``; ``--views_per_step B`` trains B views a step,
+``--mesh_dp N`` above 1 splits each view batch (and the render's Gaussians)
+over N devices (N cards, or N repeated CPU devices with ``--device cpu``),
+``--gaussian_shard`` also splits the colour field's Gaussians.
 
     python -m aip_tpu_torch.cli.run_3dgs --content SCENE --style STYLE.png
 """

@@ -3,7 +3,9 @@ plus ``--device``). ``python -m aip_tpu_torch.cli.train_adain --content_dir
 C --style_dir S [--max_iter 160000] [--device cuda|cpu]``.
 
 Trains the decoder against the frozen normalised-VGG encoder with the
-reference's loss and schedule on one device. Every 100 iterations it
+reference's loss and schedule on a (dp, tp) mesh of every card of the
+device's kind (``parallel.mesh.make_mesh``, as the JAX CLI builds it; on one
+card or the CPU a (1, 1) mesh). Every 100 iterations it
 appends a record to ``<log_dir>/train_log.jsonl``; every
 ``--save_model_interval`` iterations, and at the last, it writes
 ``<save_dir>/decoder_iter_N.npz`` in the JAX package's layout (HWIO), which
@@ -47,6 +49,7 @@ def main(argv=None):
     from aip_tpu_torch.models import decoder as dec_mod
     from aip_tpu_torch.models import weights as weights_mod
     from aip_tpu_torch.parallel import train as ptrain
+    from aip_tpu_torch.parallel.mesh import local_devices, make_mesh
 
     dev = resolve_device(args.device)
     save_dir = Path(args.save_dir)
@@ -57,10 +60,11 @@ def main(argv=None):
     vgg_params = weights_mod.get_vgg_params(args.vgg, device=dev)
     dec_params = dec_mod.init_decoder_params(0, device=dev)
 
+    mesh = make_mesh(local_devices(dev), ("dp", "tp"))
     optimizer = ptrain.make_optimizer(args.lr, args.lr_decay)
-    vgg_params, state = ptrain.shard_train_setup([dev], vgg_params, dec_params, optimizer)
+    vgg_params, state = ptrain.shard_train_setup(mesh, vgg_params, dec_params, optimizer)
     step = ptrain.compile_train_step(
-        [dev], optimizer, vgg_params,
+        mesh, optimizer, vgg_params,
         style_weight=args.style_weight, content_weight=args.content_weight,
     )
 

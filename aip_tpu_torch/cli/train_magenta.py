@@ -6,8 +6,10 @@ cuda|cpu]``.
 Trains the magenta-equivalent feed-forward stylizer (``models/magenta.py``)
 by distilling the AdaIN teacher (``models/magenta_train.py``) and writes it
 in the JAX package's npz layout. Data plumbing mirrors the AdaIN trainer
-(reference ``AdaIN/train.py:58-136``). ``--mesh_dp > 1`` is the multi-GPU
-slice of the port (ROADMAP queue 1 item 9) and raises.
+(reference ``AdaIN/train.py:58-136``). ``--mesh_dp N > 1`` shards each
+content batch over a (dp,) mesh of N devices (``parallel.mesh.make_dp_mesh``:
+N CUDA cards, or N repeated CPU devices with ``--device cpu``); fewer cards
+than N raise.
 """
 
 import argparse
@@ -35,13 +37,12 @@ def main(argv=None):
                         help="Torch device (default: cuda; raises without CUDA).")
     args = parser.parse_args(argv)
 
-    if args.mesh_dp > 1:
-        raise NotImplementedError("--mesh_dp > 1 is the multi-GPU slice of the port "
-                                  "(ROADMAP queue 1 item 9)")
-
     from pathlib import Path
 
     from aip_tpu_torch.models.magenta_train import train_magenta_distill
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
+
+    mesh = make_dp_mesh(args.mesh_dp, device=args.device)
 
     Path(args.save_path).parent.mkdir(parents=True, exist_ok=True)
     _, loss = train_magenta_distill(
@@ -49,7 +50,7 @@ def main(argv=None):
         batch_size=args.batch_size, crop=args.crop, lr=args.lr,
         lr_decay=args.lr_decay, lambda_feat=args.lambda_feat,
         predictor_trunk=args.predictor_trunk, save_path=args.save_path,
-        save_every=args.save_model_interval, device=args.device,
+        save_every=args.save_model_interval, mesh=mesh, device=args.device,
     )
     print(f"final loss {loss:.5f}; saved to {args.save_path}")
     return args.save_path

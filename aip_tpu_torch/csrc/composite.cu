@@ -8,13 +8,16 @@
 //   * composite_macro_mxu_pallas (:509, the _make_mxu_kernel :290): block b
 //     walks positions [b * Kc, b * Kc + counts[b]) of a [M, Kc] window
 //     (valid rows are a prefix).
+// Block b of a launch is macro block block0 + b of the image: the sharded
+// renderer composites one strip of blocks a shard (block0 = 0 otherwise).
 // Position i of a list is row i of the packed table [N, 16], or, with an
 // index (the selection's gid_s or macro_idx), row index[i]: the kernel reads
 // the rows through the index itself, so no [S, 16] or [M, Kc, 16] copy of
 // the table is made in front of it. An index outside [0, N) is an empty row
 // (the selection never puts one inside a count). A row is [mx, my, conic a,
 // b, c, log(opacity), r, g, b, pad x7]. For every pixel (px, py) of the
-// bs x bs macro block at ((b % mtw) * bs, (b / mtw) * bs), rows front to
+// bs x bs macro block at ((g % mtw) * bs, (g / mtw) * bs), g = block0 + b,
+// rows front to
 // back:
 //   power = log(opacity) - (a dx^2 + c dy^2) / 2 - b dx dy
 //   alpha = min(0.99, exp(min(power, 0))), and 0 below 1/255
@@ -137,6 +140,7 @@ struct Args {
   const float* bg;
   float* out;
   int kc, mtw;
+  long long block0;     // image block of launch block 0
 };
 
 // Element e < 3 * 64 of the group at list position g0 (row e / 3, float4
@@ -202,7 +206,8 @@ composite_macro_kernel(const Args args) {
   const int sub = rank * L::kSubs + sub_local;
   const int lx = (sub % L::kSubsX) * kSubW + (lane & 15);
   const int ly0 = (sub / L::kSubsX) * SH + (warp % L::kWarpsPerSub) * 2 * P + (lane >> 4) * P;
-  const int bx0 = (b % args.mtw) * BS, by0 = (b / args.mtw) * BS;
+  const long long g = args.block0 + b;  // the block's place in the image
+  const int bx0 = static_cast<int>(g % args.mtw) * BS, by0 = static_cast<int>(g / args.mtw) * BS;
   const float px = static_cast<float>(bx0 + lx), py0 = static_cast<float>(by0 + ly0);
 
   float trans[P], acc_r[P], acc_g[P], acc_b[P];
@@ -368,14 +373,14 @@ int dispatch(const Args& args, int n_blocks, int sh, int p, cudaStream_t stream)
 // [index_len] int32 or null; starts [n_blocks] int32 (the segment walk) or
 // null (the window, block b at b * kc); counts [n_blocks] int32, clipped to
 // kc; bg [3]; out [n_blocks, 3, 1, bs * bs]. bs 16, 32 or 64; sh x p a
-// layout of the list above.
+// layout of the list above. block0 >= 0 offsets the blocks' image places.
 extern "C" int aip_composite_macro(const float* table, long long table_rows, const int* index,
                                    long long index_len, const int* starts, const int* counts,
                                    const float* bg, float* out, int n_blocks, int kc, int bs,
-                                   int mtw, int sh, int p, void* stream) {
+                                   int mtw, int sh, int p, long long block0, void* stream) {
   if (n_blocks <= 0) return 0;
-  if (kc < 0 || mtw < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args args{table, table_rows, index, index_len, starts, counts, bg, out, kc, mtw};
+  if (kc < 0 || mtw < 1 || block0 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args args{table, table_rows, index, index_len, starts, counts, bg, out, kc, mtw, block0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bs) {
     case 16: return dispatch<16>(args, n_blocks, sh, p, s);

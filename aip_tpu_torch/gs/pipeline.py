@@ -13,8 +13,11 @@ Port of ``aip_tpu/gs/pipeline.py``:
   was trained under, and write one PNG per view and an animated GIF, whose
   path is returned.
 
-``device=None`` means CUDA; ``mesh_dp > 1`` and ``gaussian_shard`` (slice 6)
-raise ``NotImplementedError``.
+``device=None`` means CUDA. ``mesh_dp > 1`` builds a (dp,) mesh of that
+many devices (``parallel.mesh.make_dp_mesh``: CUDA cards, or repeated CPU
+devices on the CPU): training splits each view batch over it (and, with
+``gaussian_shard``, the colour field's Gaussians), rendering splits the
+Gaussians over it (``parallel.gs.rasterize_sharded``).
 """
 
 from __future__ import annotations
@@ -48,12 +51,10 @@ def run_3dgs_training(content_path, style_img_path, model_path="output/3dgs_mode
     import dataclasses
 
     from aip_tpu_torch.gs.train import GSTrainConfig, train
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
 
-    if mesh_dp > 1 or gaussian_shard:
-        raise NotImplementedError(
-            "run_3dgs_training(mesh_dp > 1 / gaussian_shard) trains over several cards, the "
-            "multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
     dev = resolve_device(device)
+    mesh = make_dp_mesh(mesh_dp, device=dev)
     if cfg is None:
         cfg = GSTrainConfig(iterations=iterations, freeze_iters=freeze_iters,
                             white_background=white_background, capacity=capacity,
@@ -84,7 +85,8 @@ def run_3dgs_training(content_path, style_img_path, model_path="output/3dgs_mode
         guide_dir=str(Path(model_path) / "stylized"), progress_every=progress_every, seed=seed,
         checkpoint_iterations=checkpoint_iterations, test_iterations=test_iterations,
         start_checkpoint=start_checkpoint, checkpoint_dir=str(Path(model_path) / "checkpoints"),
-        logger=logger, views_per_step=views_per_step, device=dev, trace=trace)
+        logger=logger, views_per_step=views_per_step, mesh=mesh, gaussian_shard=gaussian_shard,
+        device=dev, trace=trace)
 
     out = Path(model_path)
     out.mkdir(parents=True, exist_ok=True)
@@ -119,19 +121,18 @@ def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=N
     """Render the trained scene under a (possibly new) style; returns the
     GIF path. ``device=None`` means CUDA. Views of 512^2 and more go
     through ``make_inference_frame_fn`` (the macro-block compositors),
-    smaller ones through ``render`` (``renderer`` as given)."""
+    smaller ones through ``render`` (``renderer`` as given); with
+    ``mesh_dp > 1`` every view through ``render(mesh=...)``."""
     from PIL import Image
 
     from aip_tpu_torch.gs.colorfield import precompute_features
     from aip_tpu_torch.gs.render import (fit_selection, make_inference_frame_fn, render,
                                          render_frame, settings_from_selection)
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
     from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
 
-    if mesh_dp > 1:
-        raise NotImplementedError(
-            "run_3dgs_rendering(mesh_dp > 1) renders Gaussian-sharded over several cards, "
-            "the multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
     dev = resolve_device(device)
+    mesh = make_dp_mesh(mesh_dp, device=dev)
     model_path = Path(model_path)
     cfg_args = json.loads((model_path / "cfg_args.json").read_text())
     state, field, _rvq_scale, _rvq_rot = compress_mod.load_npz(model_path / "model.npz",
@@ -170,7 +171,8 @@ def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=N
     for i, cam in enumerate(cams_all):
         settings = settings_from_selection(sel, cam.image_height, cam.image_width,
                                            max_per_tile=sel.get("max_per_tile", max_per_tile))
-        if renderer in ("auto", "matmul") and cam.image_height * cam.image_width >= 512 * 512:
+        if (mesh is None and renderer in ("auto", "matmul")
+                and cam.image_height * cam.image_width >= 512 * 512):
             key = (cam.image_height, cam.image_width)
             if key not in frame_fns:
                 frame_fns[key] = make_inference_frame_fn(state, field, settings, bg,
@@ -178,7 +180,7 @@ def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=N
             rendered = render_frame(frame_fns[key], cam)
         else:
             rendered = render(cam, state, field, bg, style_f=style_f, mode="inference",
-                              settings=settings, renderer=renderer,
+                              settings=settings, renderer=renderer, mesh=mesh,
                               precomputed_enc=enc).render
         img = np.clip(rendered.float().cpu().numpy(), 0, 1)
         im = Image.fromarray((img * 255).astype(np.uint8))

@@ -16,8 +16,10 @@ macro_capacity alone.
 
 In inference mode ``renderer="pallas"`` (or ``"auto"`` with
 ``use_pallas=True``) takes ``rasterize_fast``, the per-tile compositor;
-training modes always rasterize, as in the JAX package. ``mesh`` raises
-``NotImplementedError`` naming the multi-GPU slice of the port.
+training modes always rasterize, as in the JAX package. In inference,
+``mesh`` renders with the Gaussians split over ``mesh_axis``
+(``parallel.gs.rasterize_sharded``); the training modes ignore it, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -306,16 +308,13 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
         raise ValueError(f"unknown render mode {mode!r}")
     if renderer not in ("auto", "xla", "matmul", "pallas"):
         raise ValueError(f"unknown renderer {renderer!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "render(mesh=...) is the multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
     if renderer == "auto" and use_pallas:
         renderer = "pallas"
     if mode == "inference":
         with torch.no_grad():
             return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
                            scaling_modifier, settings, screenspace_offset, precomputed_enc,
-                           tanfovx, tanfovy, renderer, sh_override)
+                           tanfovx, tanfovy, renderer, sh_override, mesh, mesh_axis)
     return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
                    scaling_modifier, settings, screenspace_offset, precomputed_enc, tanfovx,
                    tanfovy, renderer, sh_override)
@@ -323,7 +322,7 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
 
 def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
             scaling_modifier, settings, screenspace_offset, precomputed_enc, tanfovx, tanfovy,
-            renderer, sh_override) -> RenderOutput:
+            renderer, sh_override, mesh=None, mesh_axis="dp") -> RenderOutput:
     if settings is None:
         settings = make_settings(camera)
     if tanfovx is None:
@@ -359,6 +358,21 @@ def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
             sh = predict_sh(field, xyz, style_f, precomputed_enc=precomputed_enc)
         colors = _sh_colors(sh, xyz, campos)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+
+    if mesh is not None and mode == "inference":
+        # The Gaussians split over the mesh, exact against the replicated render.
+        from aip_tpu_torch.parallel.gs import rasterize_sharded
+
+        if settings.macro <= 1:
+            settings = settings._replace(macro=4,
+                                         macro_capacity=max(settings.macro_capacity, 1024))
+        if scaling_modifier != 1.0:
+            scales = scales * scaling_modifier
+        img, radii = rasterize_sharded(mesh, xyz, scales, rotations, opacity, colors, vm, pm, bg,
+                                       settings, tanfovx=tanfovx, tanfovy=tanfovy,
+                                       axis=mesh_axis)
+        return RenderOutput(render=img, radii=radii,
+                            visibility=(radii > 0) & state.active.to(radii.device))
 
     if renderer == "auto":
         renderer = ("matmul" if mode == "inference"

@@ -6,8 +6,8 @@ gaussian-jittered views :75-96). Every entry point loads ``model.npz`` and
 ``cfg_args.json`` from ``model_path``, renders with the selection shape the
 model was trained under (or a fitted one when none is recorded), and writes
 PNGs; ``render_video`` also writes an mp4 through cv2. ``device=None``
-means CUDA; ``mesh_dp > 1`` (Gaussian-sharded rendering over several cards,
-slice 6) raises ``NotImplementedError``.
+means CUDA; ``render_video(mesh_dp > 1)`` renders every frame with the
+Gaussians split over a (dp,) mesh (``render(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -35,10 +35,12 @@ def _load(model_path, device):
     return state, field, scene, bg, cfg.get("selection")
 
 
-def _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile=128, sel=None):
+def _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile=128, sel=None,
+                 mesh=None):
     """Render ``cams`` into ``out_dir/00000.png``, ... Returns the paths.
     Views of 512^2 and more go through one ``make_inference_frame_fn`` per
-    resolution, smaller ones through ``render``."""
+    resolution, smaller ones (and every view on a ``mesh``) through
+    ``render``."""
     from PIL import Image
 
     from aip_tpu_torch.gs.colorfield import precompute_features
@@ -61,7 +63,7 @@ def _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile=128, sel
     for i, cam in enumerate(cams):
         settings = settings_from_selection(sel, cam.image_height, cam.image_width,
                                            max_per_tile=max_per_tile)
-        if cam.image_height * cam.image_width >= 512 * 512:
+        if mesh is None and cam.image_height * cam.image_width >= 512 * 512:
             key = (cam.image_height, cam.image_width)
             if key not in frame_fns:
                 frame_fns[key] = make_inference_frame_fn(state, field, settings, bg,
@@ -69,7 +71,7 @@ def _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile=128, sel
             rendered = render_frame(frame_fns[key], cam)
         else:
             rendered = render(cam, state, field, bg, style_f=style_f, mode="inference",
-                              settings=settings, precomputed_enc=enc).render
+                              settings=settings, mesh=mesh, precomputed_enc=enc).render
         img = (np.clip(rendered.float().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
         p = out_dir / f"{i:05d}.png"
         Image.fromarray(img).save(p)
@@ -93,19 +95,18 @@ def render_video(model_path, style_image=None, n_frames: int = 600, fps: int = 3
     import cv2
 
     from aip_tpu_torch.gs.pose_paths import apply_pose, generate_ellipse_path
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
 
-    if mesh_dp > 1:
-        raise NotImplementedError(
-            "render_video(mesh_dp > 1) renders Gaussian-sharded over several cards, the "
-            "multi-GPU slice of the port (ROADMAP queue 1, slice 6)")
     dev = resolve_device(device)
+    mesh = make_dp_mesh(mesh_dp, device=dev)
     state, field, scene, bg, sel = _load(model_path, dev)
     style_f = _style_embedding(field, style_image, dev)
     views = scene.getTrainCameras()
     poses = generate_ellipse_path(views, n_frames=n_frames)
     cams = [apply_pose(views[0], p) for p in poses]
     out_dir = Path(model_path) / "video" / "ellipse"
-    paths = _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile, sel=sel)
+    paths = _render_cams(cams, state, field, bg, style_f, out_dir, max_per_tile, sel=sel,
+                         mesh=mesh)
     mp4 = str(Path(model_path) / "video" / "ellipse.mp4")
     h, w, _ = cv2.imread(str(paths[0])).shape
     writer = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))

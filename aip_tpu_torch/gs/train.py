@@ -1,7 +1,7 @@
 """Stylized 3DGS training loop (Compact-3DGS schedule + AdaIN style phase).
 
 Port of ``aip_tpu/gs/train.py`` (reference ``Style_3DGS/train.py:42-307``,
-defaults ``arguments/__init__.py:75-99``), one view per step:
+defaults ``arguments/__init__.py:75-99``):
 
 * two-phase loss: ``0.8 L1 + 0.2 (1 - SSIM) + 5e-4 mean(sigmoid(mask))``
   until ``freeze_iters``, then L1 against the per-view AdaIN style guide
@@ -31,9 +31,10 @@ the renderer's ``gs.field`` and the rasterizer's four), which
 Random draws (split offsets, k-means starts) come from one
 ``torch.Generator`` seeded with ``seed``, the view order from numpy's
 ``default_rng(seed)`` as in the JAX package; a checkpoint carries both
-states, so a resumed run continues exactly. ``views_per_step > 1``,
-``mesh``, ``gaussian_shard`` and ``view_chunk`` (slice 6) and
-``network_gui`` (slice 7) raise ``NotImplementedError``.
+states, so a resumed run continues exactly. ``views_per_step > 1``
+batches views into one step (``make_train_step``); ``mesh`` and
+``gaussian_shard`` shard it (``parallel.gs``); ``network_gui`` (the shell
+slice) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from torch.profiler import record_function
 from aip_tpu_torch.device import resolve_device
 from aip_tpu_torch.gs import gaussians as G
 from aip_tpu_torch.gs import rvq as rvq_mod
-from aip_tpu_torch.gs.colorfield import ColorFieldParams, init_colorfield
+from aip_tpu_torch.gs.colorfield import ColorFieldParams, init_colorfield, predict_sh
 from aip_tpu_torch.gs.rasterizer import TILE, RasterSettings, _pairsort_slots
 from aip_tpu_torch.gs.render import render
 from aip_tpu_torch.ops.metrics import l1_loss, psnr, ssim
@@ -298,35 +299,88 @@ def render_from_arrays(camera: CameraArrays, gstate, field, bg, style_f, mode, r
                   tanfovy=camera.tanfovy, sh_override=sh_override)
 
 
-def _slice6(what: str):
-    return NotImplementedError(f"{what} is the multi-view / multi-GPU training of slice 6 of "
-                               "the port (ROADMAP queue 1)")
+def stack_cameras(cams: list) -> CameraArrays:
+    """Stack same-resolution CameraArrays into a view batch (leading dim B)
+    for a views_per_step > 1 train step."""
+    if len({(c.height, c.width) for c in cams}) != 1:
+        raise ValueError("stack_cameras needs views of one resolution")
+    dev = cams[0].world_view.device
+    return CameraArrays(
+        world_view=torch.stack([c.world_view for c in cams]),
+        full_proj=torch.stack([c.full_proj for c in cams]),
+        campos=torch.stack([c.campos for c in cams]),
+        image=torch.stack([c.image for c in cams]),
+        height=cams[0].height, width=cams[0].width,
+        tanfovx=torch.tensor([float(c.tanfovx) for c in cams], dtype=torch.float32, device=dev),
+        tanfovy=torch.tensor([float(c.tanfovy) for c in cams], dtype=torch.float32, device=dev))
+
+
+def _unstack(camera) -> list:
+    """[(one view's CameraArrays, its device)] of a stacked batch, or of a
+    ``Sharded`` batch's parts in shard order (each view on its part's
+    device)."""
+    from aip_tpu_torch.parallel.sharding import Sharded
+
+    parts = camera.parts if isinstance(camera, Sharded) else (camera,)
+    views = []
+    for part in parts:
+        tx, ty = part.tanfovx.tolist(), part.tanfovy.tolist()
+        for i in range(part.world_view.shape[0]):
+            views.append(CameraArrays(part.world_view[i], part.full_proj[i], part.campos[i],
+                                      part.image[i], part.height, part.width, tx[i], ty[i]))
+    return [(v, v.world_view.device) for v in views]
+
+
+def _view_chunk(n_views: int, view_chunk, per_view: int) -> int:
+    """Views a chunk: ``view_chunk`` (which must divide the batch), else the
+    JAX package's rule: the largest divisor of B whose views stay within
+    1 GiB of ``_per_view_bytes``."""
+    if view_chunk:
+        if n_views % view_chunk:
+            raise ValueError(f"view_chunk ({view_chunk}) must divide views_per_step "
+                             f"({n_views})")
+        return view_chunk
+    vchunk = n_views
+    while vchunk > 1 and (n_views % vchunk or vchunk * per_view > (1 << 30)):
+        vchunk -= 1
+    return vchunk
 
 
 def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, height: int,
                     width: int, use_rvq: bool = False, views_per_step: int = 1,
                     view_chunk: int | None = None, gaussian_shard=None):
     """The step for 'photometric' or 'style' at one image size. Returns
-    ``step(trainer, camera: CameraArrays, style_f, bg) -> (trainer,
-    metrics)``; metrics hold the loss and the L1 term as scalar tensors."""
-    if views_per_step != 1 or view_chunk:
-        raise _slice6(f"views_per_step={views_per_step}")
-    if gaussian_shard is not None:
-        raise _slice6("gaussian_shard")
+    ``step(trainer, camera, style_f, bg) -> (trainer, metrics)``; metrics
+    hold the loss and the L1 term as scalar tensors.
+
+    ``views_per_step`` B > 1 renders a batch of views per optimiser step
+    (``camera`` a ``stack_cameras`` batch, or a ``parallel.gs.
+    shard_view_batch`` of one, whose views render on their shard's device):
+    the colour field runs once for the batch and the views render with
+    its SH as ``sh_override``; the loss is the mean over views; views go in
+    chunks of ``view_chunk`` (``_view_chunk``), each chunk one backward to
+    the Gaussian parameters and a detached SH leaf, so one chunk's graphs
+    are freed before the next is built; the SH gradients summed over the
+    chunks then take one backward through the colour field (kernel C once
+    a batch, kernels A and B once a view). Densification statistics are
+    added per view, in view order, at B times the mean loss's offset
+    gradient, as B reference iterations would add them; both optimisers
+    read their schedules at B times their count, and ``step`` advances by
+    B. ``gaussian_shard=(mesh, axis)`` computes the SH with
+    ``parallel.gs.predict_sh_sharded`` (with B = 1 too)."""
     if phase not in ("photometric", "style"):
         raise ValueError(f"unknown phase {phase!r}")
+    n_views = views_per_step
+    if n_views < 1:
+        raise ValueError(f"views_per_step must be >= 1, got {n_views}")
     mode = "train_rvq" if use_rvq else "train"
-    settings = make_settings_from_dims(height, width, cfg)
+    settings = make_settings_from_dims(height, width, cfg, views=n_views)
+    vchunk = _view_chunk(n_views, view_chunk, _per_view_bytes(height, width, cfg, settings))
+    batched = n_views > 1 or gaussian_shard is not None
 
-    def step(trainer: TrainerState, camera: CameraArrays, style_f, bg):
-        gp = {k: v.detach().requires_grad_() for k, v in _gparams(trainer.gstate).items()}
-        fp = {k: v.detach().requires_grad_() for k, v in _field_params(trainer.field).items()}
-        gstate = trainer.gstate._replace(**gp)
-        field = ColorFieldParams(**{k: fp.get(k) for k in ColorFieldParams._fields})
-        offs = torch.zeros((gstate.capacity, 2), device=gstate.xyz.device, requires_grad=True)
-
-        out = render_from_arrays(camera, gstate, field, bg, style_f, mode, trainer.rvq_scale,
-                                 trainer.rvq_rot, settings, offs)
+    def view_loss(gstate, field, camera, style_f, bg, offs, rvq_s, rvq_r, sh=None):
+        out = render_from_arrays(camera, gstate, field, bg, style_f, mode, rvq_s, rvq_r,
+                                 settings, offs, sh_override=sh)
         with record_function("gs.loss"):
             img, gt = out.render, camera.image
             ll1 = l1_loss(img, gt)
@@ -340,30 +394,110 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
                         + cfg.lambda_mask * mask_reg)
             else:
                 loss = ll1   # gt is the stylized guide
-        names = [*gp, *fp]
+        return loss, ll1, out.radii.detach()
+
+    def compute_sh(field, gstate, style_f):
+        if gaussian_shard is not None:
+            from aip_tpu_torch.parallel.gs import predict_sh_sharded
+
+            mesh, axis = gaussian_shard
+            return predict_sh_sharded(mesh, field, gstate.xyz, style_f, axis=axis)
+        return predict_sh(field, gstate.xyz, style_f)
+
+    def grads_one_view(trainer, gp, fp, gstate, field, camera, style_f, bg):
+        """The one-view step's forward and one backward."""
+        offs = torch.zeros((gstate.capacity, 2), device=gstate.xyz.device, requires_grad=True)
+        loss, ll1, radii = view_loss(gstate, field, camera, style_f, bg, offs, trainer.rvq_scale,
+                                     trainer.rvq_rot)
         leaves = [*gp.values(), *fp.values(), offs]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        g_gauss = dict(zip(names[:len(gp)], grads[:len(gp)]))
-        g_field = dict(zip(names[len(gp):], grads[len(gp):-1]))
-        g_offs = grads[-1]
+        return (loss, ll1, dict(zip(gp, grads[:len(gp)])),
+                dict(zip(fp, grads[len(gp):-1])), [grads[-1]], [radii])
 
+    def grads_batched(trainer, gp, fp, gstate, field, camera, style_f, bg):
+        """The colour field once, the views in chunks, the field's backward
+        once (see the docstring)."""
+        home = gstate.xyz.device
+        views = [(camera, home)] if n_views == 1 else _unstack(camera)
+        if len(views) != n_views:
+            raise ValueError(f"a batch of {len(views)} views for views_per_step={n_views}")
+        with record_function("gs.field"):
+            sh = compute_sh(field, gstate, style_f)
+        sh_leaf = sh.detach().requires_grad_()
+        placed = {}
+
+        def on(dev):
+            """The step's inputs on ``dev`` (copies that carry gradients home)."""
+            if dev not in placed:
+                rvq = [None if r is None else G.tree_map(lambda t: t.to(dev), r)
+                       for r in (trainer.rvq_scale, trainer.rvq_rot)]
+                placed[dev] = (G.tree_map(lambda t: t.to(dev), gstate), sh_leaf.to(dev),
+                               bg.to(dev), *rvq)
+            return placed[dev]
+
+        g_gauss = dict.fromkeys(gp)
+        g_sh = None
+        losses, ll1s, g_offs, radii = [], [], [], []
+        for c0 in range(0, n_views, vchunk):
+            total, offs_c = 0.0, []
+            for cam_v, dev in views[c0:c0 + vchunk]:
+                gs_v, sh_v, bg_v, rvq_s, rvq_r = on(dev)
+                offs = torch.zeros((gstate.capacity, 2), device=home, requires_grad=True)
+                loss, ll1, rad = view_loss(gs_v, None, cam_v, None, bg_v, offs.to(dev), rvq_s,
+                                           rvq_r, sh=sh_v)
+                total = total + loss.to(home) / n_views
+                losses.append(loss.detach().to(home))
+                ll1s.append(ll1.detach().to(home))
+                radii.append(rad.to(home))
+                offs_c.append(offs)
+            leaves = [*gp.values(), sh_leaf, *offs_c]
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            placed.clear()   # this chunk's graphs go with their last reference
+            for k, g in zip(gp, grads):
+                if g is not None:
+                    g_gauss[k] = g if g_gauss[k] is None else g_gauss[k] + g
+            g = grads[len(gp)]
+            g_sh = g if g_sh is None else g_sh + g
+            g_offs += [torch.zeros_like(o) if go is None else go
+                       for o, go in zip(offs_c, grads[len(gp) + 1:])]
+        # One backward through the colour field with the summed SH gradient
+        # (the field reads the positions detached: no gradient to xyz).
+        f_grads = torch.autograd.grad(sh, list(fp.values()), grad_outputs=g_sh,
+                                      allow_unused=True)
+        g_gauss = {k: torch.zeros_like(gp[k]) if g is None else g for k, g in g_gauss.items()}
+        g_field = {k: torch.zeros_like(p) if g is None else g
+                   for (k, p), g in zip(fp.items(), f_grads)}
+        loss = torch.stack(losses).mean()
+        return (loss, torch.stack(ll1s).mean(), g_gauss, g_field,
+                [g * n_views for g in g_offs], radii)
+
+    def step(trainer: TrainerState, camera, style_f, bg):
+        gp = {k: v.detach().requires_grad_() for k, v in _gparams(trainer.gstate).items()}
+        fp = {k: v.detach().requires_grad_() for k, v in _field_params(trainer.field).items()}
+        gstate = trainer.gstate._replace(**gp)
+        field = ColorFieldParams(**{k: fp.get(k) for k in ColorFieldParams._fields})
+        fn = grads_batched if batched else grads_one_view
+        loss, ll1, g_gauss, g_field, g_offs, radii = fn(trainer, gp, fp, gstate, field, camera,
+                                                        style_f, bg)
         with record_function("gs.adam"):
             count = int(trainer.opt_g.count)
             new_g, opt_g = adam_update(_gparams(trainer.gstate), g_gauss, trainer.opt_g,
-                                       gaussian_lrs(cfg, spatial_lr_scale, count))
-            lr_n = net_lr(cfg, int(trainer.opt_net.count))
+                                       gaussian_lrs(cfg, spatial_lr_scale, count * n_views))
+            lr_n = net_lr(cfg, int(trainer.opt_net.count) * n_views)
             new_f, opt_net = adam_update(_field_params(trainer.field), g_field, trainer.opt_net,
                                          {k: lr_n for k in g_field})
         new_field = ColorFieldParams(**{k: new_f.get(k) for k in ColorFieldParams._fields})
         with record_function("gs.stats"):
-            gstate = G.add_densification_stats(trainer.gstate._replace(**new_g), g_offs,
-                                               out.radii.detach(), width=width, height=height)
+            gstate = trainer.gstate._replace(**new_g)
+            for g, r in zip(g_offs, radii):
+                gstate = G.add_densification_stats(gstate, g, r, width=width, height=height)
         new_trainer = trainer._replace(gstate=gstate, field=new_field, opt_g=opt_g,
-                                       opt_net=opt_net, step=trainer.step + 1)
+                                       opt_net=opt_net, step=trainer.step + n_views)
         return new_trainer, {"loss": loss.detach(), "l1": ll1.detach()}
 
     step.settings = settings
+    step.view_chunk = vchunk
     return step
 
 
@@ -456,19 +590,49 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     added or removed (``cloned``, ``split``, ``pruned``, ``mask_pruned``,
     ``final_mask_pruned``); ``trace["steps"]`` lists (iteration, phase,
     loss, step ms) per step (ms from CUDA events on a card, the host clock on
-    the CPU; each traced step synchronises)."""
+    the CPU; each traced step synchronises).
+
+    ``views_per_step`` B > 1 consumes B views a step; one step covers the
+    reference iterations (it - B, it], and every iteration-indexed event
+    fires in the window that crosses it (at B = 1 each guard is the
+    per-iteration one). All train cameras must share one resolution, and
+    the iterations and the resume point must be multiples of B
+    (``ValueError``); a resume with another B rebases both Adam counts to
+    the resume point over B. The phase is that of the window's first
+    iteration; under RVQ the codebooks take B updates a window.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) puts the trainer on its home device
+    and splits each view batch over ``mesh_axis`` (B % dp == 0), each chunk
+    being the whole batch; ``gaussian_shard=True`` also splits the colour
+    field's Gaussians over it (``parallel.gs.predict_sh_sharded``: a
+    power-of-two axis that divides ``recompact_floor`` and ``capacity``).
+    ``network_gui`` is the shell slice of the port and raises."""
     from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
 
-    if views_per_step != 1:
-        raise _slice6(f"views_per_step={views_per_step}")
-    if mesh is not None or gaussian_shard:
-        raise _slice6("mesh / gaussian_shard")
     if network_gui is not None:
         raise NotImplementedError("network_gui is the shell slice of the port (ROADMAP queue 1, "
-                                  "slice 7)")
+                                  "item 10)")
     from aip_tpu_torch.gs.checkpoint import load_checkpoint, load_loop_state, save_checkpoint
 
-    dev = resolve_device(device)
+    B = views_per_step
+    pgs = None
+    if mesh is not None:
+        from aip_tpu_torch.parallel import gs as pgs
+
+        dp = mesh.shape[mesh_axis]
+        if B > 1 and B % dp:
+            raise ValueError(f"views_per_step ({B}) must be a multiple of mesh axis "
+                             f"{mesh_axis!r} ({dp})")
+        if gaussian_shard and (dp & (dp - 1) or cfg.recompact_floor % dp
+                               or cfg.capacity % dp):
+            raise ValueError(
+                "gaussian_shard needs a power-of-two mesh axis dividing recompact_floor and "
+                f"capacity (got dp={dp}, floor={cfg.recompact_floor}, capacity={cfg.capacity})")
+        dev = resolve_device(mesh.home)
+    elif gaussian_shard:
+        raise ValueError("gaussian_shard requires a mesh")
+    else:
+        dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     stack: list = []
@@ -488,8 +652,23 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     style_f = None
     if cfg.style_dim:
         style_f = get_style_embeddings(_to_array(style_image), device=dev).mean(dim=(1, 2))
+    if pgs is not None:
+        trainer = pgs.replicate_trainer(mesh, trainer)
 
     cams = scene.getTrainCameras()
+    if B > 1:
+        if len({(c.image_height, c.image_width) for c in cams}) != 1:
+            raise ValueError("views_per_step > 1 requires all train cameras at one resolution")
+        if first_iter % B or (cfg.iterations - first_iter) % B:
+            raise ValueError(f"iterations ({cfg.iterations}) and resume point ({first_iter}) "
+                             f"must be multiples of views_per_step ({B})")
+    if start_checkpoint is not None:
+        # The schedules read count * B; a checkpoint written with another B
+        # counts in its own steps, so rebase both counts to the resume point.
+        cnt = torch.tensor(first_iter // B, dtype=torch.int32)
+        trainer = trainer._replace(opt_g=trainer.opt_g._replace(count=cnt),
+                                   opt_net=trainer.opt_net._replace(count=cnt.clone()))
+
     guide_out = guide_dir or tempfile.mkdtemp(prefix="aip_gs_guides_")
     guides = _guides(cams, style_image, img_size, use_depth, depth_offset, depth_prominence,
                      guide_out, guide_batch, dev)
@@ -499,8 +678,12 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     def get_step(phase, cam, use_rvq=False):
         key = (phase, cam.image_height, cam.image_width, use_rvq)
         if key not in steps:
-            steps[key] = make_train_step(cfg, scene.cameras_extent, phase, cam.image_height,
-                                         cam.image_width, use_rvq=use_rvq)
+            steps[key] = make_train_step(
+                cfg, scene.cameras_extent, phase, cam.image_height, cam.image_width,
+                use_rvq=use_rvq, views_per_step=B,
+                # A dp-split batch is one chunk: each device holds B/dp views.
+                view_chunk=B if pgs is not None and B > 1 else None,
+                gaussian_shard=(mesh, mesh_axis) if gaussian_shard else None)
         return steps[key]
 
     rvq_start = min(cfg.rvq_iter, cfg.iterations - max(1, cfg.iterations // 30))
@@ -512,39 +695,57 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     def count(name, n=1):
         events[name] = events.get(name, 0) + n
 
-    for it in range(first_iter + 1, cfg.iterations + 1):
-        if not stack:
-            stack = list(rng.permutation(len(cams)))
-        ci = stack.pop()
+    # One pass covers reference iterations (it - B, it]; at B = 1 the guards
+    # are the per-iteration ones (mod_fire(m): it % m == 0, crossed(x): it == x).
+    for it in range(first_iter + B, cfg.iterations + 1, B):
+        prev = it - B
+
+        def crossed(x):
+            return prev < x <= it
+
+        def mod_fire(m):
+            return it // m > prev // m
+
+        cis = []
+        for _ in range(B):
+            if not stack:
+                stack = list(rng.permutation(len(cams)))
+            cis.append(stack.pop())
 
         # Seed RVQ codebooks at the QAT boundary.
-        if it == rvq_start + 1 and trainer.rvq_scale is None:
+        if crossed(rvq_start + 1) and trainer.rvq_scale is None:
             trainer = _seed_codebooks(trainer, cfg, gen)
             count("rvq_qat_start")
         use_rvq = it > rvq_start and trainer.rvq_scale is not None
 
-        phase = "photometric" if it < cfg.freeze_iters else "style"
+        # The phase of the window's first iteration.
+        phase = "photometric" if prev + 1 < cfg.freeze_iters else "style"
         arrays = cam_arrays if phase == "photometric" else guide_arrays
-        step = get_step(phase, cams[ci], use_rvq)
+        batch = arrays[cis[0]] if B == 1 else stack_cameras([arrays[c] for c in cis])
+        if pgs is not None and B > 1:
+            batch = pgs.shard_view_batch(mesh, batch, axis=mesh_axis)
+        step = get_step(phase, cams[cis[0]], use_rvq)
         if step_log is not None:
             t0 = _clock(dev)
-        trainer, metrics = step(trainer, arrays[ci], style_f, bg)
+        trainer, metrics = step(trainer, batch, style_f, bg)
         if step_log is not None:
             step_log.append((it, phase + ("_rvq" if use_rvq else ""),
                              float(metrics["loss"]), _elapsed_ms(dev, t0)))
         count(f"{phase}_steps")
 
         if use_rvq:
+            # One codebook update per reference iteration.
             act = trainer.gstate.active
-            trainer = trainer._replace(
-                rvq_scale=rvq_mod.update_codebooks(trainer.rvq_scale,
-                                                   G.get_scaling(trainer.gstate), act),
-                rvq_rot=rvq_mod.update_codebooks(trainer.rvq_rot,
-                                                 G.get_rotation(trainer.gstate), act))
+            for _ in range(B):
+                trainer = trainer._replace(
+                    rvq_scale=rvq_mod.update_codebooks(trainer.rvq_scale,
+                                                       G.get_scaling(trainer.gstate), act),
+                    rvq_rot=rvq_mod.update_codebooks(trainer.rvq_rot,
+                                                     G.get_rotation(trainer.gstate), act))
 
         # Densification schedule (train.py:264-293).
         if it < cfg.densify_until_iter:
-            if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
+            if it > cfg.densify_from_iter and mod_fire(cfg.densification_interval):
                 grads = G.avg_densify_grads(trainer.gstate)
                 gstate, slots_c = G.densify_and_clone(
                     trainer.gstate, cfg.densify_grad_threshold, cfg.percent_dense,
@@ -562,11 +763,11 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
                 gstate = G.reset_stats(gstate)
                 trainer = trainer._replace(
                     gstate=gstate, opt_g=zero_moment_slots(trainer.opt_g, slots_c | slots_s))
-            if it % cfg.opacity_reset_interval == 0 or (
-                    cfg.white_background and it == cfg.densify_from_iter):
+            if mod_fire(cfg.opacity_reset_interval) or (
+                    cfg.white_background and crossed(cfg.densify_from_iter)):
                 trainer = trainer._replace(gstate=G.reset_opacity(trainer.gstate))
                 count("opacity_reset")
-        elif it % cfg.mask_prune_iter == 0:
+        elif mod_fire(cfg.mask_prune_iter):
             n_before = int(trainer.gstate.n_active)
             trainer = trainer._replace(gstate=G.mask_prune(trainer.gstate))
             count("mask_prune_events")
@@ -574,7 +775,7 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
 
         # Capacity buckets: pack live slots to the front and shrink, or
         # zero-pad back toward cfg.capacity past 3/4 occupancy.
-        if cfg.recompact_floor and it % cfg.densification_interval == 0:
+        if cfg.recompact_floor and mod_fire(cfg.densification_interval):
             n = int(trainer.gstate.n_active)
             cap_now = trainer.gstate.capacity
             bucket = G.capacity_bucket(n, floor=cfg.recompact_floor)
@@ -593,15 +794,15 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
                 if progress_every:
                     print(f"iter {it}: regrow {n} live -> capacity {new_cap}")
 
-        if progress_every and it % progress_every == 0:
+        if progress_every and mod_fire(progress_every):
             print(f"iter {it}: loss={float(metrics['loss']):.5f} "
                   f"n={int(trainer.gstate.n_active)}")
-        if logger is not None and it % 10 == 0:
+        if logger is not None and mod_fire(10):
             logger.scalar("train/loss", float(metrics["loss"]), it)
             logger.scalar("train/l1", float(metrics["l1"]), it)
             logger.scalar("train/n_gaussians", int(trainer.gstate.n_active), it)
 
-        if it in test_iterations:
+        if any(crossed(x) for x in test_iterations):
             psnrs, l1s = [], []
             with torch.no_grad():
                 for ca in cam_arrays[: min(4, len(cam_arrays))]:
@@ -617,11 +818,14 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
             if progress_every:
                 print(f"[ITER {it}] eval: L1 {np.mean(l1s):.4f} PSNR {np.mean(psnrs):.2f}")
 
-        if it in checkpoint_iterations:
-            ckpt_dir = Path(checkpoint_dir or (Path(guide_out) / "checkpoints"))
-            save_checkpoint(ckpt_dir / f"chkpnt{it}", trainer,
-                            loop={"rng": rng.bit_generator.state, "gen": gen.get_state(),
-                                  "stack": [int(s) for s in stack]})
+        for x in checkpoint_iterations:
+            if crossed(x):
+                # Saved under the requested iteration's name; with B > 1 the
+                # state is up to B - 1 iterations newer.
+                ckpt_dir = Path(checkpoint_dir or (Path(guide_out) / "checkpoints"))
+                save_checkpoint(ckpt_dir / f"chkpnt{x}", trainer,
+                                loop={"rng": rng.bit_generator.state, "gen": gen.get_state(),
+                                      "stack": [int(s) for s in stack]})
 
     # Final mask prune; codebooks seeded here only if the loop never
     # reached the QAT boundary.

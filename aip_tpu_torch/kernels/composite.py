@@ -106,7 +106,7 @@ COEFF_MARGIN = 8 * 2.0 ** -24   # of S, the coefficient cull's float32 rounding 
 def _lib() -> ctypes.CDLL:
     lib = library("composite")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.aip_composite_macro.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, i, p]
+    lib.aip_composite_macro.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, i, ll, p]
     lib.aip_composite_macro.restype = ctypes.c_int
     return lib
 
@@ -644,10 +644,11 @@ def _bg(bg_color, device):
     return torch.as_tensor(bg_color, dtype=torch.float32, device=device).contiguous()
 
 
-def _launch_macro(table, index, starts, counts, bg, n_blocks, kc, bs, mtw, layout):
+def _launch_macro(table, index, starts, counts, bg, n_blocks, kc, bs, mtw, layout, block0=0):
     """One launch of the macro-block kernel: table [N, 16] (or a window
     [M, Kc, 16], walked as its N = M Kc rows), index [L] int32 or None,
-    starts [M] int32 or None (the window)."""
+    starts [M] int32 or None (the window); launch block b is image block
+    block0 + b."""
     dev = table.device
     out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=dev)
     if n_blocks:
@@ -656,7 +657,7 @@ def _launch_macro(table, index, starts, counts, bg, n_blocks, kc, bs, mtw, layou
         _launch(_lib().aip_composite_macro, dev,
                 (table.data_ptr(), rows, ptr(index), 0 if index is None else index.numel(),
                  ptr(starts), counts.data_ptr(), bg.data_ptr(), out.data_ptr(), n_blocks, kc,
-                 bs, mtw, *layout))
+                 bs, mtw, *layout, int(block0)))
     return out
 
 
@@ -685,18 +686,24 @@ def composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color, n_blocks: int,
     return out
 
 
-def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int, layout=DEFAULT_LAYOUT):
+def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int, layout=DEFAULT_LAYOUT,
+                        block0: int = 0):
     """Windowed compositor (replaces ``composite_macro_mxu_pallas``). raw
     [M, Kc, 16] float32 gathered rows, counts [M] int32 (valid rows are a
-    prefix). Returns [M, 3, 1, bs*bs] float32."""
+    prefix). Row m of the window is image block ``block0 + m`` (a strip of
+    blocks, as the sharded renderer composites them). Returns [M, 3, 1,
+    bs*bs] float32."""
     if raw.device.type == "cpu":
-        return composite_macro_mxu_reference(raw, counts, bg_color, bs, mtw)
+        return composite_macro_mxu_reference(raw, counts, bg_color, bs, mtw, block0=block0)
+    if block0 < 0:
+        raise ValueError(f"block0 must be >= 0, got {block0}")
     bg = _bg(bg_color, raw.device)
     n_blocks = raw.shape[0]
     _check_common(raw, counts, bg, n_blocks, bs, layout)
     if raw.ndim != 3:
         raise ValueError(f"raw must be [M, Kc, 16], got {tuple(raw.shape)}")
-    out = _launch_macro(raw, None, None, counts, bg, n_blocks, raw.shape[1], bs, mtw, layout)
+    out = _launch_macro(raw, None, None, counts, bg, n_blocks, raw.shape[1], bs, mtw, layout,
+                        block0)
     if n_blocks:
         composite_macro_mxu.launches += 1
     return out

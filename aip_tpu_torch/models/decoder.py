@@ -3,7 +3,10 @@ Port of ``aip_tpu.models.decoder`` (reference ``AdaIN/net.py:6-36``).
 
 The last up2x -> conv 64->64 -> ReLU -> conv 64->3 runs as the fused
 ``decode_tail`` kernel whenever the walk reaches it: on a CUDA tensor that
-is always the hand-written kernel, on a CPU tensor its plain version.
+is always the hand-written kernel, on a CPU tensor its plain version. A
+conv that is not an ``nn.Conv2d`` is called on the padded input (the
+tensor-parallel conv of ``parallel.train``); the tail takes its gathered
+weight.
 """
 
 from __future__ import annotations
@@ -98,7 +101,10 @@ def _decode_layers(convs, x, compute_dtype):
         if kind == "conv":
             t = F.pad(t.to(compute_dtype), (1, 1, 1, 1), mode="reflect")
             conv = convs[ci]
-            t = F.conv2d(t, conv.weight.to(compute_dtype), conv.bias.to(compute_dtype))
+            if isinstance(conv, nn.Conv2d):
+                t = F.conv2d(t, conv.weight.to(compute_dtype), conv.bias.to(compute_dtype))
+            else:   # a conv split over devices (parallel.train.ColumnParallelConv)
+                t = conv(t, compute_dtype)
             ci += 1
         elif kind == "up":
             t = F.interpolate(t, scale_factor=2, mode="nearest")

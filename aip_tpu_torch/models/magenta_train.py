@@ -77,21 +77,48 @@ def distill_loss_and_grads(params, vgg_params, dec_params, content, style,
     return loss.detach(), dict(zip(names, grads))
 
 
-def make_distill_step(optimizer, vgg_params, dec_params, lambda_feat: float = 0.1):
+def make_distill_step(optimizer, vgg_params, dec_params, lambda_feat: float = 0.1,
+                      devices=None):
     """``step(params, opt_state, content, style) -> (params, opt_state,
     loss)``; ``params`` is updated in place. The VGG and the decoder are
-    frozen."""
+    frozen. ``devices`` (a mesh axis's devices, in shard order) splits the
+    content batch over them: each shard's loss and gradients on its own
+    copies of the stylizer, the VGG and the decoder, the mean of the
+    shards' losses and gradients (summed to the home device in shard order)
+    for the update, the updated stylizer copied back to the others."""
+    from aip_tpu_torch.parallel.sharding import (broadcast_parameters, mean_of,
+                                                 replicate_module, split)
+
     vgg_params.requires_grad_(False)
     dec_params.requires_grad_(False)
+    if devices is not None:
+        vggs = replicate_module(vgg_params, devices)
+        decs = replicate_module(dec_params, devices)
+    replicas = {}
 
     def step(params, opt_state, content, style):
-        loss, grads = distill_loss_and_grads(params, vgg_params, dec_params, content, style,
-                                             lambda_feat)
         named = _named(params)
+        if devices is None:
+            loss, grads = distill_loss_and_grads(params, vgg_params, dec_params, content, style,
+                                                 lambda_feat)
+        else:
+            if replicas.get("of") is not params:
+                replicas.clear()
+                copies = [replicate_module(m, devices) for m in params]
+                replicas.update(of=params, params=[M.MagentaParams(*c) for c in zip(*copies)])
+            home = named[0][1].device
+            results = [distill_loss_and_grads(p, v, d, c, style.to(c.device), lambda_feat)
+                       for p, v, d, c in zip(replicas["params"], vggs, decs,
+                                             split(content, devices).parts)]
+            loss = mean_of([r[0] for r in results], home)
+            grads = {k: mean_of([r[1][k] for r in results], home) for k, _ in named}
         new, opt_state = optimizer.update(grads, opt_state, {k: p.detach() for k, p in named})
         with torch.no_grad():
             for name, p in named:
                 p.copy_(new[name])
+        if devices is not None:
+            for module, copies in zip(params, zip(*replicas["params"])):
+                broadcast_parameters(module, copies)
         return params, opt_state, loss
 
     return step
@@ -120,14 +147,22 @@ def train_magenta_distill(
 
     Mirrors the AdaIN trainer's data plumbing (``cli/train_adain.py`` /
     reference ``AdaIN/train.py:58-136``): flat content/style folders, random
-    resize+crop, inverse-time lr decay. ``mesh``: None, or one device (more
-    raise, ROADMAP queue 1 item 9). Returns (params, last_loss).
+    resize+crop, inverse-time lr decay. ``mesh`` (a ``parallel.mesh.Mesh``,
+    or a device or list of devices as a (dp,) mesh) shards the content
+    batch over ``mesh_axis``; the models live on its home device. Returns
+    (params, last_loss).
     """
     from aip_tpu_torch.data.images import FlatFolderDataset, infinite_batches
     from aip_tpu_torch.models import weights as weights_mod
-    from aip_tpu_torch.parallel.train import make_optimizer, single_device
+    from aip_tpu_torch.parallel.train import as_mesh, make_optimizer
 
-    dev = resolve_device(device) if mesh is None else single_device(mesh)
+    devices = None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        mesh = as_mesh(mesh)
+        dev = resolve_device(mesh.home)
+        devices = mesh.axis_devices(mesh_axis)
     vgg_params = weights_mod.get_vgg_params(device=dev)
     dec_params = weights_mod.get_decoder_params(device=dev)
     if params is None:
@@ -138,7 +173,8 @@ def train_magenta_distill(
 
     optimizer = make_optimizer(lr, lr_decay)  # reference inverse-linear decay
     opt_state = optimizer.init({k: p.detach() for k, p in _named(params)})
-    step = make_distill_step(optimizer, vgg_params, dec_params, lambda_feat=lambda_feat)
+    step = make_distill_step(optimizer, vgg_params, dec_params, lambda_feat=lambda_feat,
+                             devices=devices)
 
     content_ds = FlatFolderDataset(content_dir)
     style_ds = FlatFolderDataset(style_dir)

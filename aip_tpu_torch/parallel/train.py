@@ -14,22 +14,43 @@ correction at count + 1. A step runs its forward and its backward inside
 ``device.fp32_convs``: the backward of the fused head and tail recomputes
 through cuDNN convs, which PyTorch's default flags would run in TF32.
 
-One device only: ``shard_train_setup`` and ``compile_train_step`` keep the
-JAX package's names, place the state and return the step; a mesh of more
-than one device raises (ROADMAP queue 1 item 9).
+On a mesh (``parallel.mesh``; a device or a list of devices is a (dp,)
+mesh), ``shard_train_setup`` and ``compile_train_step`` give the JAX
+package's sharded step:
+
+* data parallelism over ``dp``: the batch is split over the dp devices,
+  each with its own copy of the frozen VGG and of the decoder; each shard
+  computes its loss and gradients, the loss is the mean over the shards
+  (of equal size) and the gradients are summed to the home device in shard
+  order and divided, which is the gradient of the whole batch's mean loss;
+  Adam updates the home copy and the updated parameters are copied back to
+  the others;
+* tensor parallelism over ``tp``: every decoder conv with at least 64
+  output channels that tp divides becomes a ``ColumnParallelConv``, its
+  output channels split over the tp devices (slice t on the mesh's device
+  (row, t)); each slice's conv runs on its device and the outputs are
+  concatenated (the all-gather XLA inserts before a consumer that needs
+  every channel). ``decode_tail``'s 64-channel conv takes the gathered
+  weight. Adam is elementwise, so updating the slices one by one is the
+  update of the whole weight, and the split survives every step.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
-from aip_tpu_torch.device import fp32_convs, resolve_device
+from aip_tpu_torch.device import fp32_convs
 from aip_tpu_torch.gs.train import AdamState, adam_init, adam_update
 from aip_tpu_torch.models.decoder import decoder_apply
 from aip_tpu_torch.models.vgg import STYLE_TAPS, vgg_encode_with_intermediate
 from aip_tpu_torch.ops.adain import adain, style_loss_terms
+from aip_tpu_torch.parallel.mesh import Mesh, canonical, make_mesh
+from aip_tpu_torch.parallel.sharding import (Sharded, broadcast_parameters, mean_of,
+                                             replicate_module, split)
 
 ADAM_EPS = 1e-8  # optax.adam's default
 
@@ -121,17 +142,19 @@ def train_loss_and_grads(dec_params, vgg_params, content, style, style_weight: f
 
 
 def make_train_step(optimizer: Optimizer, vgg_params, compute_dtype=torch.float32,
-                    style_weight: float = 10.0, content_weight: float = 1.0):
+                    style_weight: float = 10.0, content_weight: float = 1.0,
+                    style_taps=STYLE_TAPS):
     """The train step: ``step(state, content, style) -> (state, metrics)``.
     The VGG is frozen (its parameters stop requiring gradients); the
-    decoder's parameters are updated in place."""
+    decoder's parameters are updated in place. ``style_taps`` as in
+    ``adain_train_loss``."""
     vgg_params.requires_grad_(False)
 
     def step(state: TrainState, content: torch.Tensor, style: torch.Tensor):
         dec = state.params
         loss, (lc, ls), grads = train_loss_and_grads(dec, vgg_params, content, style,
                                                      style_weight, content_weight,
-                                                     compute_dtype)
+                                                     compute_dtype, style_taps)
         lr = optimizer.schedule(state.opt_state.count)
         new, opt_state = optimizer.update(grads, state.opt_state, _trainable(dec))
         with torch.no_grad():
@@ -143,30 +166,152 @@ def make_train_step(optimizer: Optimizer, vgg_params, compute_dtype=torch.float3
     return step
 
 
-def single_device(mesh) -> torch.device:
-    """The one device of ``mesh`` (a device, a name or a sequence of them;
-    None means CUDA). More than one raises."""
+class ColumnParallelConv(torch.nn.Module):
+    """A 3x3 conv whose output channels are split over devices: slice t of
+    the weight and bias on ``devices[t]``. ``weight`` and ``bias`` are the
+    gathered tensors on the first device; calling it on a padded NCHW
+    input runs each slice's conv on its device and concatenates the
+    channels on the input's device."""
+
+    def __init__(self, conv: torch.nn.Module, devices):
+        super().__init__()
+        self.devices = [canonical(d) for d in devices]
+        n = len(self.devices)
+        self.weight_shards = torch.nn.ParameterList(
+            torch.nn.Parameter(w.detach().to(d).clone())
+            for w, d in zip(torch.chunk(conv.weight, n, 0), self.devices))
+        self.bias_shards = torch.nn.ParameterList(
+            torch.nn.Parameter(b.detach().to(d).clone())
+            for b, d in zip(torch.chunk(conv.bias, n, 0), self.devices))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return torch.cat([w.to(self.devices[0]) for w in self.weight_shards])
+
+    @property
+    def bias(self) -> torch.Tensor:
+        return torch.cat([b.to(self.devices[0]) for b in self.bias_shards])
+
+    def forward(self, t: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        return torch.cat([F.conv2d(t.to(d), w.to(compute_dtype), b.to(compute_dtype)).to(t.device)
+                          for w, b, d in zip(self.weight_shards, self.bias_shards, self.devices)],
+                         dim=1)
+
+    def placed(self, devices) -> "ColumnParallelConv":
+        """A copy with slice t on ``devices[t]``."""
+        out = copy.deepcopy(self)
+        out.devices = [canonical(d) for d in devices]
+        for ps in (out.weight_shards, out.bias_shards):
+            for p, d in zip(ps, out.devices):
+                p.data = p.data.to(d)
+        return out
+
+
+def as_mesh(mesh) -> Mesh:
+    """A Mesh as it is; a device, a name or a list of them as a (dp,)
+    mesh."""
+    if isinstance(mesh, Mesh):
+        return mesh
     devices = list(mesh) if isinstance(mesh, (list, tuple)) else [mesh]
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"a mesh of {len(devices)} devices is the multi-GPU slice of the port "
-            "(ROADMAP queue 1 item 9)")
-    return resolve_device(devices[0])
+    return make_mesh(devices, axis_names=("dp",), shape=(len(devices),))
+
+
+def _rows(mesh: Mesh) -> list:
+    """Per dp index, the devices of its tp group (one device on a mesh
+    without a tp axis)."""
+    if mesh.axis_names not in (("dp",), ("dp", "tp")):
+        raise ValueError(f"the AdaIN step takes a (dp,) or (dp, tp) mesh, got {mesh.axis_names}")
+    return [list(row) for row in mesh.devices.reshape(mesh.shape["dp"], -1)]
+
+
+def tensor_parallel_decoder(dec: torch.nn.Module, devices) -> torch.nn.Module:
+    """The decoder with every conv that ``conv_param_sharding`` splits (O >=
+    64, len(devices) divides O) made a ``ColumnParallelConv`` over
+    ``devices``, the others on ``devices[0]``. Returns ``dec``, changed."""
+    tp = len(devices)
+    dec = dec.to(devices[0])
+    if tp > 1:
+        for i, conv in enumerate(dec.convs):
+            o = conv.weight.shape[0]
+            if o >= 64 and o % tp == 0:
+                dec.convs[i] = ColumnParallelConv(conv, devices)
+    return dec
+
+
+def _placed_decoder(dec: torch.nn.Module, devices) -> torch.nn.Module:
+    """A copy of a (tensor-parallel) decoder for another row of the mesh:
+    split convs' slices on ``devices``, the rest on ``devices[0]``."""
+    if [canonical(d) for d in devices] == _tp_of(dec):
+        return dec
+    out = copy.deepcopy(dec)
+    for i, conv in enumerate(out.convs):
+        out.convs[i] = (conv.placed(devices) if isinstance(conv, ColumnParallelConv)
+                        else conv.to(devices[0]))
+    return out
+
+
+def _tp_of(dec) -> list:
+    """The devices of a decoder's split convs (its first parameter's device
+    when none is split)."""
+    for conv in dec.convs:
+        if isinstance(conv, ColumnParallelConv):
+            return conv.devices
+    return [canonical(next(dec.parameters()).device)]
 
 
 def shard_train_setup(mesh, vgg_params, dec_params, optimizer: Optimizer):
-    """Place the frozen VGG and the decoder on the mesh's one device and
-    build the train state. Returns (vgg_params, state)."""
-    dev = single_device(mesh)
-    vgg_params = vgg_params.to(dev).requires_grad_(False)
-    return vgg_params, init_train_state(dec_params.to(dev), optimizer)
+    """Place the state on the mesh: the frozen VGG and the decoder on its
+    home device, the decoder's wide convs split over ``tp`` (a mesh with a
+    tp axis of more than one device). Returns (vgg_params, state)."""
+    mesh = as_mesh(mesh)
+    vgg_params = vgg_params.to(mesh.home).requires_grad_(False)
+    dec = tensor_parallel_decoder(dec_params, _rows(mesh)[0])
+    return vgg_params, init_train_state(dec, optimizer)
 
 
 def compile_train_step(mesh, optimizer: Optimizer, vgg_params, batch_shape=None,
                        compute_dtype=torch.float32,
-                       style_weight: float = 10.0, content_weight: float = 1.0):
-    """The step of ``make_train_step`` for the mesh's one device (eager: no
-    compilation)."""
-    single_device(mesh)
-    return make_train_step(optimizer, vgg_params, compute_dtype, style_weight,
-                           content_weight)
+                       style_weight: float = 10.0, content_weight: float = 1.0,
+                       style_taps=STYLE_TAPS):
+    """The train step on the mesh (eager: no compilation). On a mesh of one
+    device, ``make_train_step``. Otherwise the content and style batches
+    (tensors, or ``Sharded`` from ``parallel.sharding.shard_batch``) are
+    split over ``dp``, each row of the mesh runs its shard on its own
+    copies of the VGG and the decoder, and the mean loss's gradient updates
+    the home copy (module docstring)."""
+    mesh = as_mesh(mesh)
+    if mesh.size == 1:
+        return make_train_step(optimizer, vgg_params, compute_dtype, style_weight,
+                               content_weight, style_taps)
+    vgg_params.requires_grad_(False)
+    rows = _rows(mesh)
+    row_home = [r[0] for r in rows]
+    vggs = replicate_module(vgg_params, row_home)
+    replicas = {}
+
+    def step(state: TrainState, content, style):
+        dec = state.params
+        if replicas.get("of") is not dec:
+            replicas.clear()
+            replicas.update(of=dec, decs=[_placed_decoder(dec, r) for r in rows])
+        home = row_home[0]
+        shards = [x.parts if isinstance(x, Sharded) else split(x, row_home).parts
+                  for x in (content, style)]
+        results = [train_loss_and_grads(d, v, c, s, style_weight, content_weight, compute_dtype,
+                                        style_taps)
+                   for d, v, c, s in zip(replicas["decs"], vggs, *shards)]
+        loss = mean_of([r[0] for r in results], home)
+        lc = mean_of([r[1][0] for r in results], home)
+        ls = mean_of([r[1][1] for r in results], home)
+        params = _trainable(dec)
+        grads = {k: mean_of([r[2][k] for r in results], p.device) for k, p in params.items()}
+        lr = optimizer.schedule(state.opt_state.count)
+        new, opt_state = optimizer.update(grads, state.opt_state, params)
+        with torch.no_grad():
+            for name, p in dec.named_parameters():
+                p.copy_(new[name])
+        broadcast_parameters(dec, replicas["decs"])
+        return TrainState(dec, opt_state, state.step + 1), {
+            "loss": loss, "loss_content": lc, "loss_style": ls, "lr": lr}
+
+    return step

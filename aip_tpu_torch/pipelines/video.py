@@ -13,7 +13,8 @@
 * ``run_style_transfer``: mp4 in, mp4 out.
 
 All frames of a call are stylized as one batch, and all consecutive pairs
-go through the flow estimator as one batch (TV-L1 by default: its inner
+go through the flow estimator as one batch, one batch a device when the
+frames are sharded over several (TV-L1 by default: its inner
 loop is the ``tvl1`` CUDA kernel on the card). Every entry point takes
 ``device=None``, which means CUDA, and raises when CUDA is absent. A
 ``trace`` dict, when given, receives each stage's milliseconds
@@ -44,6 +45,8 @@ from aip_tpu_torch.ops.adain import calc_mean_std
 from aip_tpu_torch.ops.depth import compute_stylization_strength_map
 from aip_tpu_torch.ops.flow import blend_images, estimate_flow_method, warp_image
 from aip_tpu_torch.ops.image import resize_bilinear
+from aip_tpu_torch.parallel import mesh as mesh_mod
+from aip_tpu_torch.parallel.sharding import gather, replicate_module
 from aip_tpu_torch.pipelines.adain_infer import _to_array, precompute_style_stats
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
@@ -187,6 +190,34 @@ def _stylize_frames(vgg_params, dec_params, frames, s_mean, s_std, depth_maps, o
     return torch.clamp(out.float(), 0.0, 1.0)
 
 
+def _frame_shards(n: int, devices) -> list:
+    """(device, first, stop) of each device's run of consecutive frames,
+    as even as ``torch.tensor_split`` cuts them (empty runs dropped)."""
+    bounds = [len(c) for c in torch.tensor_split(torch.arange(n), len(devices))]
+    out, first = [], 0
+    for dev, size in zip(devices, bounds):
+        if size:
+            out.append((dev, first, first + size))
+        first += size
+    return out
+
+
+def _sharded_flows(frames: torch.Tensor, shards, method: str) -> torch.Tensor:
+    """``_batch_flows`` with the pairs split over the shards' devices:
+    shard (dev, a, b) computes the flows into frames max(a, 1) .. b - 1,
+    the pair across its first boundary taking the previous shard's last
+    frame; gathered in frame order on the frames' device."""
+    parts = []
+    for dev, a, b in shards:
+        lo = max(a, 1)
+        if lo < b:
+            parts.append(estimate_flow_method(frames[lo - 1:b - 1].to(dev),
+                                              frames[lo:b].to(dev), method=method))
+    if not parts:
+        return frames.new_zeros((0, frames.shape[1], frames.shape[2], 2))
+    return gather(parts, frames.device)
+
+
 def _batch_flows(frames: torch.Tensor, method: str = "lk") -> torch.Tensor:
     """[N, H, W, 3] -> [N-1, H, W, 2] flows between consecutive frames, all
     pairs in one batch (``aip_tpu`` maps them in chunks of 32, for a TPU
@@ -231,19 +262,21 @@ def apply_style_transfer_multi_ada(
     """Stylize a frame directory against a directory of styles (reference
     video/utils.py:304-371). Returns the written frame paths.
 
-    ``shard`` with more than one visible card (and a frame count they
-    divide) asks for ``aip_tpu``'s frame-parallel mesh, which is slice 6 of
-    the port: that raises NotImplementedError."""
+    ``shard`` with more than one device in ``parallel.mesh.local_devices``
+    (every card, for a CUDA call) splits the frames into runs of
+    consecutive frames, one a device: each device computes its frames'
+    depth maps and stylizations and the flows into them (the pair across a
+    run's first boundary takes the previous run's last frame) with its own
+    copy of the networks; the results are gathered in frame order on
+    ``device`` for the serial blend."""
     dev = resolve_device(device)
     content_frames = _list_images(content_dir)
     style_images = _list_images(style_dir)
     if not style_images:
         raise ValueError("No style images found in the style directory.")
     n, m = len(content_frames), len(style_images)
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if shard and cards > 1 and n % cards == 0:
-        raise NotImplementedError(
-            f"frame sharding over {cards} cards is slice 6 of the port; pass shard=False")
+    devices = mesh_mod.local_devices(dev) if shard else [dev]
+    shards = _frame_shards(n, devices) if len(devices) > 1 else None
     if vgg_params is None:
         vgg_params = weights_mod.get_vgg_params(device=dev)
     if dec_params is None:
@@ -258,11 +291,11 @@ def apply_style_transfer_multi_ada(
 
     with stages("load"):
         frames = _load_frames(content_dir, content_frames, (h, w), dev)
+    runs = shards or [(dev, 0, n)]
     with stages("depth"):
-        if use_depth:
-            depth_maps = _batch_proximity(frames)
-        else:
-            depth_maps = torch.ones((n, h, w), device=dev)  # constant -> P = 0
+        depth_maps = [_batch_proximity(frames[a:b].to(d)) if use_depth
+                      else torch.ones((b - a, h, w), device=d)  # constant -> P = 0
+                      for d, a, b in runs]
     with stages("stylize"):
         # One encode per style; the reference's switching rule (:336-338).
         stats = [precompute_style_stats(vgg_params,
@@ -272,17 +305,25 @@ def apply_style_transfer_multi_ada(
         means = torch.cat([s[0] for s in stats])
         stds = torch.cat([s[1] for s in stats])
         idx = torch.from_numpy(np.minimum(np.arange(n) // frames_per_style, m - 1)).to(dev)
-        stylized = _stylize_frames(vgg_params, dec_params, frames, means[idx], stds[idx],
-                                   depth_maps, float(offset), float(prominence), compute_dtype)
+        run_devices = [d for d, _, _ in runs]
+        vggs = replicate_module(vgg_params, run_devices)
+        decs = replicate_module(dec_params, run_devices)
+        stylized = gather([
+            _stylize_frames(v, dc, frames[a:b].to(d), means[idx[a:b]].to(d),
+                            stds[idx[a:b]].to(d), dm, float(offset), float(prominence),
+                            compute_dtype)
+            for v, dc, dm, (d, a, b) in zip(vggs, decs, depth_maps, runs)], dev)
     if cancel_flag is not None and getattr(cancel_flag, "is_set", lambda: False)():
         return []
     return _blend_and_save(stages, stylized, frames, flow_method, alpha, output_dir,
-                           content_frames)
+                           content_frames, shards)
 
 
-def _blend_and_save(stages, stylized, frames, flow_method, alpha, output_dir, names) -> list:
+def _blend_and_save(stages, stylized, frames, flow_method, alpha, output_dir, names,
+                    shards=None) -> list:
     with stages("flows"):
-        flows = _batch_flows(frames, method=flow_method)
+        flows = (_batch_flows(frames, method=flow_method) if shards is None
+                 else _sharded_flows(frames, shards, flow_method))
     with stages("blend"):
         blended = _temporal_blend(stylized, flows, alpha)
     with stages("save"):

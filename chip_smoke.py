@@ -347,8 +347,40 @@ content and 16 style images at 512^2 (numpy seed 0):
     kernels launched, its wall and device ms; then the classical estimator
     put back and ``estimate_proximity`` equal to what it gave before.
 
-The line before the last lists every kernel (``{"kernels": [...]}``); the
-last line is ``{"ok": true, "device": {...}}``. AdaIN weights are the
+Multi-view training and the meshes (slice 8; a mesh is a grid of
+``torch.device``s in one process, here ``[cuda:0, cuda:0]``, and every card
+when there are several):
+
+41. ``run_3dgs_training`` with ``views_per_step=4`` on phase 18's scene and
+    schedule at full width (60 iterations, 15 steps; every event fires,
+    kernel C once a step, A and B once a view); a 4-view step at 128^2
+    card against the CPU at phase 17's gates; the 800^2 batched step
+    against the mean of four one-view steps from the same trainer (loss at
+    1e-6 relative, first moments at MV_GRAD_TOL of their largest entry,
+    statistics their sum at 1e-5); ms of a one-view and of a 4-view step
+    (CUDA events) and ms a reference iteration; both steps' device ms by
+    span, launches and busy share; the chosen ``view_chunk``.
+42. every mesh path against the same call on one device: the AdaIN
+    decoder's dp step and its (1, n) tp step (the loss at 1e-5; the
+    relu1_1 style term's gradient within phase 38's ``_fp32_gate`` of the
+    one-device step's, float64 on the card through the plain versions; one
+    Adam step's parameters within 2 lr, the share off by 1e-6 reported), dp
+    distillation (2 lr), ``compile_batch_stylize`` (mean abs 1e-3, max
+    1e-2: fp32 against the whole batch on one device, bf16 against one
+    device at the shard's batch, its distance from the whole batch
+    reported), frame-sharded video (fp32, the PNG gate), the view-sharded
+    3DGS step and ``gaussian_shard`` at 800^2 (loss 1e-5, first moments at
+    MV_GRAD_TOL); each path with its counts set to 0 before and read after.
+43. the committed model at 800^2 rendered with its Gaussians over
+    ``[cuda:0, cuda:0]`` against the replicated render (max abs
+    GS_FRAME_TOL); the windowed kernel's call at block0 > 0 against its
+    walk emulated in plain torch (max abs 0) and within the compositors'
+    gate of the plain version; the frame's ms, sharded and replicated.
+
+The line before the last lists every kernel (``{"kernels": [...]}``, each
+with the launches of the slice-8 paths that ran it under ``"slice 8"``,
+and the windowed kernel with its block0 check); the last line is
+``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
 the run writes goes under ``build/chip_smoke/`` in the checkout.
 """
@@ -671,6 +703,16 @@ def main():
         if line["name"] in ("encode_head_fp32", "decode_tail_fp32"):
             line["launches_by_path"] = {path: counts[line["name"][:-5]]
                                         for path, counts in by_path.items()}
+    torch.cuda.empty_cache()
+    # 41-43. multi-view training, the meshes, Gaussian-sharded rendering ----------
+    slice8, block0_err = _slice8_phases(torch, dev, bed, default_tf32)
+    for line in lines:
+        entry = {path: counts[line["name"]] for path, counts in slice8.items()
+                 if counts.get(line["name"])}
+        if entry:
+            line["slice 8"] = {"launches": entry}
+        if line["name"] == "composite_macro_mxu":
+            line.setdefault("slice 8", {})["block0_max_abs_err"] = block0_err
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4668,6 +4710,524 @@ def _midas_phase(torch, dev, default_tf32, dirs):
         raise AssertionError(f"the MiDaS depth call failed: err {err}, launches {routes}, "
                              f"classical proxy restored {same}")
     return routes["fp32"]
+
+
+# ---------------------------------------------------------------------------
+# Multi-view training, meshes, Gaussian-sharded rendering (phases 41-43)
+# ---------------------------------------------------------------------------
+
+VIEWS_PER_STEP = 4
+SLICE8_WORK = WORK / "slice8"
+MESH_FRAMES, MESH_FRAME_SIZE = 16, 128
+# The step's first moments against the mean of one-view steps, and a
+# sharded step's against the unsharded one, on the card: kernel C adds the
+# table gradients through atomics in another order (phase 17's gate).
+MV_GRAD_TOL = 1e-3
+GS_FRAME_TOL = 1e-4       # a sharded 3DGS frame against the replicated one, max abs
+ADAM_LR_AI = 1e-4         # the AdaIN decoder's Adam lr (one step moves an entry by <= lr)
+ADAM_LR_MAGENTA = 1e-3
+
+
+def _slice8_phases(torch, dev, bed, default_tf32):
+    """Phases 41-43. Returns {kernel name: {path: launches}} of the slice's
+    paths, and the windowed kernel's max abs error at block0 > 0."""
+    import numpy as np
+    from PIL import Image
+
+    shutil.rmtree(SLICE8_WORK, ignore_errors=True)
+    SLICE8_WORK.mkdir(parents=True)
+    emit("mesh_devices", device_count=torch.cuda.device_count(),
+         note="multi-card speed is not measured on a one-card machine: the meshes of "
+              "[cuda:0, cuda:0] run every split, gather and shard-order sum on one card")
+    scene_dir = TRAIN_WORK / "scene"
+    if not (scene_dir / "transforms_train.json").is_file():
+        scene_dir = _write_train_scene(np, Image, bed)
+    by_path = _multiview_phase(torch, np, dev, bed, scene_dir)
+    torch.cuda.empty_cache()
+    by_path.update(_mesh_phase(torch, np, Image, dev, bed, scene_dir))
+    torch.cuda.empty_cache()
+    path_counts, block0_err = _sharded_render_phase(torch, np, dev, bed)
+    by_path.update(path_counts)
+    return by_path, block0_err
+
+
+def _path_launches(K, KAD, KH, KT, KC):
+    """Every kernel wrapper's count, by the kernels table's names (the AdaIN
+    head and tail per route)."""
+    routes = K.route_launch_counts()
+    out = {**{k: n for k, n in routes["bf16"].items()},
+           **{f"{k}_fp32": n for k, n in routes["fp32"].items()},
+           **KAD.launch_counts(), **KH.launch_counts(), **KT.launch_counts(),
+           **KC.launch_counts()}
+    return out
+
+
+def _reset_all(*mods):
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def _kernel_modules():
+    from aip_tpu_torch.kernels import adain_head as K
+    from aip_tpu_torch.kernels import composite as KC
+    from aip_tpu_torch.kernels import composite_ad as KAD
+    from aip_tpu_torch.kernels import hashgrad as KH
+    from aip_tpu_torch.kernels import tvl1 as KT
+
+    return K, KAD, KH, KT, KC
+
+
+def _run_path(torch, name, fn, expect):
+    """Drive one path with every count set to 0 just before and read just
+    after; fail if a kernel of ``expect`` did not launch. Returns (fn's
+    result, {kernel: launches} of the kernels that launched)."""
+    mods = _kernel_modules()
+    _reset_all(*mods)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in _path_launches(*mods).items() if n}
+    missing = [k for k in expect if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"path {name}: kernels {missing} did not launch ({counts})")
+    return out, counts
+
+
+def _mu_errs(new, ref):
+    """Each first moment's max abs error over its largest entry."""
+    out = {}
+    for group in ("opt_g", "opt_net"):
+        for k, r in getattr(ref, group).mu.items():
+            g = getattr(new, group).mu[k]
+            out[k] = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    return out
+
+
+def _multiview_phase(torch, np, dev, bed, scene_dir):
+    """Phase 41: views_per_step = 4 at full width on phase 18's scene."""
+    from PIL import Image
+
+    from aip_tpu_torch.gs import gaussians as G
+    from aip_tpu_torch.gs import pipeline
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gs.cameras import Camera
+    from aip_tpu_torch.gs.dataset import Scene
+
+    B = VIEWS_PER_STEP
+    scene = Scene(str(scene_dir), shuffle=False)
+    cams = scene.getTrainCameras()
+    ext = scene.cameras_extent
+    cfg = T.GSTrainConfig(**SCHEDULE)
+    pcd = scene.point_cloud
+    style_f = bed["style_f"]
+    bg = torch.zeros(3, device=dev)
+
+    # The loop, the slice's main path for training.
+    model_dir = SLICE8_WORK / "multiview_model"
+    trace = {}
+    t0 = time.perf_counter()
+    _, counts = _run_path(torch, "multiview_train", lambda: pipeline.run_3dgs_training(
+        str(scene_dir), str(bed["style_png"]), model_path=str(model_dir), cfg=cfg,
+        progress_every=0, views_per_step=B, device=dev, trace=trace),
+        ("composite_ad_fwd", "composite_ad_bwd", "hash_grad"))
+    wall_s = time.perf_counter() - t0
+    steps, ev = trace["steps"], trace["events"]
+    by_phase = {}
+    for _, ph, _, ms in steps:
+        by_phase.setdefault(ph, []).append(ms)
+    photo = [loss for _, ph, loss, _ in steps if ph == "photometric"]
+    emit("multiview_train", entry="aip_tpu_torch.gs.pipeline.run_3dgs_training",
+         views_per_step=B, schedule=SCHEDULE, steps=len(steps), events=ev,
+         iterations=[it for it, *_ in steps], loss_curve=[round(x, 6) for _, _, x, _ in steps],
+         median_step_ms={ph: statistics.median(v) for ph, v in by_phase.items()},
+         median_iteration_ms={ph: statistics.median(v) / B for ph, v in by_phase.items()},
+         launches=counts, launches_per_step={k: v / len(steps) for k, v in counts.items()},
+         wall_s=wall_s)
+    fired = ("photometric_steps", "style_steps", "densify_events", "cloned", "split", "pruned",
+             "opacity_reset", "recompact", "rvq_qat_start", "mask_prune_events")
+    missing = [e for e in fired if ev.get(e, 0) <= 0]
+    if missing or len(steps) != SCHEDULE["iterations"] // B:
+        raise AssertionError(f"multi-view loop: events that never fired {missing}, "
+                             f"{len(steps)} steps")
+    if not (np.isfinite([x for _, _, x, _ in steps]).all() and photo[-1] < photo[0]):
+        raise AssertionError("multi-view loop: the photometric loss did not fall")
+    if counts["hash_grad"] != len(steps) or counts["composite_ad_fwd"] != B * len(steps):
+        raise AssertionError(f"multi-view loop: kernel C not once a step or A not once a "
+                             f"view: {counts}")
+
+    # Step 1 card against the port on the CPU, 128^2 (phase 17's set-up, 4 views).
+    _multiview_card_vs_cpu(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext, style_f,
+                           dev)
+
+    # The batched step against the mean of four one-view steps, full width.
+    trainer = T.init_trainer(cfg, pcd.points, pcd.colors, ext, seed=0, device=dev)
+    views = [T.camera_to_arrays(c, device=dev) for c in cams[:B]]
+    one = T.make_train_step(cfg, ext, "photometric", TRAIN_SIZE, TRAIN_SIZE)
+    batched = T.make_train_step(cfg, ext, "photometric", TRAIN_SIZE, TRAIN_SIZE,
+                                views_per_step=B)
+    batch = T.stack_cameras(views)
+    singles = [one(trainer, v, style_f, bg) for v in views]
+    new, m = batched(trainer, batch, style_f, bg)
+    torch.cuda.synchronize()
+    mean_state = trainer._replace(
+        opt_g=trainer.opt_g._replace(mu={k: sum(s.opt_g.mu[k] for s, _ in singles) / B
+                                         for k in trainer.opt_g.mu}),
+        opt_net=trainer.opt_net._replace(mu={k: sum(s.opt_net.mu[k] for s, _ in singles) / B
+                                             for k in trainer.opt_net.mu}))
+    errs = _mu_errs(new, mean_state)
+    mean_loss = sum(float(mm["loss"]) for _, mm in singles) / B
+    loss_err = abs(float(m["loss"]) - mean_loss) / abs(mean_loss)
+    accum = sum(s.gstate.xyz_grad_accum for s, _ in singles)
+    stats_err = float((new.gstate.xyz_grad_accum - accum).abs().max() / accum.abs().max())
+    emit("multiview_vs_one_view_steps", size=TRAIN_SIZE, views=B, view_chunk=batched.view_chunk,
+         loss_rel_err=loss_err, grad_rel_err=errs, stats_rel_err=stats_err,
+         tol_loss=1e-6, tol_grad=MV_GRAD_TOL, tol_stats=1e-5)
+    if not (loss_err <= 1e-6 and max(errs.values()) <= MV_GRAD_TOL and stats_err <= 1e-5):
+        raise AssertionError("the batched step is not the mean of its one-view steps")
+
+    # Times: a one-view step and the batched step from the same trainer.
+    one_ms = _time_ms(torch, lambda: one(trainer, views[0], style_f, bg), runs=5)
+    b_ms = _time_ms(torch, lambda: batched(trainer, batch, style_f, bg), runs=5)
+    emit("multiview_times", size=TRAIN_SIZE, views_per_step=B, view_chunk=batched.view_chunk,
+         one_view_step_ms=one_ms, batched_step_ms=b_ms, batched_iteration_ms=b_ms / B,
+         iteration_ratio=b_ms / B / one_ms, timing="CUDA events, median of 5 after 2")
+    _stage_profile(torch, "multiview_profile", lambda: batched(trainer, batch, style_f, bg),
+                   TRAIN_STAGES, named=TRAIN_NAMED, stage_of=_train_stage, step="photometric",
+                   views_per_step=B, view_chunk=batched.view_chunk)
+    _stage_profile(torch, "multiview_profile", lambda: one(trainer, views[0], style_f, bg),
+                   TRAIN_STAGES, named=TRAIN_NAMED, stage_of=_train_stage, step="photometric",
+                   views_per_step=1)
+    return {"multiview_train": counts}
+
+
+def _multiview_card_vs_cpu(torch, np, T, G, Camera, Image, scene_dir, cams, pcd, ext, style_f,
+                           card):
+    """Phase 17's check with 4 views a step: 128^2, 3,000 points, capacity
+    4,096, a 2^16 table; the loss at 1e-4 relative, every group's gradient
+    at 1e-3 of its largest entry."""
+    B = VIEWS_PER_STEP
+    rng = np.random.default_rng(1)
+    small = []
+    for i, c in enumerate(cams[:B]):
+        img = Image.open(scene_dir / "images" / f"{c.image_name}.png").convert("RGB")
+        img = np.asarray(img.resize((128, 128), Image.BILINEAR), np.float32) / 255.0
+        small.append(Camera(colmap_id=i, R=c.R, T=c.T, FoVx=c.FoVx, FoVy=c.FoVy, image=img,
+                            image_name=f"c128_{i}", uid=i))
+    cfg = T.GSTrainConfig(capacity=4096, log2_hashmap=16)
+    pick = rng.choice(N_OBJECT, min(3000, N_OBJECT), replace=False)
+    trainer = T.init_trainer(cfg, pcd.points[pick], pcd.colors[pick], ext, seed=0, device="cpu")
+    gs = trainer.gstate
+    gs = gs._replace(
+        scaling=gs.scaling + torch.from_numpy(rng.normal(0, 0.3, (4096, 3)).astype(np.float32)),
+        rotation=torch.from_numpy(rng.standard_normal((4096, 4)).astype(np.float32)))
+    trainer = trainer._replace(gstate=gs)
+    res = []
+    for dev in ("cpu", card):
+        tr = G.tree_map(lambda t: t.to(dev) if t.ndim else t, trainer)
+        step = T.make_train_step(cfg, ext, "photometric", 128, 128, views_per_step=B)
+        batch = T.stack_cameras([T.camera_to_arrays(c, device=dev) for c in small])
+        new, metrics = step(tr, batch, style_f.to(dev), torch.zeros(3, device=dev))
+        torch.cuda.synchronize()
+        res.append((metrics["loss"].item(), G.tree_map(lambda t: t.cpu(), new)))
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = res
+    errs = _mu_errs(t_gpu, t_cpu)
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    emit("multiview_card_vs_cpu", size=128, views_per_step=B, capacity=4096,
+         table=[16, 1 << 16, 2], loss_rel_err=loss_err, grad_rel_err=errs, tol_loss=1e-4,
+         tol_grad=1e-3)
+    if not (loss_err <= 1e-4 and max(errs.values()) <= 1e-3):
+        raise AssertionError("a batched training step on the card disagrees with the CPU")
+
+
+def _adam_rule(torch, pairs, lr):
+    """aip_tpu's rule for a sharded step against one device: every entry
+    within 2 lr, fewer than 1e-4 of them off by more than 1e-6. Returns
+    (max abs, share off)."""
+    worst, off, n = 0.0, 0, 0
+    for a, b in pairs:
+        d = (a.detach().float() - b.detach().float().to(a.device)).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-6).sum())
+        n += d.numel()
+    return worst, off / n
+
+
+def _mesh_phase(torch, np, Image, dev, bed, scene_dir):
+    """Phase 42: every mesh path on [cuda:0, cuda:0] (and on every card
+    when there are several) against the same call on one device."""
+    import copy
+
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gs.dataset import Scene
+    from aip_tpu_torch.models import magenta as M
+    from aip_tpu_torch.models import magenta_train as MT
+    from aip_tpu_torch.models import weights
+    from aip_tpu_torch.parallel import gs as PGS
+    from aip_tpu_torch.parallel import mesh as PM
+    from aip_tpu_torch.parallel import train as PT
+    from aip_tpu_torch.parallel.infer import compile_batch_stylize
+    from aip_tpu_torch.pipelines import adain_infer, video
+
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"cuda0x2": [cuda0, cuda0]}
+    if torch.cuda.device_count() > 1:
+        meshes["all_cards"] = PM.local_devices(cuda0)
+    g = np.random.default_rng(42)
+    vgg = weights.get_vgg_params(device=dev)
+    dec = weights.get_decoder_params(device=dev)
+    content = torch.from_numpy(g.random((8, 256, 256, 3)).astype(np.float32)).to(dev)
+    style = torch.from_numpy(g.random((8, 256, 256, 3)).astype(np.float32)).to(dev)
+    by_path = {}
+
+    def check(name, ok, **fields):
+        emit("mesh_path", path=name, **fields)
+        if not ok:
+            raise AssertionError(f"mesh path {name} disagrees with one device: {fields}")
+
+    # The relu1_1 style term reaches no max pool (phase 38's gradient check).
+    term = dict(style_weight=1.0, content_weight=0.0, style_taps=("relu1_1",))
+
+    def adain_step(mesh, shape, axes, **kw):
+        m = PM.make_mesh(mesh, axes, shape)
+        opt = PT.make_optimizer()
+        v, st = PT.shard_train_setup(m, copy.deepcopy(vgg), copy.deepcopy(dec), opt)
+        return PT.compile_train_step(m, opt, v, **kw)(st, content, style)
+
+    names = [k for k, _ in dec.named_parameters()]
+    ref_state, ref_m = adain_step([cuda0], (1,), ("dp",))
+    ref_params = [p.detach().clone() for p in ref_state.params.parameters()]
+    term_state, _ = adain_step([cuda0], (1,), ("dp",), **term)
+    ref = {k: g / 0.1 for k, g in zip(names, _decoder_moments(torch, term_state))}
+    with _plain_kernels():
+        _, _, ref64 = PT.train_loss_and_grads(
+            copy.deepcopy(dec).double(), copy.deepcopy(vgg).double(), content.double(),
+            style.double(), compute_dtype=torch.float64, **term)
+    gate_ok, gate_report = _fp32_gate(ref, ref64)
+    del ref64
+    for label, devices in meshes.items():
+        n = len(devices)
+        for path, shape, axes in ((f"adain_dp{n}_{label}", (n,), ("dp",)),
+                                  (f"adain_tp{n}_{label}", (1, n), ("dp", "tp"))):
+            (st, m), counts = _run_path(torch, path, lambda: adain_step(devices, shape, axes),
+                                        ("encode_head_fp32", "decode_tail_fp32"))
+            worst, share = _adam_rule(torch, zip(_gathered_decoder(st.params), ref_params),
+                                      ADAM_LR_AI)
+            loss_err = abs(m["loss"].item() - ref_m["loss"].item()) / ref_m["loss"].item()
+            split = [type(c).__name__ for c in st.params.convs]
+            term_st, _ = adain_step(devices, shape, axes, **term)
+            grads = {k: g / 0.1 for k, g in zip(names, _decoder_moments(torch, term_st))}
+            check(path, loss_err <= 1e-5 and gate_ok(grads) and worst <= 2 * ADAM_LR_AI + 1e-6
+                  and (axes == ("dp",) or split.count("ColumnParallelConv") == 8),
+                  batch=8, size=256, loss_rel_err=loss_err,
+                  relu1_1_gradient=gate_report(grads),
+                  gradient_gate="phase 38's: each parameter's relative L2 error from the "
+                                "one-device step within 1e-5 + 4 x that step's own distance "
+                                "from float64",
+                  max_abs_param=worst, share_off=share,
+                  share_off_note="entries off by > 1e-6 after one Adam step of the full loss "
+                                 "(first-step sign flips on near-zero gradients)",
+                  convs=split, launches=counts)
+            by_path[path] = counts
+
+    # Distillation, the content batch over dp.
+    c_d, s_d = content[:4], style[0]
+    params0 = M.init_magenta_params(torch.Generator().manual_seed(0), device=dev)
+
+    def distill(devices):
+        p = M.MagentaParams(*(copy.deepcopy(mod) for mod in params0))
+        opt = PT.make_optimizer(ADAM_LR_MAGENTA)
+        step = MT.make_distill_step(opt, copy.deepcopy(vgg), copy.deepcopy(dec),
+                                    devices=devices)
+        state = opt.init({k: q.detach() for k, q in MT._named(p)})
+        p, _, loss = step(p, state, c_d, s_d)
+        return [q.detach() for _, q in MT._named(p)], loss.item()
+
+    ref_p, ref_l = distill(None)
+    for label, devices in meshes.items():
+        path = f"distill_dp{len(devices)}_{label}"
+        (p, loss), counts = _run_path(torch, path, lambda: distill(devices),
+                                      ("encode_head_fp32", "decode_tail_fp32"))
+        worst, share = _adam_rule(torch, zip(p, ref_p), ADAM_LR_MAGENTA)
+        loss_err = abs(loss - ref_l) / ref_l
+        check(path, loss_err <= 1e-5 and worst <= 2 * ADAM_LR_MAGENTA + 1e-6,
+              batch=4, size=256, loss_rel_err=loss_err, max_abs_param=worst, share_off=share,
+              tol="2 lr (one Adam step)", launches=counts)
+        by_path[path] = counts
+
+    # Batched inference over dp: fp32 against the whole batch on one device;
+    # bf16 against one device at the shard's batch (cuDNN picks its bf16
+    # convs by batch, so the whole batch on one device rounds otherwise).
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for label, devices in meshes.items():
+            n = len(devices)
+            path = f"batch_stylize_{name}_dp{n}_{label}"
+            fn = compile_batch_stylize(PM.make_mesh(devices, ("dp",), (n,)), compute_dtype=dtype)
+            out, counts = _run_path(torch, path, lambda: fn(vgg, dec, content, style),
+                                    ("encode_head_fp32", "decode_tail_fp32") if name == "fp32"
+                                    else ("encode_head", "decode_tail"))
+            with torch.no_grad():
+                ref = (adain_infer.stylize_simple(vgg, dec, content, style, alpha=0.5,
+                                                  compute_dtype=dtype, device=dev)
+                       if name == "fp32" else torch.cat([
+                           adain_infer.stylize_simple(vgg, dec, c, s, alpha=0.5,
+                                                      compute_dtype=dtype, device=dev)
+                           for c, s in zip(content.chunk(n), style.chunk(n))]))
+            whole = adain_infer.stylize_simple(vgg, dec, content, style, alpha=0.5,
+                                               compute_dtype=dtype, device=dev)
+            err = (out.float() - ref.float()).abs()
+            err_whole = (out.float() - whole.float()).abs()
+            check(path, out.shape == content.shape and float(err.mean()) <= 1e-3
+                  and float(err.max()) <= 1e-2, batch=8, size=256, dtype=name,
+                  against="the whole batch on one device" if name == "fp32"
+                  else f"batches of {8 // n} on one device",
+                  mean_abs=float(err.mean()), max_abs=float(err.max()),
+                  whole_batch_mean_abs=float(err_whole.mean()),
+                  whole_batch_max_abs=float(err_whole.max()),
+                  tol_mean_abs=1e-3, tol_max_abs=1e-2, launches=counts)
+            by_path[path] = counts
+
+    # Video frames over the devices.
+    frames_dir, styles_dir = SLICE8_WORK / "frames", SLICE8_WORK / "styles"
+    _write_images(np, Image, _moving_texture(np, MESH_FRAMES, MESH_FRAME_SIZE, 3), frames_dir,
+                  "f")
+    _write_images(np, Image, [g.random((MESH_FRAME_SIZE, MESH_FRAME_SIZE, 3))], styles_dir, "s")
+    kw = dict(target_resolution=(MESH_FRAME_SIZE, MESH_FRAME_SIZE), vgg_params=vgg,
+              dec_params=dec, compute_dtype=torch.float32, device=dev)
+    one = video.apply_style_transfer_multi_ada(frames_dir, styles_dir, SLICE8_WORK / "v1", **kw)
+    orig = PM.local_devices
+    try:
+        for label, devices in meshes.items():
+            path = f"video_frames_{len(devices)}_{label}"
+            PM.local_devices = lambda d, devices=devices: list(devices)
+            out, counts = _run_path(torch, path, lambda: video.apply_style_transfer_multi_ada(
+                frames_dir, styles_dir, SLICE8_WORK / path, **kw),
+                ("encode_head_fp32", "decode_tail_fp32", "tvl1"))
+            a = np.stack([np.asarray(Image.open(p), np.float64) for p in out]) / 255.0
+            b = np.stack([np.asarray(Image.open(p), np.float64) for p in one]) / 255.0
+            err = np.abs(a - b)
+            check(path, len(out) == MESH_FRAMES and err.mean() <= 1e-3 and
+                  err.max() <= 1.0 / 255 + 1e-9, frames=MESH_FRAMES, size=MESH_FRAME_SIZE,
+                  dtype="float32",
+                  mean_abs=float(err.mean()), max_abs=float(err.max()),
+                  tol="mean abs 1e-3, max one 8-bit step", launches=counts)
+            by_path[path] = counts
+    finally:
+        PM.local_devices = orig
+
+    # 3DGS: the view batch over dp, and the colour field's Gaussians too.
+    scene = Scene(str(scene_dir), shuffle=False)
+    cams = scene.getTrainCameras()
+    cfg = T.GSTrainConfig(**SCHEDULE)
+    B = VIEWS_PER_STEP
+    trainer = T.init_trainer(cfg, scene.point_cloud.points, scene.point_cloud.colors,
+                             scene.cameras_extent, seed=0, device=dev)
+    batch = T.stack_cameras([T.camera_to_arrays(c, device=dev) for c in cams[:B]])
+    bg = torch.zeros(3, device=dev)
+    flat = T.make_train_step(cfg, scene.cameras_extent, "photometric", TRAIN_SIZE, TRAIN_SIZE,
+                             views_per_step=B)
+    ref_tr, ref_m = flat(trainer, batch, bed["style_f"], bg)
+    for label, devices in meshes.items():
+        mesh = PM.make_mesh(devices, ("dp",), (len(devices),))
+        for path, gshard in ((f"gs_view_dp{len(devices)}_{label}", None),
+                             (f"gs_gaussian_shard_dp{len(devices)}_{label}", (mesh, "dp"))):
+            step = T.make_train_step(cfg, scene.cameras_extent, "photometric", TRAIN_SIZE,
+                                     TRAIN_SIZE, views_per_step=B, view_chunk=B,
+                                     gaussian_shard=gshard)
+            (new, m), counts = _run_path(torch, path, lambda: step(
+                PGS.replicate_trainer(mesh, trainer), PGS.shard_view_batch(mesh, batch),
+                bed["style_f"], bg), ("composite_ad_fwd", "composite_ad_bwd", "hash_grad"))
+            errs = _mu_errs(new, ref_tr)
+            loss_err = abs(float(m["loss"]) - float(ref_m["loss"])) / abs(float(ref_m["loss"]))
+            want_c = len(devices) if gshard else 1
+            check(path, loss_err <= 1e-5 and max(errs.values()) <= MV_GRAD_TOL
+                  and counts["hash_grad"] == want_c, size=TRAIN_SIZE, views=B,
+                  loss_rel_err=loss_err, grad_rel_err=errs, tol_loss=1e-5,
+                  tol_grad=MV_GRAD_TOL, launches=counts)
+            by_path[path] = counts
+    return by_path
+
+
+def _decoder_moments(torch, state):
+    """The decoder's Adam first moments (0.1 g after one step) in the
+    one-device order, a split conv's slices concatenated."""
+    mu, out = state.opt_state.mu, []
+    for i, conv in enumerate(state.params.convs):
+        for kind in ("weight", "bias"):
+            shards = getattr(conv, f"{kind}_shards", None)
+            out.append(mu[f"convs.{i}.{kind}"] if shards is None else
+                       torch.cat([mu[f"convs.{i}.{kind}_shards.{t}"] for t in range(len(shards))]))
+    return out
+
+
+def _gathered_decoder(dec):
+    """The decoder's parameters in the one-device order, split convs
+    gathered."""
+    out = []
+    for conv in dec.convs:
+        out += [conv.weight, conv.bias]
+    return out
+
+
+def _sharded_render_phase(torch, np, dev, bed):
+    """Phase 43: the committed model at 800^2 with its Gaussians over
+    [cuda:0, cuda:0] against the replicated render; the windowed kernel's
+    call at block0 > 0 against its walk emulation."""
+    from aip_tpu_torch.gs.render import render, settings_from_selection
+    from aip_tpu_torch.kernels import composite as KC
+    from aip_tpu_torch.parallel import mesh as PM
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = PM.make_mesh([cuda0, cuda0], ("dp",), (2,))
+    state, field, style_f, enc = bed["state"], bed["field"], bed["style_f"], bed["enc"]
+    cam, sel = bed["cams"][0], bed["sel"]
+    settings = settings_from_selection(sel, cam.image_height, cam.image_width,
+                                       max_per_tile=sel.get("max_per_tile", 128))
+    if settings.macro <= 1:
+        settings = settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
+                                     composite_backend="mxu")
+    bg = torch.zeros(3, device=dev)
+    kw = dict(style_f=style_f, mode="inference", settings=settings, precomputed_enc=enc)
+    replicated = lambda: render(cam, state, field, bg, renderer="matmul", **kw).render
+    sharded = lambda: render(cam, state, field, bg, mesh=mesh, **kw).render
+    want = replicated()
+    calls = []
+    orig = KC.composite_macro_mxu
+
+    def spy(*args, **k):
+        calls.append((args, k))
+        return orig(*args, **k)
+
+    spy.launches = 0
+    KC.composite_macro_mxu = spy
+    try:
+        got, counts = _run_path(torch, "gs_sharded_render", sharded, ())
+    finally:
+        KC.composite_macro_mxu = orig
+    counts["composite_macro_mxu"] = spy.launches
+    err = float((got - want).abs().max())
+    (args, k), = [c for c in calls if c[1].get("block0", 0) > 0]
+    out = orig(*args, **k)
+    emu = KC.composite_macro_walk_reference(*args[:3], bs=k["bs"], mtw=k["mtw"],
+                                            block0=k["block0"])
+    block0_err = float((out - emu).abs().max())
+    plain = KC.composite_macro_mxu_reference(*args[:3], k["bs"], k["mtw"], block0=k["block0"])
+    plain_err = (out - plain).abs()
+    rep_ms = _time_ms(torch, replicated, runs=5)
+    sh_ms = _time_ms(torch, sharded, runs=5)
+    emit("gs_sharded_render", model="docs/examples/bed_0037_r5", size=[cam.image_height,
+                                                                      cam.image_width],
+         gaussians=state.capacity, dp=2, mesh="[cuda:0, cuda:0]", max_abs=err, tol=GS_FRAME_TOL,
+         launches=counts, strips=[{"blocks": c[0][0].shape[0], "window": c[0][0].shape[1],
+                                   "block0": c[1].get("block0", 0)} for c in calls],
+         block0=k["block0"], block0_max_abs_vs_emulation=block0_err,
+         block0_vs_plain_max_abs=float(plain_err.max()),
+         block0_vs_plain_mean_abs=float(plain_err.mean()),
+         frame_ms_sharded=sh_ms, frame_ms_replicated=rep_ms,
+         timing="CUDA events, median of 5 after 2")
+    if not (err <= GS_FRAME_TOL and spy.launches == 2 and block0_err == 0.0
+            and float(plain_err.max()) <= 1e-3 * max(1.0, float(plain.abs().max()))
+            and float(plain_err.mean()) <= 1e-5):
+        raise AssertionError("the Gaussian-sharded frame or the kernel at block0 > 0 disagrees")
+    return {"gs_sharded_render": {"composite_macro_mxu": spy.launches}}, block0_err
 
 
 if __name__ == "__main__":

@@ -406,6 +406,38 @@ def test_composite_kernels_match_plain_on_edge_cases(cuda, bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_composite_macro_mxu_at_block0_equals_plain(cuda, bs):
+    """The windowed kernel on a strip of blocks starting at block0 > 0 (as
+    the Gaussian-sharded renderer composites one), on a 3-block-wide image
+    so the strips wrap a block row: equal (max abs 0) to its walk emulated
+    in plain torch at the same block0 and to the same blocks of one launch
+    over the whole image; within the compositors' gate of the plain
+    version."""
+    from aip_tpu_torch.kernels import composite as C
+
+    g = np.random.default_rng(9)
+    mtw, mth, kc = 3, 4, 96
+    n_blocks = mtw * mth
+    rows = _raw_rows(g, n_blocks * kc, bs, mtw, mth)
+    window = torch.from_numpy(rows.reshape(n_blocks, kc, 16)).to(cuda)
+    counts = torch.from_numpy(g.integers(0, kc + 1, n_blocks).astype(np.int32)).to(cuda)
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    whole = C.composite_macro_mxu(window, counts, bg, bs=bs, mtw=mtw)
+    for block0, m in ((2, 5), (4, 3), (7, 5)):
+        strip, cnt = window[block0:block0 + m].contiguous(), counts[block0:block0 + m].contiguous()
+        out = C.composite_macro_mxu(strip, cnt, bg, bs=bs, mtw=mtw, block0=block0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, whole[block0:block0 + m])
+        emu = C.composite_macro_walk_reference(strip, cnt, bg, bs, mtw, block0=block0)
+        assert float((out - emu).abs().max()) == 0.0
+        _assert_composite_close(out, C.composite_macro_mxu_reference(strip, cnt, bg, bs, mtw,
+                                                                     block0=block0))
+    with pytest.raises(ValueError, match="block0"):
+        C.composite_macro_mxu(window, counts, bg, bs=bs, mtw=mtw, block0=-1)
+
+
+@pytest.mark.cuda
 def test_composite_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from aip_tpu_torch.kernels import composite as C
 
@@ -1252,6 +1284,90 @@ def test_train_step_on_the_card_launches_a_b_c_and_matches_the_cpu(cuda):
             got = opt_g.mu[name].cpu()
             assert float((got - ref).abs().max()) <= 1e-3 * max(float(ref.abs().max()), 1e-12), \
                 name
+
+
+@pytest.mark.cuda
+def test_batched_train_step_on_the_card_is_the_mean_of_one_view_steps(cuda):
+    """One step of B = 3 views on the card against three one-view steps
+    from the same trainer on the card: the loss their mean at 1e-6
+    relative, each first moment their mean at 1e-3 of its largest entry
+    (kernel C adds the views' table gradients through atomics in another
+    order), the densification statistics their sum; kernels A and B launch
+    once a view, kernel C once."""
+    from aip_tpu_torch.gs import gaussians as G
+    from aip_tpu_torch.kernels import composite_ad as AD
+    from aip_tpu_torch.kernels import hashgrad as KH
+
+    T, cfg, trainer, cam = _tiny_training(cuda)
+    tr = G.tree_map(lambda t: t.to(cuda) if t.ndim else t, trainer)
+    g = np.random.default_rng(8)
+    views = [T.camera_to_arrays(cam, device=cuda)._replace(
+        image=torch.from_numpy(g.random((48, 64, 3)).astype(np.float32)).to(cuda))
+        for _ in range(3)]
+    one = T.make_train_step(cfg, 1.0, "photometric", 48, 64)
+    steps = [one(tr, v, None, torch.zeros(3, device=cuda)) for v in views]
+    AD.reset_launch_counts()
+    KH.reset_launch_counts()
+    batched = T.make_train_step(cfg, 1.0, "photometric", 48, 64, views_per_step=3)
+    new, m = batched(tr, T.stack_cameras(views), None, torch.zeros(3, device=cuda))
+    torch.cuda.synchronize()
+    assert AD.launch_counts() == {"composite_ad_fwd": 3, "composite_ad_bwd": 3}
+    assert KH.launch_counts() == {"hash_grad": 1}
+    mean_loss = sum(float(mm["loss"]) for _, mm in steps) / 3
+    assert abs(float(m["loss"]) - mean_loss) <= 1e-6 * abs(mean_loss)
+    for group in ("opt_g", "opt_net"):
+        for name, got in getattr(new, group).mu.items():
+            ref = sum(getattr(t, group).mu[name] for t, _ in steps) / 3
+            assert float((got - ref).abs().max()) <= 1e-3 * max(float(ref.abs().max()), 1e-12), \
+                name
+    accum = sum(t.gstate.xyz_grad_accum for t, _ in steps)
+    assert float((new.gstate.xyz_grad_accum - accum).abs().max()) <= \
+        1e-5 * float(accum.abs().max())
+    assert new.step == 3 and int(new.opt_g.count) == 1
+
+
+@pytest.mark.cuda
+def test_dp_adain_step_on_the_card_twice_matches_one_device(cuda, monkeypatch):
+    """The AdaIN decoder's train step on a mesh of ``[cuda:0, cuda:0]``
+    (the batch split in two, each half's gradient summed to the home copy)
+    against the step on one device, on the relu1_1 style term (it reaches no
+    max pool, whose near-ties flip between any two fp32 sums): the loss at
+    1e-5 relative; each parameter's gradient (Adam's first moment after one
+    step, 0.1 g) within ``_fp32_gate``'s rule, relative L2 error at most
+    1e-5 plus 4 times the one-device step's own distance from float64 (the
+    plain versions on the card); one Adam step's parameters within 2 lr."""
+    import copy
+
+    from aip_tpu_torch.parallel import train as ptrain
+    from aip_tpu_torch.parallel.mesh import make_mesh
+
+    g = np.random.default_rng(5)
+    vgg = tvgg.init_vgg_params(0, device=cuda)
+    dec = tdec.init_decoder_params(1, device=cuda)
+    c = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(g.random((2, 64, 64, 3)).astype(np.float32)).to(cuda)
+    term = dict(style_weight=1.0, content_weight=0.0, style_taps=("relu1_1",))
+    out = {}
+    for name, mesh in (("one", [cuda]), ("two", make_mesh([cuda, cuda], ("dp",), (2,)))):
+        opt = ptrain.make_optimizer()
+        v, state = ptrain.shard_train_setup(mesh, copy.deepcopy(vgg), copy.deepcopy(dec), opt)
+        out[name] = ptrain.compile_train_step(mesh, opt, v, **term)(state, c, s)
+    (one, m1), (two, m2) = out["one"], out["two"]
+    assert abs(m2["loss"].item() - m1["loss"].item()) <= 1e-5 * m1["loss"].item()
+    monkeypatch.setattr(tvgg, "encode_head", K.encode_head_reference)
+    monkeypatch.setattr(tdec, "decode_tail", K.decode_tail_reference)
+    _, _, ref64 = ptrain.train_loss_and_grads(copy.deepcopy(dec).double(),
+                                              copy.deepcopy(vgg).double(), c.double(),
+                                              s.double(), compute_dtype=torch.float64, **term)
+    biggest = max(float(r.norm()) for r in ref64.values())
+    for k, r in ref64.items():
+        if float(r.norm()) < 1e-6 * biggest:
+            continue
+        ref, got = one.opt_state.mu[k].double() / 0.1, two.opt_state.mu[k].double() / 0.1
+        floor = float((ref - r).norm() / r.norm())
+        assert float((got - ref).norm() / r.norm()) <= 1e-5 + 4 * floor, k
+    for a, b in zip(two.params.parameters(), one.params.parameters()):
+        assert float((a - b).abs().max()) <= 2e-4 + 1e-6
 
 
 # ---------------------------------------------------------------------------

@@ -309,9 +309,12 @@ def test_run_full_eval_on_a_tiny_scene_returns_empty_metrics(vgg16_cache, rng, t
     ref = jfull.run_full_eval(str(style), str(tmp_path / "eval"), deepblending=str(db),
                               skip_training=True)
     assert ref == out
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfull.run_full_eval(str(style), str(tmp_path / "x"), deepblending=str(db),
-                            views_per_step=2, device="cpu")
+    # views_per_step=2: two views a step (4 iterations, 2 steps per scene).
+    out2 = tfull.run_full_eval(str(style), str(tmp_path / "x"), deepblending=str(db),
+                               iterations=4, freeze_iters=2, views_per_step=2, device="cpu")
+    assert out2 == {str(tmp_path / "x" / s): {} for s in ("drjohnson", "playroom")}
+    for m in out2:
+        assert (Path(m) / "model.npz").is_file()
 
 
 def test_eval_entry_points_without_cuda_raise(tmp_path, monkeypatch):

@@ -256,8 +256,17 @@ def test_run_3dgs_rendering_matches_jax(tmp_path, rng, monkeypatch):
         assert a.shape == b.shape == (32, 32, 3)
         assert (np.abs(a - b) <= 1).mean() >= 0.999
         assert a.max() > 10  # something was drawn
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t_render(str(tmp_path / "style.png"), str(model), mesh_dp=2, device="cpu")
+    # mesh_dp=2 renders with the Gaussians split over two CPU devices, the
+    # macro-block selection of the replicated macro renderer (aip_tpu's
+    # render(mesh=) is held to that renderer by its own test).
+    t_render(str(tmp_path / "style.png"), str(model), output_dir=str(tmp_path / "tr"),
+             max_per_tile=16, renderer="matmul", device="cpu")
+    t_render(str(tmp_path / "style.png"), str(model), output_dir=str(tmp_path / "tm"),
+             max_per_tile=16, mesh_dp=2, device="cpu")
+    for i in range(2):
+        a = np.asarray(Image.open(tmp_path / "tr" / f"{i:05d}.png"), np.int16)
+        b = np.asarray(Image.open(tmp_path / "tm" / f"{i:05d}.png"), np.int16)
+        assert np.abs(a - b).max() <= 1 and a.max() > 10
 
 
 @pytest.mark.parametrize("kw", [dict(renderer="rasterize"), dict(mode="eval")])

@@ -277,9 +277,14 @@ def test_train_fires_every_event_and_raises_for_later_slices(tmp_path, rng, weig
     assert ev["photometric_steps"] == 9 and ev["style_steps"] == 7
     assert len(trace["steps"]) == 16 and trainer.rvq_scale.codebooks.shape == (2, 8, 3)
     assert style_f.shape == (1, 512)
-    for kw in ({"views_per_step": 2}, {"gaussian_shard": True}, {"network_gui": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TT.train(scene, style, cfg, device="cpu", **kw)
+    # Multi-view and mesh arguments are checked as aip_tpu checks them; the
+    # remote viewer is the shell slice of the port.
+    with pytest.raises(ValueError, match="multiples of views_per_step"):
+        TT.train(scene, style, cfg, device="cpu", views_per_step=3)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        TT.train(scene, style, cfg, device="cpu", gaussian_shard=True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        TT.train(scene, style, cfg, device="cpu", network_gui=object())
 
 
 def test_run_3dgs_training_and_cli_end_to_end(tmp_path, rng, weights_dir):
@@ -303,8 +308,13 @@ def test_run_3dgs_training_and_cli_end_to_end(tmp_path, rng, weights_dir):
                     "--iterations", "4", "--freeze_iters", "2", "--capacity", "512",
                     "--log2_hashmap", "10", "--img_size", "32", "--device", "cpu"])
     assert Path(gif).is_file() and (tmp_path / "cli" / "model.npz").is_file()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        run_3dgs_training(src, style, model_path=str(tmp_path / "x"), mesh_dp=2, device="cpu")
+    # Two views a step over a mesh of two CPU devices, then the render on it.
+    out = run_3dgs_training(src, style, model_path=str(tmp_path / "x"), iterations=4,
+                            freeze_iters=2, capacity=512, log2_hashmap=10, img_size=32,
+                            progress_every=0, max_per_tile=32, views_per_step=2, mesh_dp=2,
+                            device="cpu")
+    ts, _tf, _, _ = TC.load_npz(Path(out) / "model.npz", device="cpu")
+    assert ts.xyz.shape[0] > 0 and torch.isfinite(ts.xyz).all()
 
 
 def test_settings_and_view_bytes_match_jax():

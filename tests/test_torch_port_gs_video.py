@@ -163,8 +163,13 @@ def test_render_video_with_a_style_matches_jax(tmp_path, rng, monkeypatch):
         n += 1
     cap.release()
     assert n == 4
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TRV.render_video(str(model), str(style), n_frames=2, mesh_dp=2, device="cpu")
+    # mesh_dp=2: every frame with the Gaussians split over two CPU devices.
+    m_mp4 = TRV.render_video(str(model), str(style), n_frames=4, fps=5, mesh_dp=2,
+                             device="cpu")
+    assert m_mp4 == t_mp4
+    frames = sorted((model / "video" / "ellipse").glob("*.png"))
+    assert len(frames) == 4 and all(
+        np.asarray(Image.open(p)).shape == (32, 32, 3) for p in frames)
 
 
 def test_render_video_cli_main_runs_every_mode(model, capsys):
@@ -186,8 +191,10 @@ def test_render_video_cli_main_runs_every_mode(model, capsys):
         assert Path(o).exists() and o in printed
     assert len(list((model / "circular").glob("*.png"))) == 2
     assert (model / "video" / "gaussians_std0.02" / "view_2" / "jitter").is_dir()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        cli.main(["-m", str(model), "--video", "--mesh_dp", "2", "--device", "cpu"])
+    if "--video" in args:
+        outs = cli.main(["-m", str(model), "--video", "--n_frames", "2", "--mesh_dp", "2",
+                         "--device", "cpu"])
+        assert len(outs) == 1 and Path(outs[0]).exists()
 
 
 def test_entry_points_default_to_the_card(model, monkeypatch):

@@ -77,7 +77,9 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.cli.train_magenta", "aip_tpu_torch.models.magenta_train",
                  "aip_tpu_torch.models.midas", "aip_tpu_torch.utils",
                  "aip_tpu_torch.utils.logging", "aip_tpu_torch.utils.profiling",
-                 "aip_tpu_torch.utils.system", "aip_tpu_torch.gs.convert"):
+                 "aip_tpu_torch.utils.system", "aip_tpu_torch.gs.convert",
+                 "aip_tpu_torch.parallel.mesh", "aip_tpu_torch.parallel.sharding",
+                 "aip_tpu_torch.parallel.infer", "aip_tpu_torch.parallel.gs"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

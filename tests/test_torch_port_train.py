@@ -249,12 +249,24 @@ def test_three_train_steps_match_jax(nets, batch):
     assert int(state.opt_state.count) == 3
 
 
-def test_a_mesh_of_two_devices_raises(nets):
+def test_a_mesh_of_two_devices_raises(nets, batch):
+    """A mesh of two devices (a list of devices is a (dp,) mesh) no longer
+    raises: its step splits the batch over both and matches the one-device
+    step (the loss at LOSS_TOL, one Adam step's parameters within 2 lr)."""
     _, _, vt, dt = nets
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ttrain.shard_train_setup(["cpu", "cpu"], vt, dt, ttrain.make_optimizer())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ttrain.compile_train_step(["cpu", "cpu"], ttrain.make_optimizer(), vt)
+    c, s = (_t(x) for x in batch)
+    out = {}
+    for mesh in (["cpu"], ["cpu", "cpu"]):
+        opt = ttrain.make_optimizer()
+        vgg, state = ttrain.shard_train_setup(mesh, copy.deepcopy(vt), copy.deepcopy(dt), opt)
+        state, m = ttrain.compile_train_step(mesh, opt, vgg)(state, c, s)
+        out[len(mesh)] = (state, m)
+    for k in ("loss", "loss_content", "loss_style"):
+        assert abs(out[2][1][k].item() - out[1][1][k].item()) <= LOSS_TOL * out[1][1][k].item()
+    _assert_adam_close([(i, a.detach().numpy(), b.detach().numpy()) for i, (a, b) in
+                        enumerate(zip(out[2][0].params.parameters(),
+                                      out[1][0].params.parameters()))], LR)
+    assert out[2][0].step == 1 and int(out[2][0].opt_state.count) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +358,16 @@ def test_train_magenta_distill_npz_stylizes_the_same_in_jax(tmp_path, nets, mage
     with torch.no_grad():
         out_t = tmag.stylize(params, _t(c), _t(s)).numpy()
     assert np.abs(out_t - out_j).max() <= 1e-5
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tmt.train_magenta_distill(str(content), str(style), steps=1, mesh=["cpu", "cpu"])
+    # On a mesh of two devices the content batch is split over both: one
+    # step matches the one-device step within Adam's 2 lr rule.
+    ones = {}
+    for name, mesh in (("one", None), ("mesh", ["cpu", "cpu"])):
+        p1, _ = tmt.train_magenta_distill(
+            str(content), str(style), steps=1, batch_size=2, crop=64, lr=3e-3, log_every=0,
+            params=tmag.load_magenta_npz(path, "cpu"), mesh=mesh, device="cpu")
+        ones[name] = [p.detach().numpy() for _, p in tmt._named(p1)]
+    _assert_adam_close([(i, a, b) for i, (a, b) in enumerate(zip(ones["mesh"], ones["one"]))],
+                       3e-3)
 
 
 def jvgg_params_np(tree):
@@ -462,8 +482,12 @@ def test_train_magenta_cli(tmp_path, nets, monkeypatch):
     out = jax.jit(jmag.stylize)(params, jnp.full((1, 64, 64, 3), 0.5),
                                 jnp.full((64, 64, 3), 0.25))
     assert np.isfinite(np.asarray(out)).all()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tcli_magenta.main(args + ["--mesh_dp", "2"])
+    # --mesh_dp 2 on the CPU: a (dp,) mesh of two CPU devices.
+    save.unlink()
+    assert tcli_magenta.main(args + ["--mesh_dp", "2"]) == str(save) and save.exists()
+    out = jax.jit(jmag.stylize)(jmag.load_magenta_npz(save), jnp.full((1, 64, 64, 3), 0.5),
+                                jnp.full((64, 64, 3), 0.25))
+    assert np.isfinite(np.asarray(out)).all()
 
 
 def test_trainer_entry_points_without_cuda_raise(tmp_path, monkeypatch):

@@ -381,11 +381,17 @@ def test_video_entry_points_without_cuda_raise(video_dirs, tmp_path, monkeypatch
             call()
 
 
-def test_mesh_branch_raises_with_several_cards(video_dirs, tmp_path, monkeypatch):
-    """aip_tpu shards the frames over its devices when they divide the
-    count; the port's frame sharding is slice 6, and says so."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+def test_mesh_branch_raises_with_several_cards(nets, video_dirs, tmp_path, monkeypatch):
+    """With several devices (here two CPU devices in place of two cards)
+    the default ``shard=True`` no longer raises: the 6 frames split into
+    two runs of 3, and the PNGs equal the one-device call's at the video
+    gates."""
+    _, _, tv, td = nets
     frames, styles = video_dirs
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tvideo.apply_style_transfer_multi_ada(frames, styles, tmp_path / "o", device="cuda")
+    kw = dict(target_resolution=(32, 32), vgg_params=tv, dec_params=td,
+              compute_dtype=torch.float32, device="cpu")
+    one = tvideo.apply_style_transfer_multi_ada(frames, styles, tmp_path / "one", **kw)
+    monkeypatch.setattr(tvideo.mesh_mod, "local_devices", lambda dev: [torch.device("cpu")] * 2)
+    two = tvideo.apply_style_transfer_multi_ada(frames, styles, tmp_path / "two", **kw)
+    assert len(two) == 6
+    _same_frames(two, one)
