@@ -33,8 +33,9 @@ Random draws (split offsets, k-means starts) come from one
 ``default_rng(seed)`` as in the JAX package; a checkpoint carries both
 states, so a resumed run continues exactly. ``views_per_step > 1``
 batches views into one step (``make_train_step``); ``mesh`` and
-``gaussian_shard`` shard it (``parallel.gs``); ``network_gui`` (the shell
-slice) raises ``NotImplementedError``.
+``gaussian_shard`` shard it (``parallel.gs``); ``network_gui`` (a
+``gs.network_gui.NetworkGUI``) serves a connected viewer one inference
+frame a loop pass.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from __future__ import annotations
 import math
 import tempfile
 import time
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple
@@ -606,13 +608,15 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     being the whole batch; ``gaussian_shard=True`` also splits the colour
     field's Gaussians over it (``parallel.gs.predict_sh_sharded``: a
     power-of-two axis that divides ``recompact_floor`` and ``capacity``).
-    ``network_gui`` is the shell slice of the port and raises."""
-    from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
 
-    if network_gui is not None:
-        raise NotImplementedError("network_gui is the shell slice of the port (ROADMAP queue 1, "
-                                  "item 10)")
+    ``network_gui`` (a ``gs.network_gui.NetworkGUI``) is polled once a loop
+    pass, before the pass draws its views: a connected viewer's request is
+    rendered from the current state and style (``mode="inference"``, its
+    scaling modifier, ``max_per_tile`` from ``cfg``) and sent as HWC uint8
+    bytes with the scene's ``ply_path`` as the verify string. The viewer is
+    dropped when it asks not to be kept alive, and on any error."""
     from aip_tpu_torch.gs.checkpoint import load_checkpoint, load_loop_state, save_checkpoint
+    from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
 
     B = views_per_step
     pgs = None
@@ -706,6 +710,8 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
         def mod_fire(m):
             return it // m > prev // m
 
+        if network_gui is not None:
+            _serve_viewer(network_gui, trainer, bg, style_f, cfg, scene.scene_info.ply_path)
         cis = []
         for _ in range(B):
             if not stack:
@@ -835,6 +841,31 @@ def train(scene, style_image, cfg: GSTrainConfig = GSTrainConfig(), use_depth: b
     if trainer.rvq_scale is None:
         trainer = _seed_codebooks(trainer, cfg, gen)
     return trainer, style_f
+
+
+def _serve_viewer(network_gui, trainer: TrainerState, bg, style_f, cfg: GSTrainConfig,
+                  verify: str) -> None:
+    """One remote-viewer poll (``aip_tpu/gs/train.py:773-800``): accept a
+    waiting viewer, answer its request with a frame of the current state,
+    and drop it when it asks not to be kept alive or anything fails."""
+    network_gui.try_connect()
+    if network_gui.conn is None:
+        return
+    try:
+        cam, _do_training, keep_alive, scaling = network_gui.receive()
+        frame = None
+        if cam is not None:
+            out = render(cam, trainer.gstate, trainer.field, bg, style_f=style_f,
+                         mode="inference", scaling_modifier=scaling,
+                         settings=RasterSettings(cam.image_height, cam.image_width,
+                                                 max_per_tile=cfg.max_per_tile))
+            frame = (np.clip(out.render.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        network_gui.send(frame, verify)
+        if not keep_alive:
+            network_gui.disconnect()
+    except Exception as e:  # the viewer is optional: training goes on without it
+        warnings.warn(f"remote viewer dropped: {e!r}", RuntimeWarning)
+        network_gui.disconnect()
 
 
 def _clock(dev):

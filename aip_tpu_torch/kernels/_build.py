@@ -6,6 +6,10 @@ checkout (``AIP_TPU_TORCH_BUILD`` overrides the directory), compiled for
 seconds. The hash of the source and of the shared headers (``csrc/*.cuh``)
 names the library, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.
+
+Builds and loads are safe across threads: one lock a source serialises its
+build and load (different sources still build in parallel), and the
+temporary file carries the process and thread ids.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -22,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -48,14 +55,24 @@ def _target(name: str) -> Path:
     return build_dir() / f"{name}-{digest}.so"
 
 
+def _lock(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns nvcc's
     ptxas report, or "" when the library was there."""
+    with _lock(name):
+        return _build_locked(name)
+
+
+def _build_locked(name: str) -> str:
     target = _target(name)
     if target.is_file():
         return ""
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
@@ -68,6 +85,9 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+        with _lock(name):
+            lib = _loaded.get(name)
+            if lib is None:
+                _build_locked(name)
+                lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib

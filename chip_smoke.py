@@ -377,9 +377,49 @@ when there are several):
     walk emulated in plain torch (max abs 0) and within the compositors'
     gate of the plain version; the frame's ms, sharded and replicated.
 
+The GUI shell and the remote viewer (slice 9; no new kernel: every page's
+job calls a pipeline the phases above hold, now through ``gui.jobs``, whose
+results must reach the host; everything is written under
+``build/chip_smoke/gui/``, the working directory of phases 45-46):
+
+44. ``gs.train.train(network_gui=NetworkGUI(port=0))`` on phase 15's scene
+    at ``GSTrainConfig``'s defaults (3 of 15,000 iterations) with a
+    loopback viewer connected before training starts: it asks for an
+    800^2 frame of the first camera kept alive, then one more not kept
+    alive. Both frames hold 800*800*3 bytes, the verify string is the
+    scene's ply path, more than 10 % of each frame's pixels differ from the
+    background, the windowed or segment compositor launched in each poll;
+    the first frame within VIEWER_FRAME_TOL uint8 levels of a direct
+    ``render(mode="inference")`` of the state ``train`` starts from (the
+    same seed); each poll's wall ms and device window, a direct render's ms.
+45. every page's job (``aip_tpu_torch.gui.jobs``) on the card at the
+    page's defaults (``PAGE_DEFAULTS``), each a path with its counts set to
+    0 just before and read just after, its wall s printed: AdaIN simple and
+    depth-aware and the Depth page at content 512 (a 1024x768 photograph, a
+    512^2 style), pixelize with each method on the photograph with
+    "pico-8", depixelize a 48x64 sprite, Regional at 1024x768, Mix (300
+    steps at 256), Style Mixer (ResNet-50, 300 iterations), Spatial (300
+    steps at max_dim 512, an R/G/B mask from a seed), Video (the AdaIN
+    stylizer, TV-L1, 8 frames at 256^2; where cv2 is absent its mp4 decode
+    and encode take the frames as JPEGs and write a GIF, reported), and the
+    AdaIN page's 3DGS mode on phase 15's scene with ``run_3dgs_training``
+    given phase 18's schedule through ``cfg=`` (the one cut). Each result
+    is a host array HWC or an existing file, and equals a direct call of
+    its pipeline with the same arguments within its path's own gate
+    (``JOB_TOL``; pixel art exactly; the 3DGS mode's frames against a
+    second render of the job's model; Mix, Style Mixer and Spatial, job and
+    direct call, with cuDNN's deterministic flag, ``NST_DETERMINISM``).
+    Phases 44-45 (and 46) together launch every row of ``SLICE9_ROWS``.
+46. ``gui.app.App(headless=True, device="cuda")`` under SDL's dummy driver,
+    where pygame imports: the AdaIN page picks the two PNGs through
+    ``AIP_TPU_GUI_FILE``, runs, and shows "Done" with a result; its job ran
+    on the page's worker thread and launched the fp32 head and tail. Where
+    pygame is absent, a line says it did not run.
+
 The line before the last lists every kernel (``{"kernels": [...]}``, each
-with the launches of the slice-8 paths that ran it under ``"slice 8"``,
-and the windowed kernel with its block0 check); the last line is
+with the launches of the slice-8 and slice-9 paths that ran it under
+``"slice 8"`` and ``"slice 9"``, and the windowed kernel with its block0
+check); the last line is
 ``{"ok": true, "device": {...}}``. AdaIN weights are the
 port's deterministic random init (no checkpoint is committed); everything
 the run writes goes under ``build/chip_smoke/`` in the checkout.
@@ -706,11 +746,15 @@ def main():
     torch.cuda.empty_cache()
     # 41-43. multi-view training, the meshes, Gaussian-sharded rendering ----------
     slice8, block0_err = _slice8_phases(torch, dev, bed, default_tf32)
+    torch.cuda.empty_cache()
+    # 44-46. the remote viewer, every GUI page's job, the App ----------------------
+    slice9 = _slice9_phases(torch, dev, bed)
     for line in lines:
-        entry = {path: counts[line["name"]] for path, counts in slice8.items()
-                 if counts.get(line["name"])}
-        if entry:
-            line["slice 8"] = {"launches": entry}
+        for key, by_path in (("slice 8", slice8), ("slice 9", slice9)):
+            entry = {path: counts[line["name"]] for path, counts in by_path.items()
+                     if counts.get(line["name"])}
+            if entry:
+                line[key] = {"launches": entry}
         if line["name"] == "composite_macro_mxu":
             line.setdefault("slice 8", {})["block0_max_abs_err"] = block0_err
     print(json.dumps({"kernels": lines}), flush=True)
@@ -5228,6 +5272,526 @@ def _sharded_render_phase(torch, np, dev, bed):
             and float(plain_err.mean()) <= 1e-5):
         raise AssertionError("the Gaussian-sharded frame or the kernel at block0 > 0 disagrees")
     return {"gs_sharded_render": {"composite_macro_mxu": spy.launches}}, block0_err
+
+
+# ---------------------------------------------------------------------------
+# The GUI shell and the remote viewer (phases 44-46)
+# ---------------------------------------------------------------------------
+
+GUI_WORK = WORK / "gui"
+VIEWER_ITERATIONS = 3       # phase 44's train: GSTrainConfig's defaults, 3 of 15,000 steps
+VIEWER_FRAME_TOL = 1       # the first viewer frame against a direct render, uint8 levels
+GUI_STYLE_SIZE = 512
+GUI_VIDEO_FRAMES = 8
+# Each page's widget defaults (aip_tpu_torch/gui/pages.py; held against the
+# pages by tests/test_torch_port_gui.py), the values its job gets at Run.
+PAGE_DEFAULTS = {
+    "AdainPage": {"alpha": 0.5, "depth_offset": 0.5, "depth_prominence": 20.0},
+    "PixelArtPage": {"palette": "pico-8", "downsample": 4, "grayscale": False,
+                     "brightness": 0.0, "contrast": 0.0},
+    "VideoPage": {"alpha": 0.7, "offset": 0.3},
+    "DepthPage": {"depth_offset": 0.15, "depth_prominence": 20.0},
+    "MixPage": {"weight": 0.5},
+    "StyleMixerPage": {"model_index": 0, "palette_index": 4, "palette_intensity": 0.25},
+}
+PIXEL_METHODS = ("RGB", "LAB", "Floyd-Steinberg", "kd-tree")
+# Each job's gate against a direct call of its pipeline with the same
+# arguments on the card: its path's own phase's gate.
+JOB_TOL = {"adain": STYLIZE_TOL, "regional": LOCALIZED_TOL, "nst": NST_10_STEP_TOL,
+           "video": 1e-3, "3dgs": 1e-4}
+# Why the optimisation jobs and their direct calls run with cuDNN's
+# deterministic flag: without it two calls of one NST job at the page's
+# defaults differ (300 Adam steps amplify cuDNN's run-to-run rounding).
+NST_DETERMINISM = ("on for the job and its direct call: without it two calls differ by "
+                   "3.4e-3 (Mix), 8.0e-4 (Style Mixer) and 1.3e-3 (Spatial) mean abs on an "
+                   "H100; with it they are equal")
+SLICE9_ROWS = (("encode_head",), ("decode_tail",), ("encode_head_fp32",), ("decode_tail_fp32",),
+               ("composite_macro_mxu_seg", "composite_macro_mxu"), ("composite_ad_fwd",),
+               ("composite_ad_bwd",), ("hash_grad",), ("tvl1",))
+
+
+def _slice9_phases(torch, dev, bed):
+    """Phases 44-46. Returns {path: {kernel name: launches}} of the slice's
+    paths."""
+    import numpy as np
+
+    shutil.rmtree(GUI_WORK, ignore_errors=True)
+    GUI_WORK.mkdir(parents=True)
+    scene_dir = TRAIN_WORK / "scene"
+    if not (scene_dir / "transforms_train.json").is_file():
+        from PIL import Image
+
+        scene_dir = _write_train_scene(np, Image, bed)
+    by_path = _viewer_phase(torch, np, dev, bed, scene_dir)
+    torch.cuda.empty_cache()
+    old = os.getcwd()
+    os.chdir(GUI_WORK)     # the pages write output/... under the working directory
+    try:
+        by_path.update(_gui_jobs_phase(torch, np, dev, bed, scene_dir))
+        torch.cuda.empty_cache()
+        by_path.update(_gui_app_phase(torch, np, dev))
+    finally:
+        os.chdir(old)
+    launched = {}
+    for counts in by_path.values():
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+    missing = [" or ".join(row) for row in SLICE9_ROWS if not any(launched.get(k) for k in row)]
+    emit("gui_rows", phases=[44, 45, 46], launches=launched, rows_missing=missing)
+    if missing:
+        raise AssertionError(f"the slice's paths launched no {missing}")
+    return by_path
+
+
+class _viewer_client:
+    """A loopback viewer thread: connects at once, then sends each request
+    and reads its frame and verify string, until the trainer stops
+    answering."""
+
+    def __init__(self, port, requests, size):
+        import socket
+        import threading
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+        self.requests, self.size = requests, size
+        self.frames, self.verify = [], []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _recv(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the trainer closed the connection")
+            buf += chunk
+        return buf
+
+    def _run(self):
+        try:
+            for req in self.requests:
+                data = json.dumps(req).encode()
+                self.sock.sendall(len(data).to_bytes(4, "little") + data)
+                self.frames.append(self._recv(self.size * self.size * 3))
+                n = int.from_bytes(self._recv(4), "little")
+                self.verify.append(self._recv(n).decode())
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            self.sock.close()
+
+
+def _viewer_request(np, cam, size, keep_alive):
+    """A viewer's request for ``cam`` at size^2: the matrices with the signs
+    ``NetworkGUI.receive`` flips already flipped."""
+    view = np.array(cam.world_view_transform, np.float64)
+    view[:, 1:3] *= -1
+    proj = np.array(cam.full_proj_transform, np.float64)
+    proj[:, 1] *= -1
+    return {"resolution_x": size, "resolution_y": size, "train": 1, "fov_y": cam.FoVy,
+            "fov_x": cam.FoVx, "z_near": 0.01, "z_far": 100.0, "shs_python": 0,
+            "rot_scale_python": 0, "keep_alive": keep_alive, "scaling_modifier": 1.0,
+            "view_matrix": view.ravel().tolist(), "view_projection_matrix": proj.ravel().tolist()}
+
+
+def _viewer_phase(torch, np, dev, bed, scene_dir):
+    """Phase 44: ``train(network_gui=...)`` at full width serves a loopback
+    viewer two 800^2 frames."""
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gs.dataset import Scene
+    from aip_tpu_torch.gs.network_gui import NetworkGUI
+    from aip_tpu_torch.gs.rasterizer import RasterSettings
+    from aip_tpu_torch.gs.render import render
+    from aip_tpu_torch.kernels import composite as KC
+    from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
+
+    compositors = ("composite_macro_mxu_seg", "composite_macro_mxu")
+
+    class TimedGUI(NetworkGUI):
+        """Records each poll: wall ms from the request to the frame sent,
+        the device window from the request read to the frame's send (the
+        render and its copy to the host), and the compositors' launches."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.polls = []
+
+        def receive(self):
+            t0 = time.perf_counter()
+            before = {k: KC.launch_counts()[k] for k in compositors}
+            out = super().receive()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._open = (t0, before, start)
+            return out
+
+        def send(self, frame, verify):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            super().send(frame, verify)
+            t0, before, start = self._open
+            end.synchronize()
+            self.polls.append({
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "render_window_ms": start.elapsed_time(end),
+                "launches": {k: KC.launch_counts()[k] - before[k] for k in compositors}})
+
+    scene = Scene(str(scene_dir), shuffle=False)
+    cam = scene.getTrainCameras()[0]
+    size = cam.image_height
+    cfg = T.GSTrainConfig(iterations=VIEWER_ITERATIONS)
+    gui = TimedGUI(port=0)
+    viewer = _viewer_client(gui.listener.getsockname()[1],
+                            [_viewer_request(np, cam, size, 1), _viewer_request(np, cam, size, 0)],
+                            size)
+    t0 = time.perf_counter()
+    try:
+        _, counts = _run_path(torch, "viewer_train", lambda: T.train(
+            scene, str(bed["style_png"]), cfg, guide_dir=str(GUI_WORK / "viewer_guides"),
+            network_gui=gui, device=dev), ("composite_ad_fwd", "composite_ad_bwd", "hash_grad"))
+    finally:
+        gui.close()
+    wall_s = time.perf_counter() - t0
+    viewer.thread.join(timeout=60)
+
+    # The first frame against a direct render of the state train starts from.
+    pcd = scene.point_cloud
+    start = T.init_trainer(cfg, pcd.points, pcd.colors, scene.cameras_extent, 0, device=dev)
+    style_f = get_style_embeddings(_to_array(str(bed["style_png"])), device=dev).mean(dim=(1, 2))
+    bg = torch.zeros(3, device=dev)
+    settings = RasterSettings(size, size, max_per_tile=cfg.max_per_tile)
+
+    def direct():
+        return render(cam, start.gstate, start.field, bg, style_f=style_f, mode="inference",
+                      settings=settings).render
+
+    ref = (np.clip(direct().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    render_ms = _time_ms(torch, direct)
+    n = size * size * 3
+    ok_len = len(viewer.frames) == 2 and all(len(f) == n for f in viewer.frames)
+    first = np.frombuffer(viewer.frames[0], np.uint8).reshape(ref.shape) if ok_len else ref * 0
+    diff = np.abs(first.astype(np.int16) - ref.astype(np.int16))
+    lit = [float((np.frombuffer(f, np.uint8).reshape(ref.shape) > 0).any(-1).mean())
+           for f in viewer.frames] if ok_len else []
+    poll_launches = [sum(p["launches"].values()) for p in gui.polls]
+    emit("viewer", entry="aip_tpu_torch.gs.train.train(network_gui=NetworkGUI(port=0))",
+         config="GSTrainConfig defaults", iterations=VIEWER_ITERATIONS, size=[size, size],
+         frames=len(viewer.frames), frame_bytes=[len(f) for f in viewer.frames],
+         verify=viewer.verify, ply_path=scene.scene_info.ply_path,
+         share_not_background=lit, first_frame_vs_direct_render_max_abs=int(diff.max()),
+         first_frame_pixels_differing=int((diff > 0).any(-1).sum()), tol=VIEWER_FRAME_TOL,
+         polls=gui.polls, direct_render_ms=render_ms,
+         timing="poll: host clock, request read to frame sent; render_window_ms: CUDA events "
+                "from the request read to the frame's send (render and copy to the host); "
+                "direct_render_ms: CUDA events, median of 10 after 2",
+         launches=counts, wall_s=wall_s, card=_card())
+    if not (ok_len and viewer.verify == [scene.scene_info.ply_path] * 2
+            and all(s > 0.1 for s in lit) and int(diff.max()) <= VIEWER_FRAME_TOL
+            and len(poll_launches) == 2 and min(poll_launches) > 0):
+        raise AssertionError("the viewer was not served two full frames of the scene through "
+                             "the macro-block compositors")
+    return {"viewer_train": counts}
+
+
+def _decoded(np, Image, path):
+    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+
+
+def _gui_jobs_phase(torch, np, dev, bed, scene_dir):
+    """Phase 45: every page's job on the card at the page's defaults, each
+    against a direct call of its pipeline with the same arguments."""
+    from PIL import Image
+
+    from aip_tpu_torch.gs import pipeline as GP
+    from aip_tpu_torch.gs import train as T
+    from aip_tpu_torch.gui import jobs
+    from aip_tpu_torch.pipelines import (adain_infer, localized, nst, pixel_art, style_mixer,
+                                         video)
+
+    inputs = GUI_WORK / "inputs"
+    inputs.mkdir(parents=True)
+    content, sprite = inputs / "content.png", inputs / "sprite.png"
+    styles = [inputs / f"style{i}.png" for i in range(3)]
+    mask = inputs / "mask.png"
+    Image.fromarray((_photo(np, *PHOTO_HW) * 255).astype(np.uint8)).save(content)
+    for i, p in enumerate(styles):
+        Image.fromarray((_photo(np, GUI_STYLE_SIZE, GUI_STYLE_SIZE, seed=10 + i)[:, ::-1]
+                         * 255).astype(np.uint8)).save(p)
+    Image.fromarray(_sprite(np, *SPRITE_HW)).save(sprite)
+    g = np.random.default_rng(45)
+    m = np.zeros(PHOTO_HW + (3,), np.uint8)
+    m[:, : PHOTO_HW[1] // 3, 0] = 255
+    m[:, PHOTO_HW[1] // 3: 2 * PHOTO_HW[1] // 3, 1] = 255
+    m[:, 2 * PHOTO_HW[1] // 3:, 2] = 255
+    m[g.random(PHOTO_HW) < 0.02] = 0
+    Image.fromarray(m).save(mask)
+    c, s, s2, s3 = str(content), str(styles[0]), str(styles[1]), str(styles[2])
+    d = PAGE_DEFAULTS
+    failures, by_path = [], {}
+
+    def job(name, page, call, fn, direct, gate, deterministic=False, **fields):
+        """Run one job as a path (counts set to 0 before, read after), check
+        that its result is host-side HWC or an existing file, then hold it
+        against ``direct(result)`` (its errors) and emit its line. With
+        ``deterministic`` both run with cuDNN's deterministic flag."""
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            t0 = time.perf_counter()
+            out, counts = _run_path(torch, name, fn, ())
+            wall_s = time.perf_counter() - t0
+            errs = direct(out)
+        finally:
+            torch.backends.cudnn.deterministic = old
+        host = (isinstance(out, np.ndarray) and out.ndim == 3 and out.shape[-1] == 3) or (
+            isinstance(out, (str, Path)) and Path(out).is_file())
+        if deterministic:
+            fields["cudnn_deterministic"] = NST_DETERMINISM
+        held = host and errs["mean_abs"] <= gate
+        emit("gui_job", path=name, page=page, job=f"aip_tpu_torch.gui.jobs.{call}",
+             wall_s=wall_s, result=(str(out) if isinstance(out, (str, Path)) else
+                                    {"type": type(out).__name__, "shape": list(out.shape),
+                                     "dtype": str(out.dtype)}),
+             host_side_hwc_or_file=host, vs_direct_call=errs, tol_mean_abs=gate, held=held,
+             launches=counts, **fields)
+        if not held:
+            failures.append(name)
+        by_path[name] = counts
+        return out
+
+    def files_err(a_paths, b_paths):
+        a = np.stack([_decoded(np, Image, p) for p in a_paths])
+        b = np.stack([_decoded(np, Image, p) for p in b_paths])
+        e = np.abs(a - b) if a.shape == b.shape else np.full(1, np.inf)
+        return {"mean_abs": float(e.mean()), "max_abs": float(e.max()), "files": len(a_paths)}
+
+    def arr_err(a, b):
+        e = np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))
+        return {"mean_abs": float(e.mean()), "max_abs": float(e.max())}
+
+    # AdaIN page, simple and depth-aware (rows 1f-2f, fp32 at content 512).
+    for mode, use_depth in (("simple", False), ("depth-aware", True)):
+        name = f"adain_{mode}"
+        kw = dict(alpha=d["AdainPage"]["alpha"], depth_offset=d["AdainPage"]["depth_offset"],
+                  depth_prominence=d["AdainPage"]["depth_prominence"], use_depth=use_depth)
+
+        def direct(out, kw=kw):
+            first = _decoded(np, Image, out)
+            again = adain_infer.adain_inference(c, s, **kw, output="output",
+                                                file_name="gui_adain", device=dev)
+            return arr_err(first, _decoded(np, Image, again))
+
+        job(name, f"AdainPage ({mode})", "adain_image",
+            lambda kw=kw: jobs.adain_image(c, s, **kw, device=dev),
+            direct, JOB_TOL["adain"])
+
+    dkw = dict(depth_offset=d["DepthPage"]["depth_offset"],
+               depth_prominence=d["DepthPage"]["depth_prominence"])
+    job("depth", "DepthPage", "depth_image", lambda: jobs.depth_image(c, s, **dkw, device=dev),
+        lambda out: arr_err(_decoded(np, Image, out), _decoded(
+            np, Image, adain_infer.adain_inference(c, s, use_depth=True, **dkw, output="output",
+                                                   file_name="gui_depth", device=dev))),
+        JOB_TOL["adain"])
+
+    # Pixel art: each method on the 1024x768 photograph with pico-8, then a sprite.
+    pd = d["PixelArtPage"]
+    hex_pal = pixel_art.load_lospec_palettes()[pd["palette"]]
+    for method in PIXEL_METHODS:
+        name = f"pixelize_{method}"
+        pkw = dict(downsample=pd["downsample"], grayscale=pd["grayscale"],
+                   brightness=pd["brightness"], contrast=pd["contrast"], method=method)
+
+        def direct(out, method=method):
+            again = pixel_art.pixelize(
+                c, downsampling_factor=pd["downsample"], grayscale=pd["grayscale"],
+                brightness=pd["brightness"], contrast=pd["contrast"],
+                palette=pixel_art.hex_palette_to_rgb(hex_pal), method=method, device=dev)
+            return arr_err(out, again)
+
+        job(name, "PixelArtPage (Pixelize)", "pixelize_image",
+            lambda pkw=pkw: jobs.pixelize_image(c, hex_pal, **pkw, device=dev), direct, 0.0,
+            palette=pd["palette"], in_hw=list(PHOTO_HW))
+    job("depixelize", "PixelArtPage (Depixelize)", "depixelize_image",
+        lambda: jobs.depixelize_image(str(sprite)),
+        lambda out: arr_err(out, pixel_art.depixelize(str(sprite))), 0.0, in_hw=list(SPRITE_HW))
+
+    # Regional at 1024x768.
+    job("regional", "SemanticPage", "regional", lambda: jobs.regional(c, s, device=dev),
+        lambda out: arr_err(_decoded(np, Image, out), _decoded(
+            np, Image, localized.run_localized_style_transfer(
+                c, s, output_path="output", file_name="gui_regional", device=dev))),
+        JOB_TOL["regional"], in_hw=list(PHOTO_HW))
+
+    # Mix (300 steps at 256), Style Mixer (ResNet-50, 300 iterations), Spatial
+    # (300 steps at max_dim 512).
+    w = d["MixPage"]["weight"]
+    job("mix", "MixPage", "mix", lambda: jobs.mix(c, s, s2, weight=w, device=dev),
+        lambda out: arr_err(out, nst.mix_styles(c, [(s, w), (s2, 1 - w)], num_steps=300,
+                                                size=256, device=dev).cpu()),
+        JOB_TOL["nst"], deterministic=True, steps=300, size=256)
+    sm = d["StyleMixerPage"]
+    model = style_mixer.MODEL_LIST[sm["model_index"]]
+    palette = style_mixer.PALETTE_MENU[sm["palette_index"]]
+    job("style_mixer", "StyleMixerPage", "style_mixer",
+        lambda: jobs.style_mixer(c, s, model=model, palette_name=palette,
+                                 palette_intensity=sm["palette_intensity"], device=dev),
+        lambda out: arr_err(out, style_mixer.stylize_with_palette(
+            c, s, model=model, palette_name=palette, palette_intensity=sm["palette_intensity"],
+            iterations=300, device=dev).cpu()),
+        JOB_TOL["nst"], deterministic=True, model=model, palette=palette, iterations=300)
+    job("spatial", "SpatialPage", "spatial",
+        lambda: jobs.spatial(c, s, s2, s3, str(mask), device=dev),
+        lambda out: arr_err(out, nst.spatially_varying_style_transfer(
+            c, s, s2, s3, str(mask), num_steps=300, max_dim=512, device=dev).cpu()),
+        JOB_TOL["nst"], deterministic=True, steps=300, max_dim=512)
+
+    # Video: the AdaIN stylizer with TV-L1 on 8 frames at 256^2.
+    _gui_video_job(np, Image, dev, job, files_err, s, video, jobs)
+
+    # The AdaIN page's 3DGS mode on phase 15's scene, cut to phase 18's schedule.
+    cfg = T.GSTrainConfig(**SCHEDULE)
+    real = GP.run_3dgs_training
+    GP.run_3dgs_training = lambda *a, **k: real(*a, **k, cfg=cfg)
+    try:
+        job("adain_3dgs", "AdainPage (3DGS scene)", "adain_3dgs",
+            lambda: jobs.adain_3dgs(str(scene_dir), str(bed["style_png"]), device=dev),
+            lambda out: files_err(
+                sorted(Path(out).parent.glob("*.png")),
+                sorted(Path(GP.run_3dgs_rendering(
+                    str(bed["style_png"]), "output/gui_3dgs",
+                    output_dir=str(GUI_WORK / "3dgs_direct"), device=dev)).parent.glob("*.png"))),
+            JOB_TOL["3dgs"],
+            cut=f"run_3dgs_training takes phase 18's config through cfg= ({SCHEDULE}) in place "
+                "of 15,000 iterations; the direct call renders the job's model again (training "
+                "on the card adds gradients through atomics, so a second training is not the "
+                "same model)")
+    finally:
+        GP.run_3dgs_training = real
+    if failures:
+        raise AssertionError(f"GUI jobs that failed their checks: {failures}")
+    return by_path
+
+
+def _gui_video_job(np, Image, dev, job, files_err, style, video, jobs):
+    """The video page's job with flow "tvl1" and the AdaIN stylizer. Where
+    cv2 is absent its two cv2 steps (mp4 to JPEG frames, frames to mp4)
+    take the same frames as JPEGs and write a GIF, reported as such."""
+    import threading
+
+    frames = _moving_texture(np, GUI_VIDEO_FRAMES, VIDEO_SIZE, 7)
+    src = GUI_WORK / "video_in.mp4"
+    try:
+        import cv2
+
+        writer = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"mp4v"), 20,
+                                 (VIDEO_SIZE, VIDEO_SIZE))
+        for img in frames:
+            writer.write((img * 255).astype(np.uint8)[..., ::-1])
+        writer.release()
+        mp4 = {"ran": True}
+        patched = {}
+    except ImportError:
+        mp4 = {"ran": False, "reason": "cv2 is not installed on this machine: the job's mp4 "
+                                       "decode and encode need it; its frames went in as JPEGs "
+                                       "and out as a GIF, the stylization and flows unchanged"}
+
+        def to_frames(video_path, output_dir):
+            Path(output_dir).mkdir(parents=True, exist_ok=True)
+            paths = [Path(output_dir) / f"frame_{i:05d}.jpg" for i in range(len(frames))]
+            for img, p in zip(frames, paths):
+                Image.fromarray((img * 255).astype(np.uint8)).save(p)
+            return paths
+
+        def to_video(image_folder, output_video, fps=20):
+            ims = [Image.open(p) for p in sorted(Path(image_folder).glob("*.jpg"))]
+            ims[0].save(output_video, format="GIF", save_all=True, append_images=ims[1:])
+            return str(output_video)
+
+        patched = {"video_to_frames": to_frames, "frames_to_video": to_video}
+    real = {k: getattr(video, k) for k in patched}
+    for k, f in patched.items():
+        setattr(video, k, f)
+    vd = PAGE_DEFAULTS["VideoPage"]
+    try:
+        def direct(out):
+            tmp = Path(out).parent
+            again = GUI_WORK / "video_direct"
+            video.apply_style_transfer_ada(tmp / "frames", style, again, alpha=vd["alpha"],
+                                           offset=vd["offset"], cancel_flag=threading.Event(),
+                                           flow_method="tvl1", device=dev)
+            return files_err(sorted((tmp / "styled").glob("*.jpg")),
+                             sorted(again.glob("*.jpg")))
+
+        job("video_tvl1_adain", "VideoPage (tvl1, AdaIN)", "stylize_video",
+            lambda: jobs.stylize_video(str(src), style, flow_method="tvl1", fast=False,
+                                       alpha=vd["alpha"], offset=vd["offset"],
+                                       cancel_flag=threading.Event(), device=dev),
+            direct, JOB_TOL["video"], frames=GUI_VIDEO_FRAMES, size=VIDEO_SIZE, mp4_io=mp4)
+    finally:
+        for k, f in real.items():
+            setattr(video, k, f)
+
+
+def _gui_app_phase(torch, np, dev):
+    """Phase 46: the App on the card under SDL's dummy driver, where pygame
+    imports: the AdaIN page picks two PNGs, runs, and shows its result."""
+    import threading
+
+    os.environ.setdefault("PYGAME_HIDE_SUPPORT_PROMPT", "1")
+    try:
+        import pygame  # noqa: F401
+    except ImportError:
+        emit("gui_app", ran=False,
+             reason="pygame is not installed on this machine; phase 45 drove every page's "
+                    "job without it")
+        return {}
+    os.environ["SDL_VIDEODRIVER"] = "dummy"
+    from aip_tpu_torch.gui import app as GA
+    from aip_tpu_torch.gui import jobs
+
+    real = jobs.adain_image
+    threads = []
+
+    def on_thread(*a, **k):
+        threads.append(threading.current_thread() is not threading.main_thread())
+        return real(*a, **k)
+
+    jobs.adain_image = on_thread
+    inputs = GUI_WORK / "inputs"
+    try:
+        def drive():
+            app = GA.App(headless=True, device=str(dev))
+            try:
+                app.step([])
+                click = lambda b: pygame.event.Event(pygame.MOUSEBUTTONDOWN,
+                                                     {"pos": b.rect.center, "button": 1})
+                app.step([click(app.buttons[0])])
+                page = app.page
+                for label, path in (("Select content", "content.png"),
+                                    ("Select style", "style0.png")):
+                    os.environ["AIP_TPU_GUI_FILE"] = str(inputs / path)
+                    app.step([click(next(b for b in page.buttons if b.text == label))])
+                app.step([click(next(b for b in page.buttons if b.text == "Run"))])
+                t0 = time.perf_counter()
+                while page.runner.running and time.perf_counter() - t0 < 300:
+                    app.step([])
+                    time.sleep(0.02)
+                app.step([])
+                return {"status": page.status, "result": page.result_surface is not None,
+                        "caption": pygame.display.get_caption()[0], "device": str(app.device),
+                        "wall_s": time.perf_counter() - t0}
+            finally:
+                os.environ.pop("AIP_TPU_GUI_FILE", None)
+                pygame.quit()
+
+        out, counts = _run_path(torch, "gui_app", drive, ("encode_head_fp32", "decode_tail_fp32"))
+    finally:
+        jobs.adain_image = real
+    emit("gui_app", ran=True, entry="aip_tpu_torch.gui.app.App(headless=True, device='cuda')",
+         page="AdainPage (simple)", job_on_worker_thread=threads, launches=counts, **out)
+    if not (out["status"] == "Done" and out["result"] and threads == [True]):
+        raise AssertionError(f"the App's AdaIN page did not finish on its worker thread: {out}")
+    return {"gui_app": counts}
 
 
 if __name__ == "__main__":

@@ -1773,3 +1773,32 @@ def test_midas_estimator_refuses_a_tensor_on_another_device(cuda):
             depthnet.estimate_proximity(torch.zeros(40, 52, 3))
     finally:
         depthnet.register_depth_model(None)
+
+
+@pytest.mark.cuda
+def test_gui_jobs_return_host_arrays_from_the_card(cuda, tmp_path, monkeypatch):
+    """The GUI's Mix and Style Mixer jobs on the card (their pipelines cut
+    to 2 steps at 64^2) hand the page numpy arrays, never card tensors."""
+    from PIL import Image
+
+    from aip_tpu_torch.gui import jobs
+    from aip_tpu_torch.models import weights
+    from aip_tpu_torch.pipelines import nst, style_mixer
+
+    monkeypatch.setattr(weights, "DEFAULT_WEIGHTS_DIR", tmp_path / "w")
+    mix, mixer = nst.mix_styles, style_mixer.stylize_with_palette
+    monkeypatch.setattr(nst, "mix_styles",
+                        lambda *a, **k: mix(*a, **{**k, "num_steps": 2, "size": 64}))
+    monkeypatch.setattr(style_mixer, "stylize_with_palette",
+                        lambda *a, **k: mixer(*a, **{**k, "iterations": 2, "size": 64}))
+    g = np.random.default_rng(45)
+    paths = []
+    for name in ("c", "s"):
+        paths.append(str(tmp_path / f"{name}.png"))
+        Image.fromarray((g.random((80, 96, 3)) * 255).astype(np.uint8)).save(paths[-1])
+    outs = [jobs.mix(*paths, None, weight=0.5, device=cuda),
+            jobs.style_mixer(*paths, model="ResNet", palette_name="Vintage",
+                             palette_intensity=0.25, device=cuda)]
+    for out in outs:
+        assert type(out) is np.ndarray and out.shape == (64, 64, 3)
+        assert np.isfinite(out).all() and 0 <= out.min() and out.max() <= 1

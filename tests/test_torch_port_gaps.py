@@ -276,6 +276,27 @@ def test_slice8_public_names_match_jax(name, left_out, why):
     assert jax_names - port_names == set(left_out), why
 
 
+# Slice 9: the GUI shell and the remote-viewer bridge. The port's gui.jobs
+# (the pages' pipeline calls) and gui.app.main (--device, --headless) have
+# no JAX counterpart and are held by tests/test_torch_port_gui.py.
+SLICE9_MODULES = (
+    ("gui", (), ""),
+    ("gui.app", (), ""),
+    ("gui.pages", (), ""),
+    ("gui.widgets", (), ""),
+    ("gs.network_gui", (), ""),
+)
+
+
+@pytest.mark.parametrize("name,left_out,why", SLICE9_MODULES, ids=[m[0] for m in SLICE9_MODULES])
+def test_slice9_public_names_match_jax(name, left_out, why):
+    import importlib
+
+    jax_names = _public_names(importlib.import_module(f"aip_tpu.{name}"))
+    port_names = _public_names(importlib.import_module(f"aip_tpu_torch.{name}"))
+    assert jax_names - port_names == set(left_out), why
+
+
 def test_scalar_logger_matches_jax(tmp_path):
     import json
 

@@ -36,6 +36,7 @@ from aip_tpu.gs import rvq as JQ
 from aip_tpu.gs import train as JT
 from aip_tpu.gs.dataset import Scene as JScene
 from aip_tpu_torch.gs import compress as TC
+from aip_tpu_torch.gs import network_gui as TN
 from aip_tpu_torch.gs import rvq as TQ
 from aip_tpu_torch.gs import train as TT
 from aip_tpu_torch.gs.checkpoint import load_checkpoint, save_checkpoint
@@ -268,8 +269,16 @@ def test_train_fires_every_event_and_raises_for_later_slices(tmp_path, rng, weig
                densify_grad_threshold=1e-7, percent_dense=0.05, recompact_floor=64,
                capacity=1024, style_dim=8)
     trace = {}
-    trainer, style_f = TT.train(scene, style, cfg, img_size=32, guide_dir=str(tmp_path / "g"),
-                                device="cpu", trace=trace)
+    # A remote-viewer listener with no viewer: each loop pass polls it and
+    # goes on (tests/test_torch_port_network_gui.py serves viewers).
+    gui = TN.NetworkGUI(port=0)
+    try:
+        trainer, style_f = TT.train(scene, style, cfg, img_size=32,
+                                    guide_dir=str(tmp_path / "g"), device="cpu", trace=trace,
+                                    network_gui=gui)
+    finally:
+        gui.close()
+    assert gui.conn is None
     ev = trace["events"]
     for name in ("photometric_steps", "style_steps", "cloned", "split", "densify_events",
                  "opacity_reset", "recompact", "rvq_qat_start", "mask_prune_events"):
@@ -277,14 +286,11 @@ def test_train_fires_every_event_and_raises_for_later_slices(tmp_path, rng, weig
     assert ev["photometric_steps"] == 9 and ev["style_steps"] == 7
     assert len(trace["steps"]) == 16 and trainer.rvq_scale.codebooks.shape == (2, 8, 3)
     assert style_f.shape == (1, 512)
-    # Multi-view and mesh arguments are checked as aip_tpu checks them; the
-    # remote viewer is the shell slice of the port.
+    # Multi-view and mesh arguments are checked as aip_tpu checks them.
     with pytest.raises(ValueError, match="multiples of views_per_step"):
         TT.train(scene, style, cfg, device="cpu", views_per_step=3)
     with pytest.raises(ValueError, match="requires a mesh"):
         TT.train(scene, style, cfg, device="cpu", gaussian_shard=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.train(scene, style, cfg, device="cpu", network_gui=object())
 
 
 def test_run_3dgs_training_and_cli_end_to_end(tmp_path, rng, weights_dir):

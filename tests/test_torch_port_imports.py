@@ -79,13 +79,43 @@ def test_importing_every_module_leaves_jax_out():
                  "aip_tpu_torch.utils.logging", "aip_tpu_torch.utils.profiling",
                  "aip_tpu_torch.utils.system", "aip_tpu_torch.gs.convert",
                  "aip_tpu_torch.parallel.mesh", "aip_tpu_torch.parallel.sharding",
-                 "aip_tpu_torch.parallel.infer", "aip_tpu_torch.parallel.gs"):
+                 "aip_tpu_torch.parallel.infer", "aip_tpu_torch.parallel.gs",
+                 "aip_tpu_torch.gs.network_gui", "aip_tpu_torch.gui", "aip_tpu_torch.gui.jobs",
+                 "aip_tpu_torch.gui.widgets", "aip_tpu_torch.gui.pages",
+                 "aip_tpu_torch.gui.app"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aip_tpu'))\n"
             "print(bad)\n")
+    # pygame (gui.app, gui.pages) greets on stdout unless told not to.
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYGAME_HIDE_SUPPORT_PROMPT="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_every_jax_module_has_a_port():
+    """Each ``aip_tpu/**/*.py`` has its file under ``aip_tpu_torch/``; the
+    Pallas kernels' modules (``ops/pallas/*``) map to ``kernels/*``."""
+    missing = []
+    for path in sorted((ROOT / "aip_tpu").rglob("*.py")):
+        rel = path.relative_to(ROOT / "aip_tpu")
+        if rel.parts[:2] == ("ops", "pallas"):
+            rel = Path("kernels", *rel.parts[2:])
+        if not (ROOT / "aip_tpu_torch" / rel).is_file():
+            missing.append(str(rel))
+    assert not missing, missing
+
+
+def test_importing_gui_jobs_leaves_pygame_out():
+    """The pages' calls run where pygame is absent (the card's machine):
+    ``gui.jobs`` and the package's lazy ``run_app`` import no pygame."""
+    code = ("import sys\n"
+            "import aip_tpu_torch.gui, aip_tpu_torch.gui.jobs\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'pygame'))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
