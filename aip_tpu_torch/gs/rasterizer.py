@@ -37,11 +37,11 @@ depth quantisation is float32 arithmetic truncated toward zero, so equal
 quantised depths composite in the same order in both packages. Top-k
 merges are stable sorts (ties to the lower index, as ``lax.top_k``).
 
-Every renderer names its stages for ``torch.profiler`` with
-``record_function`` spans: ``gs.project``, ``gs.select`` (selection),
+Every renderer names its stages with ``utils.profiling`` spans (recorded
+under ``torch.profiler`` only): ``gs.project``, ``gs.select`` (selection),
 ``gs.gather`` (gathers of the selected attributes, and the coefficients of
-``"pallas"``) and ``gs.composite`` (the compositor). ``chip_smoke.py``'s
-breakdowns read them.
+``"pallas"``) and ``gs.composite`` (the compositor and the layout of its
+output). ``chip_smoke.py``'s breakdowns and the benchmark read them.
 """
 
 from __future__ import annotations
@@ -50,10 +50,10 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from aip_tpu_torch.kernels import composite as K
 from aip_tpu_torch.kernels import composite_ad as KAD
+from aip_tpu_torch.utils.profiling import span
 
 TILE = 16
 
@@ -561,11 +561,11 @@ def composite_tiles_fast(sel_idx, mean2d, conics, colors, opacities, bg_color,
     (not differentiable): each tile's slots gathered, then walked. Returns
     the [H, W, 3] image."""
     _, tw = _tile_grid(settings)
-    with record_function("gs.gather"):
+    with span("gs.gather"):
         safe = torch.clamp(sel_idx, min=0).long()
         slot_valid = (sel_idx >= 0).to(torch.float32)
         gathered = [t.to(torch.float32)[safe] for t in (mean2d, conics, colors, opacities)]
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         tiles = K.composite_tiles(*gathered, slot_valid, bg_color, tw)
     return _tiles_to_image(tiles, settings)
 
@@ -578,7 +578,7 @@ def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmat
     added to the projected means). Returns (image [H, W, 3], radii [N])."""
     if settings.ad_backend not in ("xla", "pallas"):
         raise ValueError(f"unknown ad_backend {settings.ad_backend!r}")
-    with record_function("gs.project"):
+    with span("gs.project"):
         mean2d, depths, conics, radii, valid = project_gaussians(
             means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
             settings, scale_modifier)
@@ -586,7 +586,7 @@ def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmat
             mean2d = mean2d + screenspace_offset
     # Invisible splats (pruned or inactive slots arrive with opacity 0) must
     # not take candidate capacity; selection sees no gradient.
-    with record_function("gs.select"), torch.no_grad():
+    with span("gs.select"), torch.no_grad():
         op_sg = opacities.detach()
         valid_sel = valid & (op_sg > (1.0 / 255.0))
         sel_idx, sel_depth = _select(mean2d.detach(), depths.detach(), radii.detach(),
@@ -595,7 +595,7 @@ def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmat
     if means3d.device.type == "cuda" or settings.ad_backend == "pallas":
         _, tw = _tile_grid(settings)
         n_tiles, k = sel_idx.shape
-        with record_function("gs.gather"):
+        with span("gs.gather"):
             # One packed gather through index_select, whose backward is a
             # single index_add_ of the [T*K, 9] cotangent rows (atomics on
             # the card); the backward of advanced indexing would sort the
@@ -604,12 +604,12 @@ def rasterize(means3d, scales, rotations, opacities, colors, viewmatrix, projmat
             slot_valid = (sel_idx >= 0).to(torch.float32)[:, :, None]
             table = torch.cat([mean2d, conics, colors, opacities[:, None]], dim=1)
             g = torch.index_select(table, 0, flat).reshape(n_tiles, k, 9)
-        with record_function("gs.composite"):
+        with span("gs.composite"):
             # The packed rows reach kernel A where they lie, and kernel B's
             # [T, K, 9] gradient is index_select's cotangent as it is.
             tiles = KAD.composite_tiles_ad_packed(g, slot_valid, tw, bg)
         return _tiles_to_image(tiles, settings), radii
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         img = composite_tiles(sel_idx, sel_depth, mean2d, conics, colors, opacities, bg,
                               settings)
     return img, radii
@@ -655,13 +655,13 @@ def _composite_macro_mxu(macro_idx, mean2d, conics, colors, opacities, bg_color,
     ``macro_idx`` (the kernel on a CUDA tensor; no [M, Kc, 16] copy). Valid
     slots are a prefix of each block's depth-sorted list."""
     bs = m * TILE
-    with record_function("gs.gather"):
+    with span("gs.gather"):
         table = pack_raw_table(mean2d, conics, opacities, colors)
         counts = (macro_idx >= 0).sum(dim=1).to(torch.int32)
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         planes = K.composite_macro_mxu_indexed(table, macro_idx.to(torch.int32).contiguous(),
                                                counts, bg_color, bs=bs, mtw=mtw)
-    return _planes_to_image(planes, mth, mtw, bs)
+        return _planes_to_image(planes, mth, mtw, bs)
 
 
 def _macro_coeffs(macro_idx, mean2d, conics, colors, opacities, n_blocks, mtw, bs):
@@ -696,15 +696,15 @@ def _composite_macro_pallas(macro_idx, mean2d, conics, colors, opacities, bg_col
     packed with the opacity as ``[M, Kc, 8]``, the colours as ``[M, Kc,
     4]``; valid slots are a prefix of each block's list."""
     bs = m * TILE
-    with record_function("gs.gather"):
+    with span("gs.gather"):
         coeff, gcol, gop, counts = _macro_coeffs(macro_idx, mean2d, conics, colors, opacities,
                                                  mth * mtw, mtw, bs)
         zero = torch.zeros_like(gop[..., None])
         coeff8 = torch.cat([coeff, gop[..., None], zero], dim=-1)
         col4 = torch.cat([gcol, zero], dim=-1)
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         planes = K.composite_macro_blocks(coeff8, col4, counts, bg_color, bs=bs)
-    return _planes_to_image(planes, mth, mtw, bs)
+        return _planes_to_image(planes, mth, mtw, bs)
 
 
 # Seg-vs-windowed crossover, kept as the JAX package's static dispatch rule
@@ -740,12 +740,12 @@ def _composite_macro_mxu_seg(gid_s, starts, counts, mean2d, conics, colors, opac
     gid_s holds a Gaussian id at every position, the pairs of culled or
     off-grid emissions included (they sort past the last block)."""
     bs = m * TILE
-    with record_function("gs.gather"):
+    with span("gs.gather"):
         table = pack_raw_table(mean2d, conics, opacities, colors)
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         planes = K.composite_macro_mxu_seg_indexed(table, gid_s, starts, counts, bg_color,
                                                    n_blocks=mth * mtw, kc=kc, bs=bs, mtw=mtw)
-    return _planes_to_image(planes, mth, mtw, bs)
+        return _planes_to_image(planes, mth, mtw, bs)
 
 
 def uses_segment_path(n: int, settings: RasterSettings) -> bool:
@@ -773,7 +773,7 @@ def rasterize_matmul(means3d, scales, rotations, opacities, colors, viewmatrix, 
     if composite is None:
         raise ValueError(f"composite_backend must be one of {sorted(_MACRO_COMPOSITES)}, "
                          f"got {settings.composite_backend!r}")
-    with record_function("gs.project"):
+    with span("gs.project"):
         mean2d, depths, conics, radii, valid = project_gaussians(
             means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
             settings, scale_modifier)
@@ -786,13 +786,13 @@ def rasterize_matmul(means3d, scales, rotations, opacities, colors, viewmatrix, 
     mtw = math.ceil(tw / m)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=means3d.device)
     if uses_segment_path(means3d.shape[0], settings):
-        with record_function("gs.select"):
+        with span("gs.select"):
             gid_s, starts, counts = select_macro_pairsort(
                 mean2d, depths, radii_sel, valid, mth, mtw, settings, segments=True)
         img = _composite_macro_mxu_seg(gid_s, starts, counts, mean2d, conics, colors,
                                        opacities, bg, m, mth, mtw, settings.macro_capacity)
         return img[: settings.image_height, : settings.image_width], radii
-    with record_function("gs.select"):
+    with span("gs.select"):
         macro_idx, _ = _macro_select(mean2d, depths, radii_sel, valid, settings, mth, mtw)
     img = composite(macro_idx, mean2d, conics, colors, opacities, bg, m, mth, mtw)
     return img[: settings.image_height, : settings.image_width], radii
@@ -808,7 +808,7 @@ def rasterize_fused(means3d, scales, rotations, opacities, colors, viewmatrix, p
     out at the 1/255 cutoff). Requires settings.macro > 1. Returns (image
     [H, W, 3], radii [N])."""
     assert settings.macro > 1, "rasterize_fused requires hierarchical settings"
-    with record_function("gs.project"):
+    with span("gs.project"):
         mean2d, depths, conics, radii, valid = project_gaussians(
             means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
             settings, scale_modifier)
@@ -818,13 +818,13 @@ def rasterize_fused(means3d, scales, rotations, opacities, colors, viewmatrix, p
     th, tw = _tile_grid(settings)
     m = settings.macro
     mth, mtw = math.ceil(th / m), math.ceil(tw / m)
-    with record_function("gs.select"):
+    with span("gs.select"):
         macro_idx, _ = _macro_select(mean2d, depths, radii_sel, valid, settings, mth, mtw)
-    with record_function("gs.gather"):
+    with span("gs.gather"):
         safe = torch.clamp(macro_idx, min=0).long()
         slot_valid = (macro_idx >= 0).to(torch.float32)
         gathered = [t.to(torch.float32)[safe] for t in (mean2d, conics, colors, opacities)]
-    with record_function("gs.composite"):
+    with span("gs.composite"):
         tiles = K.composite_from_macro(*gathered, slot_valid, bg_color, n_tiles=th * tw,
                                        tile_w=tw, macro=m, macro_tile_w=mtw)
     return _tiles_to_image(tiles, settings), radii
@@ -838,11 +838,11 @@ def rasterize_fast(means3d, scales, rotations, opacities, colors, viewmatrix, pr
     of ``rasterize`` (flat, or hierarchical when settings.macro > 1), then
     ``composite_tiles_fast``. The same image as ``rasterize``; not
     differentiable. Returns (image [H, W, 3], radii [N])."""
-    with record_function("gs.project"):
+    with span("gs.project"):
         mean2d, depths, conics, radii, valid = project_gaussians(
             means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
             settings, scale_modifier)
-    with record_function("gs.select"):
+    with span("gs.select"):
         sel_idx, _ = _select(mean2d, depths, radii, valid, settings, opacities=opacities)
     img = composite_tiles_fast(sel_idx, mean2d, conics, colors, opacities, bg_color, settings)
     return img, radii

@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from aip_tpu_torch.gs import gaussians as G
 from aip_tpu_torch.gs import rvq as rvq_mod
@@ -38,6 +37,7 @@ from aip_tpu_torch.gs.colorfield import ColorFieldParams, predict_sh
 from aip_tpu_torch.gs.rasterizer import (TILE, RasterSettings, project_gaussians, rasterize,
                                          rasterize_fast, rasterize_matmul, selection_radii)
 from aip_tpu_torch.ops.sh import eval_sh
+from aip_tpu_torch.utils.profiling import span
 
 
 class RenderOutput(NamedTuple):
@@ -254,11 +254,12 @@ def make_inference_frame_fn(state: G.GaussianState, field: ColorFieldParams | No
                             sh_override: torch.Tensor | None = None):
     """One camera->image function for inference serving. The SH
     coefficients and the activations are computed here, once; the returned
-    ``frame(vm, pm, campos, tanfovx, tanfovy) -> [H, W, 3]`` evaluates the
-    view-dependent colour and runs ``rasterize_matmul`` (macro 4 and the
-    ``"mxu"`` compositors unless the settings already name a macro grid,
-    whose ``composite_backend`` is then kept: ``"pallas"`` takes the
-    coefficient walk). Tensors live on the state's device."""
+    ``frame(vm, pm, campos, tanfovx, tanfovy) -> [H, W, 3]``, one
+    ``gs.frame`` span, evaluates the view-dependent colour (``gs.field``)
+    and runs ``rasterize_matmul`` (macro 4 and the ``"mxu"`` compositors
+    unless the settings already name a macro grid, whose
+    ``composite_backend`` is then kept: ``"pallas"`` takes the coefficient
+    walk). Tensors live on the state's device."""
     if settings.macro <= 1:
         settings = settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
                                      composite_backend="mxu")
@@ -273,10 +274,12 @@ def make_inference_frame_fn(state: G.GaussianState, field: ColorFieldParams | No
 
     @torch.no_grad()
     def frame(vm, pm, campos, tanfovx, tanfovy):
-        colors = _sh_colors(sh, xyz, campos)
-        img, _radii = rasterize_matmul(xyz, scales, rotations, opacity, colors, vm, pm, bg,
-                                       settings, tanfovx=tanfovx, tanfovy=tanfovy)
-        return img
+        with span("gs.frame"):
+            with span("gs.field"):
+                colors = _sh_colors(sh, xyz, campos)
+            img, _radii = rasterize_matmul(xyz, scales, rotations, opacity, colors, vm, pm, bg,
+                                           settings, tanfovx=tanfovx, tanfovy=tanfovy)
+            return img
 
     frame.settings = settings
     frame.device = xyz.device
@@ -351,7 +354,7 @@ def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
         opacity = (G.get_opacity(state) * m)[:, 0]
         # Inactive slots contribute nothing.
         opacity = torch.where(state.active, opacity, torch.zeros((), device=dev))
-    with record_function("gs.field"):
+    with span("gs.field"):
         if sh_override is not None:
             sh = sh_override
         else:

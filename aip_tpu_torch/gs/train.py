@@ -23,8 +23,8 @@ every parameter and the screen-space offset, both Adam updates and the
 densification statistics (dL/d mean2d is the gradient of a zero
 ``screenspace_offset``). Densification is ``gs.gaussians``' fixed-capacity
 slot code; Adam moments of re-used slots are zeroed through the same slot
-masks. The step names its stages for ``torch.profiler`` with
-``record_function`` spans (``gs.loss``, ``gs.adam``, ``gs.stats``, beside
+masks. The step names its stages with ``utils.profiling`` spans
+(``gs.loss``, ``gs.adam``, ``gs.stats``, beside
 the renderer's ``gs.field`` and the rasterizer's four), which
 ``chip_smoke.py``'s step breakdown reads.
 
@@ -50,7 +50,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from aip_tpu_torch.device import resolve_device
 from aip_tpu_torch.gs import gaussians as G
@@ -59,6 +58,7 @@ from aip_tpu_torch.gs.colorfield import ColorFieldParams, init_colorfield, predi
 from aip_tpu_torch.gs.rasterizer import TILE, RasterSettings, _pairsort_slots
 from aip_tpu_torch.gs.render import render
 from aip_tpu_torch.ops.metrics import l1_loss, psnr, ssim
+from aip_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -383,7 +383,7 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
     def view_loss(gstate, field, camera, style_f, bg, offs, rvq_s, rvq_r, sh=None):
         out = render_from_arrays(camera, gstate, field, bg, style_f, mode, rvq_s, rvq_r,
                                  settings, offs, sh_override=sh)
-        with record_function("gs.loss"):
+        with span("gs.loss"):
             img, gt = out.render, camera.image
             ll1 = l1_loss(img, gt)
             if phase == "photometric":
@@ -424,7 +424,7 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
         views = [(camera, home)] if n_views == 1 else _unstack(camera)
         if len(views) != n_views:
             raise ValueError(f"a batch of {len(views)} views for views_per_step={n_views}")
-        with record_function("gs.field"):
+        with span("gs.field"):
             sh = compute_sh(field, gstate, style_f)
         sh_leaf = sh.detach().requires_grad_()
         placed = {}
@@ -482,7 +482,7 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
         fn = grads_batched if batched else grads_one_view
         loss, ll1, g_gauss, g_field, g_offs, radii = fn(trainer, gp, fp, gstate, field, camera,
                                                         style_f, bg)
-        with record_function("gs.adam"):
+        with span("gs.adam"):
             count = int(trainer.opt_g.count)
             new_g, opt_g = adam_update(_gparams(trainer.gstate), g_gauss, trainer.opt_g,
                                        gaussian_lrs(cfg, spatial_lr_scale, count * n_views))
@@ -490,7 +490,7 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
             new_f, opt_net = adam_update(_field_params(trainer.field), g_field, trainer.opt_net,
                                          {k: lr_n for k in g_field})
         new_field = ColorFieldParams(**{k: new_f.get(k) for k in ColorFieldParams._fields})
-        with record_function("gs.stats"):
+        with span("gs.stats"):
             gstate = trainer.gstate._replace(**new_g)
             for g, r in zip(g_offs, radii):
                 gstate = G.add_densification_stats(gstate, g, r, width=width, height=height)

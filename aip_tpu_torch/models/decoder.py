@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import decode_tail
 from aip_tpu_torch.models.vgg import _empty_convs, he_normal_
+from aip_tpu_torch.utils.profiling import span
 
 # ('conv', in, out, torch_index) | ('relu',) | ('up',) | ('pad',)
 DECODER_LAYERS = (
@@ -82,8 +83,8 @@ def decoder_apply(params: AdaINDecoder, x: torch.Tensor,
     """Decode a [N, h, w, 512] relu4_1-space feature map to [N, 8h, 8w, 3]
     (NHWC, compute dtype). The last upsample and the two convs after it go
     through ``decode_tail``. The convs run under ``fp32_convs`` (no TF32
-    for fp32 convs)."""
-    with fp32_convs():
+    for fp32 convs). One ``adain.decode`` span, device-timed on a card."""
+    with span("adain.decode", device=x), fp32_convs():
         return _decode_layers(params.convs, x, compute_dtype)
 
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import encode_head
+from aip_tpu_torch.utils.profiling import span
 
 # ('conv', in_ch, out_ch, kernel, torch_index) | ('relu', tap) | ('pool',) | ('pad',)
 VGG_LAYERS = (
@@ -169,10 +170,11 @@ def vgg_encode_with_intermediate(params: VGGEncoder, x: torch.Tensor, taps=STYLE
                                  compute_dtype=torch.float32):
     """Return a dict of the requested ReLU taps (NHWC). Stops at the deepest
     tap. Without a relu1_x tap, conv0 .. pool1 run as one ``encode_head``.
-    The convs run under ``fp32_convs`` (no TF32 for fp32 convs)."""
+    The convs run under ``fp32_convs`` (no TF32 for fp32 convs). One
+    ``adain.encode`` span, device-timed on a card."""
     remaining = set(taps)
     convs = params.convs
-    with fp32_convs():
+    with span("adain.encode", device=x), fp32_convs():
         if not remaining & {"relu1_1", "relu1_2"}:
             c0, c1, c2 = convs[0], convs[1], convs[2]
             h = encode_head(x.to(compute_dtype).contiguous(), c0.weight, c0.bias,

@@ -26,6 +26,7 @@ import torch.nn as nn
 from aip_tpu_torch.device import resolve_device
 from aip_tpu_torch.models import decoder as dec_mod
 from aip_tpu_torch.models import vgg as vgg_mod
+from aip_tpu_torch.utils.profiling import count
 
 DEFAULT_WEIGHTS_DIR = Path(os.environ.get("AIP_TPU_WEIGHTS", Path.home() / ".cache" / "aip_tpu"))
 
@@ -65,10 +66,18 @@ def save_params_npz(params: list[dict], path: Path) -> None:
     np.savez(str(path), **flat)
 
 
+def _nbytes(params: list[dict]) -> int:
+    return sum(p["w"].nbytes + p["b"].nbytes for p in params)
+
+
 def load_params_npz(path: Path) -> list[dict]:
+    """HWIO params from the npz cache; counts their bytes as
+    ``weights.bytes_read`` (under a profiler)."""
     with np.load(str(path)) as data:
         n = len([k for k in data.files if k.startswith("w")])
-        return [{"w": data[f"w{i}"], "b": data[f"b{i}"]} for i in range(n)]
+        params = [{"w": data[f"w{i}"], "b": data[f"b{i}"]} for i in range(n)]
+    count("weights.bytes_read", _nbytes(params))
+    return params
 
 
 def from_jax_params(params, device=None):
@@ -159,14 +168,32 @@ def he_normal(generator: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * (2.0 / fan_in) ** 0.5
 
 
+# The AdaIN encoder's convs up to relu4_1, the deepest tap any caller asks
+# for: the checkpoint's later convs are read and never run.
+_ENCODER_CONVS_USED = len(vgg_mod.conv_specs(
+    vgg_mod.VGG_LAYERS[:vgg_mod.VGG_LAYERS.index(("relu", "relu4_1")) + 1]))
+
+
+def _convs_used(module, n_convs: int) -> int:
+    """How many of a built network's convs its forward passes run: the AdaIN
+    encoder's up to relu4_1, every conv of any other network."""
+    return _ENCODER_CONVS_USED if isinstance(module, vgg_mod.VGGEncoder) else n_convs
+
+
 def _get_params(name: str, torch_path, torch_indices, init_fn, device,
                 build=from_jax_params):
     """Cache, then checkpoint, then ``init_fn(device=...)``; ``build`` turns
-    HWIO params into the module (the AdaIN networks by default)."""
+    HWIO params into the module (the AdaIN networks by default). A load from
+    the cache counts the bytes of the convs the network runs as
+    ``weights.bytes_used``, beside ``load_params_npz``'s
+    ``weights.bytes_read`` (under a profiler)."""
     device = resolve_device(device)
     cache = DEFAULT_WEIGHTS_DIR / f"{name}.npz"
     if cache.is_file():
-        return build(load_params_npz(cache), device)
+        params = load_params_npz(cache)
+        module = build(params, device)
+        count("weights.bytes_used", _nbytes(params[:_convs_used(module, len(params))]))
+        return module
     if torch_path is not None and _is_real_checkpoint(Path(torch_path)):
         params = convert_torch_sequential(_load_torch_state_dict(Path(torch_path)),
                                           torch_indices)

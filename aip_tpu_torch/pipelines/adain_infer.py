@@ -32,6 +32,7 @@ from aip_tpu_torch.ops.adain import adain, calc_mean_std, coral
 from aip_tpu_torch.ops.depth import compute_stylization_strength_map
 from aip_tpu_torch.ops.image import (center_crop, resize_bilinear, resize_nearest,
                                      resize_smaller_edge, smaller_edge_size)
+from aip_tpu_torch.utils.profiling import span
 
 
 def _place(device, modules=(), tensors=()):
@@ -213,10 +214,15 @@ def _test_transform(img, size: int, crop: bool, device) -> torch.Tensor:
 
 
 def save_image(arr, path) -> None:
-    """Clamp to [0,1] and save (torchvision save_image: round half away)."""
+    """Clamp to [0,1] and save (torchvision save_image: round half away).
+    The copy of a tensor to the host is an ``adain.fetch`` span."""
     from PIL import Image
 
-    a = arr.detach().float().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    if isinstance(arr, torch.Tensor):
+        with span("adain.fetch"):
+            a = arr.detach().float().cpu().numpy()
+    else:
+        a = np.asarray(arr)
     if a.ndim == 4:
         a = a[0]
     a = np.clip(a, 0.0, 1.0)
@@ -236,6 +242,7 @@ def get_style_embeddings(style_img, style_size: int = 512, crop: bool = False,
     return style_embedding(vgg_params, style, compute_dtype=compute_dtype, device=dev)
 
 
+@span("adain.request")
 def adain_inference(
     content_img,
     style_img,
@@ -263,46 +270,56 @@ def adain_inference(
     default is ``models.depthnet.estimate_proximity`` on ``device``.
     fp32 by default: this is the reference-parity surface (BASELINE.md
     budgets 1e-3 mean abs pixel error). Returns the saved output path.
+
+    One ``adain.request`` span over ``adain.weights`` (both networks' load),
+    ``adain.load`` (decode, resize and upload of content and style),
+    ``adain.stylize`` (the device work) and ``adain.save`` (its
+    ``adain.fetch``, the wait for the output, then the encode and write).
     """
     dev = resolve_device(device)
-    vgg_params = weights_mod.get_vgg_params(vgg_str, device=dev)
-    dec_params = weights_mod.get_decoder_params(decoder_str, device=dev)
+    with span("adain.weights"):
+        vgg_params = weights_mod.get_vgg_params(vgg_str, device=dev)
+        dec_params = weights_mod.get_decoder_params(decoder_str, device=dev)
+    with span("adain.load"):
+        content_np = _to_array(content_img)
+        content = _test_transform(content_img, content_size, crop, dev)
+        style = _test_transform(style_img, style_size, crop, dev)
+    with span("adain.stylize"):
+        if preserve_color:
+            style = coral(style, content)
+        content_b = content[None]
+        style_b = style[None]
 
-    content_np = _to_array(content_img)
-    content = _test_transform(content_img, content_size, crop, dev)
-    style = _test_transform(style_img, style_size, crop, dev)
-    if preserve_color:
-        style = coral(style, content)
-    content_b = content[None]
-    style_b = style[None]
+        if use_depth:
+            if depth_fn is None:
+                from aip_tpu_torch.models.depthnet import estimate_proximity
 
-    if use_depth:
-        if depth_fn is None:
-            from aip_tpu_torch.models.depthnet import estimate_proximity
-
-            depth_map = estimate_proximity(torch.from_numpy(content_np).to(dev))
+                depth_map = estimate_proximity(torch.from_numpy(content_np).to(dev))
+            else:
+                depth_map = torch.as_tensor(np.asarray(depth_fn(content_np)), device=dev)
+            out = stylize_depth(vgg_params, dec_params, content_b, style_b, depth_map,
+                                offset=float(depth_offset),
+                                prominence=float(depth_prominence),
+                                compute_dtype=compute_dtype, device=dev)
         else:
-            depth_map = torch.as_tensor(np.asarray(depth_fn(content_np)), device=dev)
-        out = stylize_depth(vgg_params, dec_params, content_b, style_b, depth_map,
-                            offset=float(depth_offset), prominence=float(depth_prominence),
-                            compute_dtype=compute_dtype, device=dev)
-    else:
-        out = stylize_simple(vgg_params, dec_params, content_b, style_b,
-                             alpha=float(alpha), compute_dtype=compute_dtype, device=dev)
+            out = stylize_simple(vgg_params, dec_params, content_b, style_b,
+                                 alpha=float(alpha), compute_dtype=compute_dtype,
+                                 device=dev)
 
-    if content_mask is not None:
-        # Reference test.py:222-236: nearest-resized binary mask composite.
-        mask_np = np.asarray(content_mask, dtype=np.float32)
-        if mask_np.ndim == 3 and mask_np.shape[0] == 1 and mask_np.shape[-1] != 1:
-            mask_np = np.moveaxis(mask_np, 0, -1)  # reference passes [1, H, W]
-        if mask_np.ndim == 2:
-            mask_np = mask_np[:, :, None]
-        target_hw = (content_b.shape[1], content_b.shape[2])
-        mask = resize_nearest(torch.from_numpy(np.ascontiguousarray(mask_np)).to(dev)[None],
-                              target_hw)
-        out = resize_bilinear(out, target_hw)
-        out = content_b * (1.0 - mask) + out * mask
+        if content_mask is not None:
+            # Reference test.py:222-236: nearest-resized binary mask composite.
+            mask_np = np.asarray(content_mask, dtype=np.float32)
+            if mask_np.ndim == 3 and mask_np.shape[0] == 1 and mask_np.shape[-1] != 1:
+                mask_np = np.moveaxis(mask_np, 0, -1)  # reference passes [1, H, W]
+            if mask_np.ndim == 2:
+                mask_np = mask_np[:, :, None]
+            target_hw = (content_b.shape[1], content_b.shape[2])
+            mask = resize_nearest(
+                torch.from_numpy(np.ascontiguousarray(mask_np)).to(dev)[None], target_hw)
+            out = resize_bilinear(out, target_hw)
+            out = content_b * (1.0 - mask) + out * mask
 
     output_path = Path(output) / f"{file_name}{save_ext}"
-    save_image(out, output_path)
+    with span("adain.save"):
+        save_image(out, output_path)
     return output_path

@@ -20,7 +20,7 @@ loop is the ``tvl1`` CUDA kernel on the card). Every entry point takes
 ``trace`` dict, when given, receives each stage's milliseconds
 (``stage_ms``: load, depth, stylize, flows, blend, save; CUDA events on the
 card, the host clock on the CPU) and the flows; each stage is also a
-``video.<stage>`` span for torch.profiler.
+``video.<stage>`` span (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -29,12 +29,10 @@ import contextlib
 import os
 import shutil
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from aip_tpu_torch.device import check_module_device, resolve_device
 from aip_tpu_torch.models import weights as weights_mod
@@ -48,6 +46,7 @@ from aip_tpu_torch.ops.image import resize_bilinear
 from aip_tpu_torch.parallel import mesh as mesh_mod
 from aip_tpu_torch.parallel.sharding import gather, replicate_module
 from aip_tpu_torch.pipelines.adain_infer import _to_array, precompute_style_stats
+from aip_tpu_torch.utils.profiling import span
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 
@@ -130,37 +129,24 @@ def _save_frames(frames: torch.Tensor, directory, names) -> list:
 
 
 class _Stages:
-    """Stage spans of one call: a ``video.<name>`` record_function span
-    each, and, for a ``trace`` dict, the stage's milliseconds (CUDA events
-    at its bounds on the card, read once the call has ended; the host clock
-    on the CPU)."""
+    """Stage spans of one call: a ``video.<name>`` span each and, for a
+    ``trace`` dict, the stage's milliseconds (the span's CUDA events on the
+    card, read once the call has ended; the host clock on the CPU)."""
 
     def __init__(self, trace, dev: torch.device):
-        self.trace, self.cuda, self.marks = trace, dev.type == "cuda", []
-
-    def _mark(self):
-        if self.trace is None:
-            return None
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
+        self.trace, self.dev, self.spans = trace, dev, []
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        with record_function(f"video.{name}"):
-            start = self._mark()
+        with span(f"video.{name}", device=self.dev, timed=self.trace is not None) as s:
             yield
-            self.marks.append((name, start, self._mark()))
+        if s is not None:
+            self.spans.append((name, s))
 
     def finish(self, **fields) -> None:
         if self.trace is None:
             return
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.trace["stage_ms"] = {
-            name: s.elapsed_time(e) if self.cuda else (e - s) * 1e3 for name, s, e in self.marks}
+        self.trace["stage_ms"] = {name: s.ms() for name, s in self.spans}
         self.trace.update(fields)
 
 

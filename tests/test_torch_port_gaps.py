@@ -229,7 +229,8 @@ SLICE7_MODULES = (
     ("models.midas", (), ""),
     ("utils", (), ""),
     ("utils.logging", (), ""),
-    ("utils.profiling", ("jnp_flat",), "a jax.numpy helper of device_sync"),
+    ("utils.profiling", ("jnp_flat", "StepTimer"),
+     "a jax.numpy helper of device_sync; a step timer nothing reads (the spans time stages)"),
     ("utils.system", (), ""),
     ("gs.convert", (), ""),
 )
@@ -349,14 +350,9 @@ def test_system_utils_match_jax(tmp_path, monkeypatch):
 def test_profiling_utils(tmp_path):
     from aip_tpu_torch.utils import profiling as tprof
 
-    timer = tprof.StepTimer(ema=0.5)
-    for _ in range(2):
-        timer.start()
-        x = torch.ones(4) * 2
-        dt = timer.stop(sync_on=[x])
-        assert dt >= 0.0
-    assert timer.value is not None
+    x = torch.ones(4) * 2
     tprof.device_sync(x)
+    tprof.device_sync([x])
     with tprof.trace(tmp_path / "tr"):
         torch.ones(8).sum()
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
