@@ -3,22 +3,26 @@ Port of ``aip_tpu.models.decoder`` (reference ``AdaIN/net.py:6-36``).
 
 The last up2x -> conv 64->64 -> ReLU -> conv 64->3 runs as the fused
 ``decode_tail`` kernel whenever the walk reaches it: on a CUDA tensor that
-is always the hand-written kernel, on a CPU tensor its plain version. A
-conv that is not an ``nn.Conv2d`` is called on the padded input (the
-tensor-parallel conv of ``parallel.train``); the tail takes its gathered
-weight.
+is always the hand-written kernel, on a CPU tensor its plain version. The
+other convs run as the encoder's (``models.vgg``): in bf16 where autograd
+records nothing, one ``conv_epilogue`` finishes each (bias, ReLU,
+upsample, the next conv's border), elsewhere the PyTorch op chain. A conv
+that is not an ``nn.Conv2d`` (the tensor-parallel conv of
+``parallel.train``) is called on the padded input, and its decoder takes
+the op chain; the tail takes its gathered weight.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import decode_tail
-from aip_tpu_torch.models.vgg import _empty_convs, he_normal_
-from aip_tpu_torch.utils.profiling import span
+from aip_tpu_torch.kernels.conv_epilogue import conv_epilogue, conv_epilogue_chain
+from aip_tpu_torch.models.vgg import (_empty_convs, conv_raw, epilogue_ops, he_normal_,
+                                      takes_epilogue)
+from aip_tpu_torch.utils.profiling import count, span
 
 # ('conv', in, out, torch_index) | ('relu',) | ('up',) | ('pad',)
 DECODER_LAYERS = (
@@ -82,33 +86,41 @@ def decoder_apply(params: AdaINDecoder, x: torch.Tensor,
                   compute_dtype=torch.float32) -> torch.Tensor:
     """Decode a [N, h, w, 512] relu4_1-space feature map to [N, 8h, 8w, 3]
     (NHWC, compute dtype). The last upsample and the two convs after it go
-    through ``decode_tail``. The convs run under ``fp32_convs`` (no TF32
-    for fp32 convs). One ``adain.decode`` span, device-timed on a card."""
+    through ``decode_tail``. Where ``takes_epilogue`` (bf16, not recorded),
+    on a decoder of ``nn.Conv2d``s, one ``conv_epilogue`` finishes each
+    conv; elsewhere the PyTorch op chain runs. The convs run under
+    ``fp32_convs`` (no TF32 for fp32 convs). One ``adain.decode`` span,
+    device-timed on a card."""
+    convs = params.convs
+    fused = (takes_epilogue(x, convs, compute_dtype)
+             and all(isinstance(c, nn.Conv2d) for c in convs))
     with span("adain.decode", device=x), fp32_convs():
-        return _decode_layers(params.convs, x, compute_dtype)
+        return _decode_layers(convs, x, compute_dtype, fused)
 
 
-def _decode_layers(convs, x, compute_dtype):
-    """``decoder_apply``'s walk over ``DECODER_LAYERS``."""
+def _decode_layers(convs, x, compute_dtype, fused):
+    """``decoder_apply``'s walk over ``DECODER_LAYERS`` on NHWC, each conv's
+    output finished by one ``conv_epilogue`` (fused) or by the op chain
+    (``conv_epilogue_chain``); the conv before the tail's upsample is
+    finished without a border and handed to ``decode_tail``."""
+    finish = conv_epilogue if fused else conv_epilogue_chain
     n_convs = len(convs)
-    t = x.permute(0, 3, 1, 2)
-    ci = 0
-    for layer in DECODER_LAYERS:
-        kind = layer[0]
-        if kind == "up" and ci == n_convs - 2:
+    t = finish(x.to(compute_dtype).contiguous())     # the leading ("pad",)
+    i, ci = 1, 0
+    while i < len(DECODER_LAYERS):
+        conv = convs[ci]
+        if isinstance(conv, nn.Conv2d):
+            raw, bias = conv_raw(t, conv, compute_dtype, fused)
+        else:   # a conv split over devices (parallel.train.ColumnParallelConv), bias added
+            raw, bias = conv(t.permute(0, 3, 1, 2), compute_dtype).permute(0, 2, 3, 1), None
+        relu, _, resample, border, i = epilogue_ops(DECODER_LAYERS, i)
+        ci += 1
+        count("models.epilogues", 1)
+        if fused:
+            count("models.epilogues_fused", 1)
+        if resample == "up" and ci == n_convs - 2:
+            y = finish(raw, bias, relu, None, False).contiguous()
             c2, c1 = convs[ci], convs[ci + 1]
-            y = t.to(compute_dtype).permute(0, 2, 3, 1).contiguous()
             return decode_tail(y, c2.weight, c2.bias, c1.weight, c1.bias)
-        if kind == "conv":
-            t = F.pad(t.to(compute_dtype), (1, 1, 1, 1), mode="reflect")
-            conv = convs[ci]
-            if isinstance(conv, nn.Conv2d):
-                t = F.conv2d(t, conv.weight.to(compute_dtype), conv.bias.to(compute_dtype))
-            else:   # a conv split over devices (parallel.train.ColumnParallelConv)
-                t = conv(t, compute_dtype)
-            ci += 1
-        elif kind == "up":
-            t = F.interpolate(t, scale_factor=2, mode="nearest")
-        elif kind == "relu":
-            t = torch.relu(t)
+        t = finish(raw, bias, relu, resample, border)
     raise AssertionError("DECODER_LAYERS has no final up2x before its last two convs")

@@ -8,7 +8,14 @@ the slice up to relu4_1.
 The head (conv0 .. pool1, the four full-resolution 64-channel stages) goes
 through the fused ``encode_head`` kernel whenever no relu1_x tap is asked
 for: on a CUDA tensor that is always the hand-written kernel, on a CPU
-tensor its plain version. The remaining 3x3 convs are ``F.conv2d``.
+tensor its plain version. The remaining 3x3 convs are ``F.conv2d``
+without their bias, on NHWC activations. In bf16 where autograd records
+nothing, one ``conv_epilogue`` finishes each conv's output (bias, ReLU,
+pool, the next conv's reflection border, NHWC, for a conv on channels_last
+weights); other calls finish it with the same ops as a PyTorch chain
+(``conv_epilogue_chain``). Each conv output the walks finish counts in
+``models.epilogues``, each through the epilogue in
+``models.epilogues_fused``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import torch.nn.functional as F
 
 from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import encode_head
-from aip_tpu_torch.utils.profiling import span
+from aip_tpu_torch.kernels.conv_epilogue import conv_epilogue, conv_epilogue_chain
+from aip_tpu_torch.utils.profiling import count, span
 
 # ('conv', in_ch, out_ch, kernel, torch_index) | ('relu', tap) | ('pool',) | ('pad',)
 VGG_LAYERS = (
@@ -135,32 +143,104 @@ def vgg_encode(params: VGGEncoder, x: torch.Tensor, upto: str = "relu4_1",
     return vgg_encode_with_intermediate(params, x, (upto,), compute_dtype)[upto]
 
 
-def _run_layers(convs, t, layers, ci, remaining, compute_dtype):
-    """Walk ``layers`` on the NCHW view ``t`` starting at conv ``ci``;
-    returns the requested taps as NHWC."""
-    out = {}
-    pending_pad = False
-    for layer in layers:
-        kind = layer[0]
-        if kind == "conv":
-            t = t.to(compute_dtype)
-            if pending_pad:
-                t = F.pad(t, (1, 1, 1, 1), mode="reflect")
-                pending_pad = False
-            conv = convs[ci]
-            t = F.conv2d(t, conv.weight.to(compute_dtype), conv.bias.to(compute_dtype))
-            ci += 1
+def conv_weights(conv: nn.Conv2d, dtype):
+    """(weight in ``dtype``, channels_last; bias in ``dtype``, as fp32) of
+    ``conv``, the operands of a conv without its bias and of its epilogue.
+    Cached on the module per dtype; the key holds the weight's and the bias's
+    data_ptr, _version and device, so an in-place update or a new tensor
+    recomputes. An entry holds the tensors it was made from, so their memory
+    cannot be reused under the same key while it is cached."""
+    weight, bias = conv.weight, conv.bias
+    key = tuple((t.data_ptr(), t._version, t.device) for t in (weight, bias))
+    cache = conv.__dict__.setdefault("_conv_weights", {})
+    hit = cache.get(dtype)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            w = weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
+            b = bias.detach().to(dtype).float()
+        hit = cache[dtype] = (key, (weight, bias), w, b)
+    return hit[2], hit[3]
+
+
+def conv_raw(t, conv, compute_dtype, fused):
+    """``conv``'s output on the NHWC ``t`` (bordered where the conv needs
+    it), without its bias, as NHWC; and the bias its epilogue adds. Fused:
+    the cached channels_last weights (``conv_weights``), so cuDNN reads and
+    writes NHWC, and the output NHWC-contiguous, as ``conv_epilogue`` takes
+    it. Else the module's own weights, which autograd records (bf16 ones
+    channels_last too: cuDNN's bf16 convs are NHWC kernels, and both routes
+    then give the same bits), and a view of cuDNN's output."""
+    x = t.permute(0, 3, 1, 2)
+    if fused:
+        w, bias = conv_weights(conv, compute_dtype)
+        return F.conv2d(x, w).permute(0, 2, 3, 1).contiguous(), bias
+    w = conv.weight.to(compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        w = w.contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, w).permute(0, 2, 3, 1), conv.bias
+
+
+def epilogue_ops(layers, i):
+    """The ops between the conv at ``layers[i]`` and the next conv (or the
+    end): (relu, its tap or None, resample None/"pool"/"up", border, index
+    of the next conv)."""
+    relu, tap, resample, border = False, None, None, False
+    i += 1
+    while i < len(layers) and layers[i][0] != "conv":
+        kind = layers[i][0]
+        if kind == "relu":
+            relu, tap = True, (layers[i][1] if len(layers[i]) > 1 else None)
+        elif kind in ("pool", "up"):
+            resample = kind
         elif kind == "pad":
-            pending_pad = True
-        elif kind == "pool":
-            t = F.max_pool2d(t, 2, 2, ceil_mode=True)
-        elif kind == "relu":
-            t = torch.relu(t)
-            if layer[1] in remaining:
-                out[layer[1]] = t.permute(0, 2, 3, 1)
-                remaining.discard(layer[1])
-                if not remaining:
-                    return out
+            border = True
+        i += 1
+    return relu, tap, resample, border, i
+
+
+def takes_epilogue(x, convs, compute_dtype) -> bool:
+    """Whether a walk of ``convs`` on ``x`` finishes each conv with one
+    ``conv_epilogue``: in bf16, where autograd records nothing (the
+    epilogue has no backward). cuDNN's bf16 convs are NHWC kernels, which
+    read the epilogue's output as it is; its fp32 convs (TF32 off) are NCHW
+    kernels, which on NHWC input transpose in and out and take slower
+    tiles: on an H100 a no-grad fp32 encode of 1 x 512x683 took 5.7-5.8 ms
+    that way against 5.2 on the chain."""
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in convs.parameters()))
+    return compute_dtype == torch.bfloat16 and not records
+
+
+def _run_layers(convs, t, layers, ci, remaining, compute_dtype, fused):
+    """Walk ``layers`` on the NHWC ``t`` starting at conv ``ci``, each
+    conv's output finished by one ``conv_epilogue`` (fused) or by the op
+    chain (``conv_epilogue_chain``); returns the requested taps as NHWC.
+    Fused, a tap followed by a border is the padded buffer's interior."""
+    finish = conv_epilogue if fused else conv_epilogue_chain
+    out = {}
+    t = t.to(compute_dtype).contiguous()
+    i = 0
+    if layers[0] == ("pad",):
+        t, i = finish(t), 1
+    while i < len(layers):
+        raw, bias = conv_raw(t, convs[ci], compute_dtype, fused)
+        relu, tap, resample, border, i = epilogue_ops(layers, i)
+        ci += 1
+        count("models.epilogues", 1)
+        if fused:
+            count("models.epilogues_fused", 1)
+        if tap not in remaining:
+            t = finish(raw, bias, relu, resample, border)
+            continue
+        remaining.discard(tap)
+        if fused and remaining and resample is None and border:
+            t = finish(raw, bias, relu, None, True)
+            out[tap] = t[:, 1:-1, 1:-1]
+            continue
+        out[tap] = finish(raw, bias, relu, None, False)
+        if not remaining:
+            return out
+        t = finish(out[tap], None, False, resample, border)
     if remaining:
         raise ValueError(f"unknown taps: {remaining}")
     return out
@@ -170,16 +250,18 @@ def vgg_encode_with_intermediate(params: VGGEncoder, x: torch.Tensor, taps=STYLE
                                  compute_dtype=torch.float32):
     """Return a dict of the requested ReLU taps (NHWC). Stops at the deepest
     tap. Without a relu1_x tap, conv0 .. pool1 run as one ``encode_head``.
-    The convs run under ``fp32_convs`` (no TF32 for fp32 convs). One
-    ``adain.encode`` span, device-timed on a card."""
+    Where ``takes_epilogue`` (bf16, not recorded), one ``conv_epilogue``
+    finishes each conv; elsewhere the PyTorch op chain runs. The convs
+    run under ``fp32_convs`` (no TF32 for fp32 convs). One ``adain.encode``
+    span, device-timed on a card."""
     remaining = set(taps)
     convs = params.convs
+    fused = takes_epilogue(x, convs, compute_dtype)
     with span("adain.encode", device=x), fp32_convs():
         if not remaining & {"relu1_1", "relu1_2"}:
             c0, c1, c2 = convs[0], convs[1], convs[2]
             h = encode_head(x.to(compute_dtype).contiguous(), c0.weight, c0.bias,
                             c1.weight, c1.bias, c2.weight, c2.bias)
-            return _run_layers(convs, h.permute(0, 3, 1, 2), VGG_LAYERS[_POOL1 + 1:], 3,
-                               remaining, compute_dtype)
-        return _run_layers(convs, x.permute(0, 3, 1, 2), VGG_LAYERS, 0, remaining,
-                           compute_dtype)
+            return _run_layers(convs, h, VGG_LAYERS[_POOL1 + 1:], 3, remaining,
+                               compute_dtype, fused)
+        return _run_layers(convs, x, VGG_LAYERS, 0, remaining, compute_dtype, fused)

@@ -49,6 +49,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``stylize_simple`` call at batch 1 x 512^2, device time by kernel and
    the device's busy share; the calls repack no weights (the cached packs
    of both routes are the same objects after them).
+8b. conv epilogue (``csrc/conv_epilogue.cu``, bf16), ``conv_epilogue_phase``:
+   the kernel against its plain version bit for bit in every mode of the
+   walks, at one image of each of the serving batch's 16 calls and at odd
+   shapes; a no-grad bf16 encode and decode launch it once a conv plus once
+   a network's input border, a recorded or fp32 one never, and recorded or
+   not their outputs are equal; then the 16 calls at batch 32 x 512^2, each
+   checked bit for bit against its plain version and timed over 20 calls in
+   one window, beside its bytes bound, its plain version's time and the op
+   chain the walks ran before it (``conv_epilogue_chain`` on the NCHW conv
+   output). Its kernel line's launches are phase 4's serving call's. Runs
+   alone as ``python3 -c "import chip_smoke; chip_smoke.conv_epilogue_phase()"``,
+   then with a serving call of its own.
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -456,7 +468,7 @@ PEAK_BYTES = 3.35e12
 FP32_FLOAT64_TOL = 1.5e-6
 
 SOURCES = ("adain_head", "adain_head_tc", "composite", "composite_ad", "hashgrad", "tvl1",
-           "composite_walk")
+           "composite_walk", "conv_epilogue")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:278"),
@@ -471,6 +483,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "composite_ad_bwd": ("composite_ad", "aip_tpu/ops/pallas/composite_ad.py:211"),
     "hash_grad": ("hashgrad", "aip_tpu/ops/pallas/hashgrad.py:74"),
     "tvl1": ("tvl1", "aip_tpu/ops/pallas/tvl1.py:99"),
+    "conv_epilogue": ("conv_epilogue", "none (aip_tpu leaves the chain to XLA's fusion)"),
 }
 
 
@@ -491,6 +504,7 @@ def main():
     from aip_tpu_torch.cli import run_depth
     from aip_tpu_torch.kernels import _build
     from aip_tpu_torch.kernels import adain_head as K
+    from aip_tpu_torch.kernels import conv_epilogue as KE
     from aip_tpu_torch.models import weights
     from aip_tpu_torch.pipelines import adain_infer
 
@@ -565,18 +579,21 @@ def main():
     content = rand(32, 512, 512, 3)
     K.reset_launch_counts()
     style_mean, style_std = adain_infer.precompute_style_stats(vgg, style, device=dev)
+    KE.conv_epilogue.launches = 0
     out = adain_infer.stylize_with_stats(vgg, dec, content, style_mean, style_std, alpha=0.5,
                                          compute_dtype=bf16, device=dev)
     torch.cuda.synchronize()
     launches = K.launch_counts()
     routes = K.route_launch_counts()
+    epilogues = KE.conv_epilogue.launches     # the serving call's alone
     emit("serving_path", batch=32, size=512, dtype="bfloat16", alpha=0.5,
          out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), launches=launches,
-         route_launches=routes)
+         route_launches=routes, conv_epilogue_launches=epilogues)
     if not (out.shape == (32, 512, 512, 3) and torch.isfinite(out).all()):
         raise AssertionError("serving path output is not finite or has the wrong shape")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    if min(launches.values()) <= 0 or epilogues != len(_serve_epilogues()):
+        raise AssertionError(f"a kernel of the main path was not launched as often as the "
+                             f"walks call it: {launches}, conv_epilogue {epilogues}")
     if routes["bf16"] != launches:
         raise AssertionError(f"a bf16 launch missed the bf16 route: {routes}")
     del out
@@ -717,6 +734,10 @@ def main():
     if any(repacked.values()):
         raise AssertionError("a steady-state call repacked the kernels' weights")
     del content, x, y
+    torch.cuda.empty_cache()
+
+    # 8b. the conv epilogue between the VGG and decoder convs -------------------
+    lines.append(conv_epilogue_phase(torch, dev, serve_launches=epilogues))
     torch.cuda.empty_cache()
 
     # 9-14. stylized 3DGS inference render -------------------------------------
@@ -989,6 +1010,174 @@ def _library_tail(F, y, w2, b2, w1, b1):
     u = F.interpolate(y.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
     z = F.relu(F.conv2d(F.pad(u, (1, 1, 1, 1), mode="reflect"), w2, b2))
     return F.conv2d(F.pad(z, (1, 1, 1, 1), mode="reflect"), w1, b1)
+
+
+# ---------------------------------------------------------------------------
+# The conv epilogue (phase 8b)
+# ---------------------------------------------------------------------------
+
+def _serve_epilogues(size=512):
+    """The conv epilogue's calls in one serving call (encode to relu4_1,
+    decode) at ``size``^2: (name, raw H, W, C, bias, relu, resample,
+    border), in network order."""
+    q, e, s8 = size // 2, size // 4, size // 8
+    return [
+        ("enc.head_border", q, q, 64, False, False, None, True),
+        ("enc.relu2_1", q, q, 128, True, True, None, True),
+        ("enc.relu2_2_pool", q, q, 128, True, True, "pool", True),
+        ("enc.relu3_1", e, e, 256, True, True, None, True),
+        ("enc.relu3_2", e, e, 256, True, True, None, True),
+        ("enc.relu3_3", e, e, 256, True, True, None, True),
+        ("enc.relu3_4_pool", e, e, 256, True, True, "pool", True),
+        ("enc.relu4_1", s8, s8, 512, True, True, None, False),
+        ("dec.input_border", s8, s8, 512, False, False, None, True),
+        ("dec.conv0_up", s8, s8, 256, True, True, "up", True),
+        ("dec.conv1", e, e, 256, True, True, None, True),
+        ("dec.conv2", e, e, 256, True, True, None, True),
+        ("dec.conv3", e, e, 256, True, True, None, True),
+        ("dec.conv4_up", e, e, 128, True, True, "up", True),
+        ("dec.conv5", q, q, 128, True, True, None, True),
+        ("dec.conv6_to_tail", q, q, 64, True, True, None, False),
+    ]
+
+
+def _epilogue_bytes(KE, b, h, w, c, resample, border, itemsize, bias):
+    """The epilogue's input read once, its output written once, the bias."""
+    ho, wo = KE.output_size(h, w, resample)
+    pad = 2 if border else 0
+    return (b * h * w * c + b * (ho + pad) * (wo + pad) * c) * itemsize + (4 * c if bias else 0)
+
+
+def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
+    """Phase 8b (see the module docstring). ``serve_launches``: the
+    epilogue's launches in phase 4's serving call; run alone, the phase
+    makes a serving call of its own. Returns the kernel's line."""
+    if torch is None:
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        sys.path.insert(0, str(ROOT))
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=_card(),
+             torch=torch.__version__, cuda=torch.version.cuda)
+    from aip_tpu_torch.kernels import _build
+    from aip_tpu_torch.kernels import conv_epilogue as KE
+    from aip_tpu_torch.models import decoder as tdec
+    from aip_tpu_torch.models import vgg as tvgg
+    from aip_tpu_torch.pipelines import adain_infer
+
+    t0 = time.perf_counter()
+    report = _build.build("conv_epilogue")
+    emit("conv_epilogue_build", seconds=time.perf_counter() - t0, compiled=bool(report),
+         registers=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # Kernel against plain, bit for bit: one image of each serving call, odd
+    # shapes in every mode, the scalar path (C = 3, 12) and an unaligned input.
+    cases = [(name, 1, h, w, c, bias, relu, rs, border)
+             for name, h, w, c, bias, relu, rs, border in _serve_epilogues()]
+    for rs in (None, "pool", "up"):
+        for bias, relu, border in ((True, True, True), (True, True, False),
+                                   (False, False, True), (True, False, True)):
+            for c in (64, 12, 3):
+                cases.append((f"odd.{rs}.{c}", 2, 37, 45, c, bias, relu, rs, border))
+    for name, b, h, w, c, has_bias, relu, rs, border in cases:
+        raw = torch.randn(b, h, w, c, generator=gen, device=dev).to(bf16)
+        bias = torch.randn(c, generator=gen, device=dev).to(bf16).float() if has_bias else None
+        out = KE.conv_epilogue(raw, bias, relu, rs, border)
+        want = KE.conv_epilogue_reference(raw, bias, relu, rs, border)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"conv_epilogue {name} differs from its plain version: "
+                                 f"max abs {(out.float() - want.float()).abs().max()}")
+    raw = torch.randn(2 * 19 * 23 * 64 + 1, generator=gen, device=dev).to(bf16)
+    raw = raw[1:].view(2, 19, 23, 64)     # one element off 16 bytes: the scalar path
+    if not torch.equal(KE.conv_epilogue(raw, None, True, "pool", True),
+                       KE.conv_epilogue_reference(raw, None, True, "pool", True)):
+        raise AssertionError("conv_epilogue on an offset input differs")
+    emit("conv_epilogue_check", cases=len(cases) + 1, dtype="bfloat16", bit_equal=True)
+
+    # Launches and the walks: no grad once a conv (7 a net past the head) and
+    # once each net's input border; recorded, never; the two outputs equal.
+    enc = tvgg.init_vgg_params(0, device=dev)
+    dec = tdec.init_decoder_params(1, device=dev)
+    x = torch.rand(2, 96, 128, 3, generator=gen, device=dev)
+    walks = {}
+    for dtype in (bf16, f32):
+        for grad in (False, True):
+            KE.conv_epilogue.launches = 0
+            with torch.set_grad_enabled(grad):
+                out = tdec.decoder_apply(dec, tvgg.vgg_encode(enc, x, "relu4_1", dtype), dtype)
+            torch.cuda.synchronize()
+            walks[(dtype, grad)] = (out.detach(), KE.conv_epilogue.launches)
+        (fused, n_fused), (chain, n_chain) = walks[(dtype, False)], walks[(dtype, True)]
+        diff = float((fused.float() - chain.float()).abs().max())
+        emit("conv_epilogue_walks", dtype=str(dtype)[6:], launches_no_grad=n_fused,
+             launches_recorded=n_chain, bit_equal=bool(torch.equal(fused, chain)),
+             max_abs=diff, max_ref=float(chain.float().abs().max()))
+        want = 16 if dtype == bf16 else 0     # fp32 keeps the chain (NCHW cuDNN convs)
+        if n_fused != want or n_chain != 0 or not torch.equal(fused, chain):
+            raise AssertionError(f"conv_epilogue launches {n_fused} (no grad; {want} expected), "
+                                 f"{n_chain} (recorded; 0 expected), or the outputs differ")
+    if serve_launches is None:    # run alone: a serving call of its own
+        content = torch.rand(32, 512, 512, 3, generator=gen, device=dev)
+        mean, std = adain_infer.precompute_style_stats(enc, content[:1], device=dev)
+        KE.conv_epilogue.launches = 0
+        adain_infer.stylize_with_stats(enc, dec, content, mean, std, alpha=0.5,
+                                       compute_dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        serve_launches = KE.conv_epilogue.launches
+        emit("conv_epilogue_serving", batch=32, size=512, launches=serve_launches)
+        del content
+    if serve_launches != len(_serve_epilogues()):
+        raise AssertionError(f"the serving call launched the epilogue {serve_launches} times, "
+                             f"not once for each of its {len(_serve_epilogues())} calls")
+    del enc, dec, walks
+    torch.cuda.empty_cache()
+
+    # At the serving batch: each call against its plain version, then times.
+    per_call, max_abs_err = [], 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "chain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for name, h, w, c, has_bias, relu, rs, border in _serve_epilogues():
+        raw = torch.randn(32, h, w, c, generator=gen, device=dev).to(bf16)
+        bias = torch.randn(c, generator=gen, device=dev).to(bf16).float() if has_bias else None
+        out = KE.conv_epilogue(raw, bias, relu, rs, border)
+        want = KE.conv_epilogue_reference(raw, bias, relu, rs, border)
+        err = float((out.float() - want.float()).abs().max())
+        if not torch.equal(out, want):
+            raise AssertionError(f"conv_epilogue {name} at batch 32 differs from its plain "
+                                 f"version: max abs {err}")
+        max_abs_err = max(max_abs_err, err)
+        del out, want
+        raw_nchw = raw.permute(0, 3, 1, 2).contiguous()
+        nbytes = _epilogue_bytes(KE, 32, h, w, c, rs, border, 2, has_bias)
+        ms = _time_many_ms(torch, lambda: KE.conv_epilogue(raw, bias, relu, rs, border), 20)
+        plain_ms = _time_ms(torch, lambda: KE.conv_epilogue_reference(raw, bias, relu, rs,
+                                                                       border), runs=3)
+        chain_ms = _time_ms(torch, lambda: KE.conv_epilogue_chain(
+            raw_nchw.permute(0, 2, 3, 1), bias, relu, rs, border), runs=5)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        per_call.append({"call": name, "shape": [32, h, w, c], "resample": rs,
+                         "border": border, "bytes": nbytes, "ms": ms, "bound_ms": bound_ms,
+                         "bound_share": bound_ms / ms, "plain_ms": plain_ms,
+                         "chain_ms": chain_ms, "max_abs_err": err})
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("chain_ms", chain_ms),
+                       ("bound_ms", bound_ms), ("bytes", nbytes)):
+            totals[key] += v
+        del raw, raw_nchw
+        torch.cuda.empty_cache()
+    emit("conv_epilogue_times", batch=32, size=512, dtype="bfloat16", calls=per_call,
+         timing="each call 20 times in one window; plain the median of 3, chain of 5",
+         **totals, bound_share=totals["bound_ms"] / totals["ms"],
+         achieved_tb_per_s=totals["bytes"] / totals["ms"] / 1e9, max_abs_err=max_abs_err)
+    return {"name": "conv_epilogue", "route": "cuda",
+            "source": "aip_tpu_torch/csrc/conv_epilogue.cu",
+            "replaces": KERNELS["conv_epilogue"][1], "launches": serve_launches,
+            "max_abs_err": max_abs_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": "bytes",
+            "library_ms": totals["chain_ms"]}
 
 
 # ---------------------------------------------------------------------------

@@ -1802,3 +1802,72 @@ def test_gui_jobs_return_host_arrays_from_the_card(cuda, tmp_path, monkeypatch):
     for out in outs:
         assert type(out) is np.ndarray and out.shape == (64, 64, 3)
         assert np.isfinite(out).all() and 0 <= out.min() and out.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# The conv epilogue (csrc/conv_epilogue.cu): bit for bit against its plain
+# version, and once a conv on the no-grad walks.
+# ---------------------------------------------------------------------------
+
+# (raw H, W, C): one of each serving shape's raw map at 512^2 (64, 128, 256,
+# 512 channels) and odd ones (37x45, C 12 and 3 take the one-element path).
+EPILOGUE_SHAPES = [(256, 256, 64), (256, 256, 128), (128, 128, 256), (64, 64, 512),
+                   (37, 45, 64), (37, 45, 12), (19, 23, 3)]
+EPILOGUE_MODES = {  # mode -> (bias, relu, resample, border)
+    "pad": (True, True, None, True),
+    "pool_pad": (True, True, "pool", True),
+    "up_pad": (True, True, "up", True),
+    "pad_only": (False, False, None, True),
+    "no_border": (True, True, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(EPILOGUE_MODES))
+def test_conv_epilogue_equals_its_plain_version_bit_for_bit(cuda, mode):
+    from aip_tpu_torch.kernels import conv_epilogue as KE
+
+    has_bias, relu, resample, border = EPILOGUE_MODES[mode]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    bf16 = torch.bfloat16
+    for h, w, c in EPILOGUE_SHAPES:
+        raw = torch.randn(1, h, w, c, generator=gen, device=cuda).to(bf16)
+        bias = torch.randn(c, generator=gen, device=cuda).to(bf16).float() if has_bias else None
+        out = KE.conv_epilogue(raw, bias, relu, resample, border)
+        torch.cuda.synchronize()
+        assert torch.equal(out, KE.conv_epilogue_reference(raw, bias, relu, resample, border)), \
+            (h, w, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_no_grad_walks_launch_one_epilogue_a_conv(cuda, dtype):
+    """Encode to relu4_1 and decode in bf16: 7 convs a net past the head,
+    and one border for each net's input; a recorded call, and any fp32
+    call, launches none; recorded or not, the output is the same."""
+    from aip_tpu_torch.kernels import conv_epilogue as KE
+
+    vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
+    x = torch.rand(1, 40, 54, 3, generator=torch.Generator().manual_seed(13)).to(cuda)
+    outs = {}
+    for grad in (False, True):
+        KE.conv_epilogue.launches = 0
+        with torch.set_grad_enabled(grad):
+            outs[grad] = tdec.decoder_apply(dec, tvgg.vgg_encode(vgg, x, "relu4_1", dtype), dtype)
+        torch.cuda.synchronize()
+        assert KE.conv_epilogue.launches == (16 if dtype == torch.bfloat16 and not grad else 0)
+    assert torch.equal(outs[False], outs[True].detach())
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_refuses_what_the_kernel_does_not_take(cuda):
+    from aip_tpu_torch.kernels import conv_epilogue as KE
+
+    raw = torch.zeros(1, 4, 6, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        KE.conv_epilogue(raw.permute(0, 2, 1, 3))          # not contiguous
+    with pytest.raises(ValueError):
+        KE.conv_epilogue(raw, torch.zeros(8))              # bias on the CPU
+    for dtype in (torch.float32, torch.float16):           # the kernel is bf16 only
+        with pytest.raises(TypeError):
+            KE.conv_epilogue(raw.to(dtype))
