@@ -118,13 +118,16 @@ def he_normal_(convs: nn.ModuleList, seed: int) -> None:
 
 class VGGEncoder(nn.Module):
     """The encoder's convs, in network order (``convs[i]`` is the i-th conv
-    of ``VGG_LAYERS``). Weights are uninitialised until filled: use
+    of ``VGG_LAYERS``): all of them, or the first ``n_convs`` (a checkpoint
+    read only as deep as its taps are asked for), past which a walk raises
+    ``ValueError``. Weights are uninitialised until filled: use
     ``init_vgg_params`` or ``models.weights``."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, n_convs: int | None = None):
         super().__init__()
         self.convs = _empty_convs(
-            [(cin, cout, k) for _, cin, cout, k, _ in conv_specs()], resolve_device(device))
+            [(cin, cout, k) for _, cin, cout, k, _ in conv_specs()[:n_convs]],
+            resolve_device(device))
 
     def forward(self, x, taps=STYLE_TAPS, compute_dtype=torch.float32):
         return vgg_encode_with_intermediate(self, x, taps, compute_dtype)
@@ -223,6 +226,9 @@ def _run_layers(convs, t, layers, ci, remaining, compute_dtype, fused):
     if layers[0] == ("pad",):
         t, i = finish(t), 1
     while i < len(layers):
+        if ci == len(convs):
+            raise ValueError(f"taps {sorted(remaining)} lie past the encoder's "
+                             f"{len(convs)} convs")
         raw, bias = conv_raw(t, convs[ci], compute_dtype, fused)
         relu, tap, resample, border, i = epilogue_ops(layers, i)
         ci += 1

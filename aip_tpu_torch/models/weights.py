@@ -70,25 +70,41 @@ def _nbytes(params: list[dict]) -> int:
     return sum(p["w"].nbytes + p["b"].nbytes for p in params)
 
 
-def load_params_npz(path: Path) -> list[dict]:
-    """HWIO params from the npz cache; counts their bytes as
+def load_params_npz(path: Path, n_convs: int | None = None) -> list[dict]:
+    """HWIO params of the npz cache's first ``n_convs`` convs (all by
+    default); the other members are never read. Counts the bytes read as
     ``weights.bytes_read`` (under a profiler)."""
     with np.load(str(path)) as data:
-        n = len([k for k in data.files if k.startswith("w")])
-        params = [{"w": data[f"w{i}"], "b": data[f"b{i}"]} for i in range(n)]
+        if n_convs is None:
+            n_convs = len([k for k in data.files if k.startswith("w")])
+        params = [{"w": data[f"w{i}"], "b": data[f"b{i}"]} for i in range(n_convs)]
     count("weights.bytes_read", _nbytes(params))
     return params
 
 
+# The AdaIN encoder's convs up to relu4_1, the deepest tap any caller asks
+# for: the checkpoint's later convs are never run.
+_ENCODER_CONVS_USED = len(vgg_mod.conv_specs(
+    vgg_mod.VGG_LAYERS[:vgg_mod.VGG_LAYERS.index(("relu", "relu4_1")) + 1]))
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """``a`` as a float32 CPU tensor, sharing the memory of a writable,
+    C-contiguous float32 numpy array (others are copied once)."""
+    return torch.from_numpy(np.require(a, np.float32, "CW"))
+
+
 def from_jax_params(params, device=None):
     """HWIO params (``aip_tpu``'s list of ``{"w", "b"}``, numpy or JAX
-    arrays) -> ``VGGEncoder`` or ``AdaINDecoder`` on ``device``, chosen by
-    the conv shapes."""
+    arrays) -> ``VGGEncoder`` (all 17 convs, or those up to relu4_1) or
+    ``AdaINDecoder`` on ``device``, chosen by the conv shapes. Each array
+    goes to the device as it is, in one copy; the HWIO -> OIHW permute
+    runs there, into the module's weight."""
     shapes = [tuple(np.shape(p["w"])) for p in params]
     want_vgg = [(k, k, cin, cout) for _, cin, cout, k, _ in vgg_mod.conv_specs()]
     want_dec = [(3, 3, cin, cout) for _, cin, cout, _ in dec_mod.conv_specs()]
-    if shapes == want_vgg:
-        module = vgg_mod.VGGEncoder(device)
+    if shapes in (want_vgg, want_vgg[:_ENCODER_CONVS_USED]):
+        module = vgg_mod.VGGEncoder(device, len(shapes))
     elif shapes == want_dec:
         module = dec_mod.AdaINDecoder(device)
     else:
@@ -96,9 +112,9 @@ def from_jax_params(params, device=None):
                          "nor the AdaIN decoder")
     with torch.no_grad():
         for conv, p in zip(module.convs, params):
-            w = np.transpose(np.asarray(p["w"], dtype=np.float32), (3, 2, 0, 1))
-            conv.weight.copy_(torch.tensor(w))
-            conv.bias.copy_(torch.tensor(np.asarray(p["b"], dtype=np.float32)))
+            w = _host_tensor(p["w"]).to(conv.weight.device)
+            conv.weight.copy_(w.permute(3, 2, 0, 1))
+            conv.bias.copy_(_host_tensor(p["b"]))
     return module
 
 
@@ -168,12 +184,6 @@ def he_normal(generator: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * (2.0 / fan_in) ** 0.5
 
 
-# The AdaIN encoder's convs up to relu4_1, the deepest tap any caller asks
-# for: the checkpoint's later convs are read and never run.
-_ENCODER_CONVS_USED = len(vgg_mod.conv_specs(
-    vgg_mod.VGG_LAYERS[:vgg_mod.VGG_LAYERS.index(("relu", "relu4_1")) + 1]))
-
-
 def _convs_used(module, n_convs: int) -> int:
     """How many of a built network's convs its forward passes run: the AdaIN
     encoder's up to relu4_1, every conv of any other network."""
@@ -181,16 +191,17 @@ def _convs_used(module, n_convs: int) -> int:
 
 
 def _get_params(name: str, torch_path, torch_indices, init_fn, device,
-                build=from_jax_params):
+                build=from_jax_params, n_convs=None):
     """Cache, then checkpoint, then ``init_fn(device=...)``; ``build`` turns
-    HWIO params into the module (the AdaIN networks by default). A load from
-    the cache counts the bytes of the convs the network runs as
-    ``weights.bytes_used``, beside ``load_params_npz``'s
+    HWIO params into the module (the AdaIN networks by default), from the
+    first ``n_convs`` convs (all by default; the cache's others are not
+    read). A load from the cache counts the bytes of the convs the network
+    runs as ``weights.bytes_used``, beside ``load_params_npz``'s
     ``weights.bytes_read`` (under a profiler)."""
     device = resolve_device(device)
     cache = DEFAULT_WEIGHTS_DIR / f"{name}.npz"
     if cache.is_file():
-        params = load_params_npz(cache)
+        params = load_params_npz(cache, n_convs)
         module = build(params, device)
         count("weights.bytes_used", _nbytes(params[:_convs_used(module, len(params))]))
         return module
@@ -198,7 +209,7 @@ def _get_params(name: str, torch_path, torch_indices, init_fn, device,
         params = convert_torch_sequential(_load_torch_state_dict(Path(torch_path)),
                                           torch_indices)
         save_params_npz(params, cache)
-        return build(params, device)
+        return build(params[:n_convs], device)
     # Deterministic fallback so every pipeline still runs without the
     # pretrained checkpoint. The seed gives other weights than aip_tpu's
     # PRNGKey fallback; point both packages at one cache to share weights.
@@ -206,8 +217,11 @@ def _get_params(name: str, torch_path, torch_indices, init_fn, device,
 
 
 def get_vgg_params(torch_path=None, device=None) -> vgg_mod.VGGEncoder:
+    """The AdaIN encoder; from the cache or a checkpoint it holds the convs
+    up to relu4_1 alone, the only ones read."""
     idxs = [spec[4] for spec in vgg_mod.conv_specs()]
-    return _get_params("vgg_normalised", torch_path, idxs, vgg_mod.init_vgg_params, device)
+    return _get_params("vgg_normalised", torch_path, idxs, vgg_mod.init_vgg_params, device,
+                       n_convs=_ENCODER_CONVS_USED)
 
 
 def get_decoder_params(torch_path=None, device=None) -> dec_mod.AdaINDecoder:

@@ -281,7 +281,9 @@ def adain_inference(
         vgg_params = weights_mod.get_vgg_params(vgg_str, device=dev)
         dec_params = weights_mod.get_decoder_params(decoder_str, device=dev)
     with span("adain.load"):
-        content_np = _to_array(content_img)
+        # The full-size float content only feeds the depth estimate; the
+        # stylized path decodes the content once, in _test_transform.
+        content_np = _to_array(content_img) if use_depth else None
         content = _test_transform(content_img, content_size, crop, dev)
         style = _test_transform(style_img, style_size, crop, dev)
     with span("adain.stylize"):

@@ -225,6 +225,29 @@ def test_models_on_the_card_go_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_weights_from_the_npz_cache_are_bit_equal_on_the_card(cuda, tmp_path, monkeypatch):
+    """get_vgg_params and get_decoder_params upload each HWIO array as it is
+    and permute it to OIHW on the card: the same bits as the CPU's load."""
+    from aip_tpu_torch.models import weights as W
+
+    g = np.random.default_rng(4)
+    for name, specs in (("vgg_normalised", [(k, cin, cout) for _, cin, cout, k, _
+                                            in tvgg.conv_specs()]),
+                        ("adain_decoder", [(3, cin, cout) for _, cin, cout, _
+                                           in tdec.conv_specs()])):
+        W.save_params_npz([{"w": g.standard_normal((k, k, cin, cout)).astype(np.float32),
+                            "b": g.standard_normal(cout).astype(np.float32)}
+                           for k, cin, cout in specs], tmp_path / f"{name}.npz")
+    monkeypatch.setattr(W, "DEFAULT_WEIGHTS_DIR", tmp_path)
+    for get in (W.get_vgg_params, W.get_decoder_params):
+        on_card, on_cpu = get(device=cuda), get(device="cpu")
+        assert len(on_card.convs) == len(on_cpu.convs)
+        for a, b in zip(on_card.parameters(), on_cpu.parameters()):
+            assert a.device.type == "cuda" and a.is_contiguous()
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
 def test_fp32_models_hold_fp32_under_pytorchs_default_tf32_flags(cuda):
     """With cuDNN's TF32 on, as PyTorch starts, the fp32 encoder and decoder
     still agree with the CPU at 1e-4 of the largest value (their convs run

@@ -113,6 +113,33 @@ def test_npz_cache_is_shared_with_aip_tpu(tmp_path, rng, monkeypatch, jax_params
     np.testing.assert_array_equal(np.asarray(again[3]["w"]), np.asarray(jax_params[1][3]["w"]))
 
 
+@pytest.mark.parametrize("past_relu4_1", ["absent", "other shapes"])
+def test_get_vgg_params_reads_the_convs_to_relu4_1(tmp_path, rng, monkeypatch, jax_params,
+                                                   port_modules, past_relu4_1):
+    """The encoder from the cache holds the convs up to relu4_1 alone: the
+    npz's later members are never read, so they may be absent or of any
+    shape, and relu4_1 is bit-equal to the encoder of the whole file."""
+    n = tweights._ENCODER_CONVS_USED
+    params = list(jax_params[0][:n])
+    if past_relu4_1 == "other shapes":
+        params += [{"w": np.zeros((1, 1, 1, 1), np.float32), "b": np.zeros(1, np.float32)}
+                   for _ in jax_params[0][n:]]
+    tweights.save_params_npz(params, tmp_path / "vgg_normalised.npz")
+    monkeypatch.setattr(tweights, "DEFAULT_WEIGHTS_DIR", tmp_path)
+    vgg = tweights.get_vgg_params(device="cpu")
+    assert n == 10 and len(vgg.convs) == n
+    x = torch.from_numpy(rng.random((1, 24, 20, 3)).astype(np.float32))
+    torch.testing.assert_close(tvgg.vgg_encode(vgg, x, "relu4_1"),
+                               tvgg.vgg_encode(port_modules[0], x, "relu4_1"), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("taps", [("relu4_2",), ("relu1_1", "relu5_1"), ("relu9",)])
+def test_tap_past_the_encoders_convs_raises(jax_params, taps):
+    vgg = tweights.from_jax_params(jax_params[0][:tweights._ENCODER_CONVS_USED], "cpu")
+    with pytest.raises(ValueError, match="lie past the encoder's 10 convs"):
+        tvgg.vgg_encode_with_intermediate(vgg, torch.zeros(1, 32, 32, 3), taps)
+
+
 def test_fallback_init_is_deterministic_and_device_independent():
     a = tvgg.init_vgg_params(0, "cpu")
     b = tvgg.init_vgg_params(0, "cpu")

@@ -222,6 +222,61 @@ def test_run_depth_cli_matches_jax(shared_cache, images, tmp_path, monkeypatch, 
     _same_image(out, ref)
 
 
+def _count_opens(monkeypatch, path):
+    """A list that grows by one each time ``PIL.Image.open`` opens ``path``."""
+    opens, real_open = [], Image.open
+
+    def counted(fp, *args, **kwargs):
+        if str(fp) == str(path):
+            opens.append(fp)
+        return real_open(fp, *args, **kwargs)
+
+    monkeypatch.setattr(Image, "open", counted)
+    return opens
+
+
+def test_adain_inference_decodes_the_content_once(shared_cache, weight_cache, images,
+                                                  tmp_path, monkeypatch):
+    """Without depth the content file is opened once, and the written PNG is
+    byte for byte the one of the call that read every conv of the encoder's
+    npz and decoded the content a second time, as a float array."""
+    kw = dict(content_size=36, style_size=32, alpha=0.6, crop=False)
+    opens = _count_opens(monkeypatch, images[0])
+    out = tinfer.adain_inference(*images, save_ext=".png", output=str(tmp_path / "port"),
+                                 file_name="once", device="cpu", use_depth=False, **kw)
+    assert len(opens) == 1
+
+    vgg = tweights.from_jax_params(
+        tweights.load_params_npz(weight_cache / "vgg_normalised.npz"), "cpu")
+    dec = tweights.from_jax_params(
+        tweights.load_params_npz(weight_cache / "adain_decoder.npz"), "cpu")
+    assert len(vgg.convs) == len(tvgg.conv_specs())
+    tinfer._to_array(images[0])
+    content = tinfer._test_transform(images[0], kw["content_size"], kw["crop"], "cpu")
+    style = tinfer._test_transform(images[1], kw["style_size"], kw["crop"], "cpu")
+    ref = tinfer.stylize_simple(vgg, dec, content[None], style[None], alpha=kw["alpha"], **T32)
+    tinfer.save_image(ref, tmp_path / "twice.png")
+    assert len(opens) == 3
+    assert out.read_bytes() == (tmp_path / "twice.png").read_bytes()
+
+
+def test_adain_inference_hands_depth_the_full_content(shared_cache, images, tmp_path):
+    """With depth, ``depth_fn`` still gets the whole content as float32."""
+    seen = []
+
+    def depth_fn(img):
+        seen.append(img)
+        return np.ones(img.shape[:2], np.float32)
+
+    tinfer.adain_inference(*images, content_size=36, style_size=32, save_ext=".png",
+                           output=str(tmp_path), use_depth=True, depth_fn=depth_fn,
+                           device="cpu")
+    (img,) = seen
+    want = np.asarray(Image.open(images[0])).astype(np.float32) / 255.0
+    assert img.dtype == np.float32 and img.shape == (44, 54, 3)
+    np.testing.assert_array_equal(img, want)
+
+
 def test_entry_points_without_cuda_raise(nets, images, monkeypatch):
     """device=None means CUDA; with no CUDA every entry point refuses to
     carry on on the CPU (the card's availability is patched away so that

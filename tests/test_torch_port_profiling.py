@@ -130,16 +130,15 @@ def test_adain_inference_spans_and_weight_counters(tmp_path, monkeypatch):
     assert _parent(prof, "adain.fetch") == "adain.save"
     assert stats["adain.encode"]["device_s"] is None        # no card
 
-    read = used = 0
+    # Only the convs that run are read: the encoder's first 10 (to
+    # relu4_1) and the whole decoder.
+    used = 0
     for name, n_used in (("vgg_normalised", 10), ("adain_decoder", None)):
         with np.load(wdir / f"{name}.npz") as data:
             arrays = {k: data[k] for k in data.files}
-        read += sum(a.nbytes for a in arrays.values())
         n = len(arrays) // 2 if n_used is None else n_used
         used += sum(arrays[f"{k}{i}"].nbytes for i in range(n) for k in "wb")
-    assert stats["weights.bytes_read"] == read
-    assert stats["weights.bytes_used"] == used
-    assert 0.2 < used / read < 0.4
+    assert stats["weights.bytes_read"] == stats["weights.bytes_used"] == used
 
 
 def test_render_frame_spans_sit_under_gs_frame():
