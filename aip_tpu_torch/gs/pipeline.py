@@ -13,6 +13,11 @@ Port of ``aip_tpu/gs/pipeline.py``:
   was trained under, and write one PNG per view and an animated GIF, whose
   path is returned.
 
+Every renderer of a trained model (this one and ``gs.render_video``'s three)
+goes through ``load_trained_scene``, ``style_embedding`` and
+``render_views``, which picks each view's route and the selection shape of
+a model that recorded none (``default_selection``).
+
 ``device=None`` means CUDA. ``mesh_dp > 1`` builds a (dp,) mesh of that
 many devices (``parallel.mesh.make_dp_mesh``: CUDA cards, or repeated CPU
 devices on the CPU): training splits each view batch over it (and, with
@@ -115,64 +120,70 @@ def run_3dgs_training(content_path, style_img_path, model_path="output/3dgs_mode
     return str(model_path)
 
 
-def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=None,
-                       max_per_tile: int = 128, fps: int = 10, renderer: str = "auto",
-                       mesh_dp: int = 0, device=None) -> str:
-    """Render the trained scene under a (possibly new) style; returns the
-    GIF path. ``device=None`` means CUDA. Views of 512^2 and more go
-    through ``make_inference_frame_fn`` (the macro-block compositors),
-    smaller ones through ``render`` (``renderer`` as given); with
-    ``mesh_dp > 1`` every view through ``render(mesh=...)``."""
+def load_trained_scene(model_path, device):
+    """A trained model directory's (state, field, scene, background, recorded
+    selection or None): ``model.npz`` and ``cfg_args.json``'s scene,
+    background colour and ``"selection"``."""
+    model_path = Path(model_path)
+    cfg = json.loads((model_path / "cfg_args.json").read_text())
+    state, field, _rvq_s, _rvq_r = compress_mod.load_npz(model_path / "model.npz", device=device)
+    scene = Scene(cfg["source_path"], white_background=cfg.get("white_background", False),
+                  resolution=cfg.get("resolution", -1), shuffle=False)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.get("white_background") else [0.0, 0.0, 0.0],
+                      device=device)
+    return state, field, scene, bg, cfg.get("selection")
+
+
+def style_embedding(field, style_image, device):
+    """The pooled AdaIN style embedding [1, 512] of ``style_image``, or None
+    where the field takes no style or no image is given."""
+    if field.style_w is None or style_image is None:
+        return None
+    from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
+
+    return get_style_embeddings(_to_array(style_image), device=device).mean(dim=(1, 2))
+
+
+def default_selection(state, cams, renderer: str = "auto") -> dict:
+    """The selection shape of a model that recorded none: where a view takes
+    the macro-block route, the fitted capacity with the legacy spans; else
+    the defaults of the per-tile route."""
+    from aip_tpu_torch.gs.render import fit_selection, takes_macro_route
+
+    if renderer in ("auto", "matmul") and any(
+            takes_macro_route(c.image_height, c.image_width) for c in cams):
+        return dict(fit_selection(state, cams), dup_span=3, giant_capacity=128,
+                    giant_backend="merge")
+    return {"macro_capacity": 1024, "dup_span": 2, "giant_capacity": 128}
+
+
+def render_views(cams, state, field, bg, style_f, out_dir, sel, max_per_tile: int,
+                 renderer: str = "auto", mesh=None) -> list:
+    """Render ``cams`` into ``out_dir/00000.png``, ... and return the paths.
+    ``sel`` is the selection shape (``default_selection`` when None),
+    ``max_per_tile`` the per-tile capacity. Views on the macro-block route
+    with no mesh and renderer ``auto`` or ``matmul`` go through one
+    ``make_inference_frame_fn`` a resolution; every other view through
+    ``render`` (``renderer`` and ``mesh`` as given)."""
     from PIL import Image
 
     from aip_tpu_torch.gs.colorfield import precompute_features
-    from aip_tpu_torch.gs.render import (fit_selection, make_inference_frame_fn, render,
-                                         render_frame, settings_from_selection)
-    from aip_tpu_torch.parallel.mesh import make_dp_mesh
-    from aip_tpu_torch.pipelines.adain_infer import _to_array, get_style_embeddings
+    from aip_tpu_torch.gs.render import (make_inference_frame_fn, render, render_frame,
+                                         settings_from_selection, takes_macro_route)
 
-    dev = resolve_device(device)
-    mesh = make_dp_mesh(mesh_dp, device=dev)
-    model_path = Path(model_path)
-    cfg_args = json.loads((model_path / "cfg_args.json").read_text())
-    state, field, _rvq_scale, _rvq_rot = compress_mod.load_npz(model_path / "model.npz",
-                                                               device=dev)
-
-    scene = Scene(cfg_args["source_path"],
-                  white_background=cfg_args.get("white_background", False),
-                  resolution=cfg_args.get("resolution", -1),
-                  shuffle=False)
-    cams_all = scene.getTrainCameras()
-    uses_macro = renderer in ("auto", "matmul") and any(
-        c.image_height * c.image_width >= 512 * 512 for c in cams_all)
-    if "selection" in cfg_args:
-        # Render with the selection shape training optimized under.
-        sel = cfg_args["selection"]
-    elif uses_macro:
-        # Legacy model (no recorded shape): fitted capacity, default spans.
-        sel = dict(fit_selection(state, cams_all), dup_span=3, giant_capacity=128,
-                   giant_backend="merge")
-    else:
-        sel = {"macro_capacity": 1024, "dup_span": 2, "giant_capacity": 128}
-    bg = torch.tensor([1.0, 1.0, 1.0] if cfg_args.get("white_background") else [0.0, 0.0, 0.0],
-                      device=dev)
-
-    style_f = None
-    if field.style_w is not None:
-        feat = get_style_embeddings(_to_array(style_image), device=dev)
-        style_f = feat.mean(dim=(1, 2))
-
-    out_dir = Path(output_dir or (model_path / "renders"))
+    if sel is None:
+        sel = default_selection(state, cams, renderer)
+    out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     # Hash features are camera-independent: decode them once.
     enc = precompute_features(field, state.xyz)
     frame_fns = {}
-    frames = []
-    for i, cam in enumerate(cams_all):
+    paths = []
+    for i, cam in enumerate(cams):
         settings = settings_from_selection(sel, cam.image_height, cam.image_width,
-                                           max_per_tile=sel.get("max_per_tile", max_per_tile))
+                                           max_per_tile=max_per_tile)
         if (mesh is None and renderer in ("auto", "matmul")
-                and cam.image_height * cam.image_width >= 512 * 512):
+                and takes_macro_route(cam.image_height, cam.image_width)):
             key = (cam.image_height, cam.image_width)
             if key not in frame_fns:
                 frame_fns[key] = make_inference_frame_fn(state, field, settings, bg,
@@ -182,11 +193,34 @@ def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=N
             rendered = render(cam, state, field, bg, style_f=style_f, mode="inference",
                               settings=settings, renderer=renderer, mesh=mesh,
                               precomputed_enc=enc).render
-        img = np.clip(rendered.float().cpu().numpy(), 0, 1)
-        im = Image.fromarray((img * 255).astype(np.uint8))
-        im.save(out_dir / f"{i:05d}.png")
-        frames.append(im)
+        img = (np.clip(rendered.float().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        paths.append(out_dir / f"{i:05d}.png")
+        Image.fromarray(img).save(paths[-1])
+    return paths
 
+
+def run_3dgs_rendering(style_image, model_path="output/3dgs_model", output_dir=None,
+                       max_per_tile: int = 128, fps: int = 10, renderer: str = "auto",
+                       mesh_dp: int = 0, device=None) -> str:
+    """Render the trained scene under a (possibly new) style; returns the
+    GIF path. ``device=None`` means CUDA. Each view renders as
+    ``render_views`` routes it, with the recorded selection's
+    ``max_per_tile`` where it has one; with ``mesh_dp > 1`` every view
+    through ``render(mesh=...)``."""
+    from PIL import Image
+
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
+
+    dev = resolve_device(device)
+    mesh = make_dp_mesh(mesh_dp, device=dev)
+    state, field, scene, bg, sel = load_trained_scene(model_path, dev)
+    cams = scene.getTrainCameras()
+    if sel is None:     # no shape recorded: resolved here for its max_per_tile
+        sel = default_selection(state, cams, renderer)
+    out_dir = Path(output_dir or (Path(model_path) / "renders"))
+    paths = render_views(cams, state, field, bg, style_embedding(field, style_image, dev),
+                         out_dir, sel, sel.get("max_per_tile", max_per_tile), renderer, mesh)
+    frames = [Image.open(p) for p in paths]
     gif_path = out_dir / "render.gif"
     if frames:
         frames[0].save(gif_path, save_all=True, append_images=frames[1:],

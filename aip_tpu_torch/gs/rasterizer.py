@@ -68,7 +68,6 @@ class RasterSettings(NamedTuple):
     chunk: int = 4096
     macro: int = 1
     macro_capacity: int = 1024
-    remat_composite: bool = True
     ad_backend: str = "xla"
     select_backend: str = "pairsort"
     dup_span: int = 3

@@ -14,12 +14,16 @@ each frame runs the view-dependent SH evaluation and ``rasterize_matmul``.
 port's ``project_gaussians``; ``fit_macro_capacity`` returns its
 macro_capacity alone.
 
-In inference mode ``renderer="pallas"`` (or ``"auto"`` with
-``use_pallas=True``) takes ``rasterize_fast``, the per-tile compositor;
-training modes always rasterize, as in the JAX package. In inference,
-``mesh`` renders with the Gaussians split over ``mesh_axis``
-(``parallel.gs.rasterize_sharded``); the training modes ignore it, as the
-JAX package's do.
+In inference mode ``renderer="pallas"`` takes ``rasterize_fast``, the
+per-tile compositor; training modes always rasterize, as in the JAX
+package. In inference, ``mesh`` renders with the Gaussians split over
+``mesh_axis`` (``parallel.gs.rasterize_sharded``); the training modes
+ignore it, as the JAX package's do.
+
+How a view renders in inference is decided here, once:
+``takes_macro_route`` (a view of at least ``MACRO_ROUTE_PIXELS`` takes the
+macro-block compositors unless the caller names another renderer) and
+``inference_settings`` (the macro grid those compositors run on).
 """
 
 from __future__ import annotations
@@ -44,6 +48,26 @@ class RenderOutput(NamedTuple):
     render: torch.Tensor        # [H, W, 3]
     radii: torch.Tensor         # [C]
     visibility: torch.Tensor    # [C] bool
+
+
+MACRO_ROUTE_PIXELS = 512 * 512
+
+
+def takes_macro_route(height: int, width: int) -> bool:
+    """Whether an H x W view renders through the macro-block compositors
+    (``rasterize_matmul``) when the renderer is left to choose."""
+    return height * width >= MACRO_ROUTE_PIXELS
+
+
+def inference_settings(settings: RasterSettings) -> RasterSettings:
+    """A view's settings on the macro-block route: as given where they
+    already name a macro grid (``macro > 1``, whose ``composite_backend`` is
+    kept), else macro 4, at least 1024 candidates a block and the
+    ``"mxu"`` compositors."""
+    if settings.macro > 1:
+        return settings
+    return settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
+                             composite_backend="mxu")
 
 
 def make_settings(camera, max_per_tile: int = 128, chunk: int = 4096) -> RasterSettings:
@@ -256,13 +280,10 @@ def make_inference_frame_fn(state: G.GaussianState, field: ColorFieldParams | No
     coefficients and the activations are computed here, once; the returned
     ``frame(vm, pm, campos, tanfovx, tanfovy) -> [H, W, 3]``, one
     ``gs.frame`` span, evaluates the view-dependent colour (``gs.field``)
-    and runs ``rasterize_matmul`` (macro 4 and the ``"mxu"`` compositors
-    unless the settings already name a macro grid, whose
-    ``composite_backend`` is then kept: ``"pallas"`` takes the coefficient
+    and runs ``rasterize_matmul`` on ``inference_settings(settings)``
+    (``composite_backend="pallas"`` at a macro grid takes the coefficient
     walk). Tensors live on the state's device."""
-    if settings.macro <= 1:
-        settings = settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
-                                     composite_backend="mxu")
+    settings = inference_settings(settings)
     with torch.no_grad():
         if sh_override is not None:
             sh = sh_override
@@ -297,13 +318,13 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
            rvq_scale=None, rvq_rot=None, scaling_modifier: float = 1.0,
            settings: RasterSettings | None = None, screenspace_offset=None,
            precomputed_enc: torch.Tensor | None = None, tanfovx=None, tanfovy=None,
-           use_pallas: bool = False, renderer: str = "auto",
-           sh_override: torch.Tensor | None = None, mesh=None,
+           renderer: str = "auto", sh_override: torch.Tensor | None = None, mesh=None,
            mesh_axis: str = "dp") -> RenderOutput:
     """One view. ``mode`` is ``"train"``, ``"train_rvq"`` or ``"inference"``;
-    renderer ``auto`` takes ``pallas`` when ``use_pallas``, else ``matmul``
-    for inference from 512^2 up, else ``xla`` (the differentiable
-    ``rasterize``). In inference ``pallas`` is ``rasterize_fast``. The
+    renderer ``auto`` takes ``matmul`` for an inference view on the
+    macro-block route (``takes_macro_route``), else ``xla`` (the
+    differentiable ``rasterize``). In inference ``pallas`` is
+    ``rasterize_fast``. The
     camera is a Camera, or any object with tensor ``world_view_transform``,
     ``full_proj_transform`` and ``camera_center`` when ``settings`` and the
     tangents are given. Tensors live on the state's device."""
@@ -311,8 +332,6 @@ def render(camera, state: G.GaussianState, field: ColorFieldParams, bg_color,
         raise ValueError(f"unknown render mode {mode!r}")
     if renderer not in ("auto", "xla", "matmul", "pallas"):
         raise ValueError(f"unknown renderer {renderer!r}")
-    if renderer == "auto" and use_pallas:
-        renderer = "pallas"
     if mode == "inference":
         with torch.no_grad():
             return _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
@@ -366,28 +385,21 @@ def _render(camera, state, field, bg_color, style_f, mode, rvq_scale, rvq_rot,
         # The Gaussians split over the mesh, exact against the replicated render.
         from aip_tpu_torch.parallel.gs import rasterize_sharded
 
-        if settings.macro <= 1:
-            settings = settings._replace(macro=4,
-                                         macro_capacity=max(settings.macro_capacity, 1024))
         if scaling_modifier != 1.0:
             scales = scales * scaling_modifier
         img, radii = rasterize_sharded(mesh, xyz, scales, rotations, opacity, colors, vm, pm, bg,
-                                       settings, tanfovx=tanfovx, tanfovy=tanfovy,
-                                       axis=mesh_axis)
+                                       inference_settings(settings), tanfovx=tanfovx,
+                                       tanfovy=tanfovy, axis=mesh_axis)
         return RenderOutput(render=img, radii=radii,
                             visibility=(radii > 0) & state.active.to(radii.device))
 
     if renderer == "auto":
         renderer = ("matmul" if mode == "inference"
-                    and settings.image_height * settings.image_width >= 512 * 512 else "xla")
+                    and takes_macro_route(settings.image_height, settings.image_width) else "xla")
     if renderer == "matmul" and mode == "inference":
-        if settings.macro <= 1:
-            settings = settings._replace(macro=4,
-                                         macro_capacity=max(settings.macro_capacity, 1024),
-                                         composite_backend="mxu")
         img, radii = rasterize_matmul(xyz, scales, rotations, opacity, colors, vm, pm, bg,
-                                      settings, tanfovx=tanfovx, tanfovy=tanfovy,
-                                      scale_modifier=scaling_modifier)
+                                      inference_settings(settings), tanfovx=tanfovx,
+                                      tanfovy=tanfovy, scale_modifier=scaling_modifier)
     elif renderer == "pallas" and mode == "inference":
         img, radii = rasterize_fast(xyz, scales, rotations, opacity, colors, vm, pm, bg,
                                     settings, tanfovx=tanfovx, tanfovy=tanfovy,

@@ -241,15 +241,14 @@ def init_trainer(cfg: GSTrainConfig, points, colors, spatial_lr_scale: float, se
     return make_trainer(gstate, field)
 
 
-def make_settings_from_dims(height: int, width: int, cfg: GSTrainConfig,
-                            views: int = 1) -> RasterSettings:
+def make_settings_from_dims(height: int, width: int, cfg: GSTrainConfig) -> RasterSettings:
     """The JAX package's rule: hierarchical selection from
-    ``macro_above_pixels``; ``remat_composite`` and ``ad_backend`` kept for
-    parity of settings (on a card the composite is always kernels A/B)."""
+    ``macro_above_pixels``; ``ad_backend`` from the JAX package's dense
+    autodiff budget, which chooses only between CPU paths (on a card the
+    composite is always kernels A/B)."""
     macro = cfg.macro if height * width >= cfg.macro_above_pixels else 1
     n_tiles = ((height + 15) // 16) * ((width + 15) // 16)
     per_view = n_tiles * cfg.max_per_tile * 256 * 4
-    remat = views * per_view > (1 << 29)
     ad_backend = "pallas" if per_view > cfg.ad_stream_above_bytes else "xla"
     return RasterSettings(
         image_height=height, image_width=width,
@@ -258,7 +257,7 @@ def make_settings_from_dims(height: int, width: int, cfg: GSTrainConfig,
         dup_span=cfg.dup_span, giant_capacity=cfg.giant_capacity,
         giant_backend=cfg.giant_backend, giant_span=cfg.giant_span,
         giant_pool=cfg.giant_pool, giant_pool_full=cfg.giant_pool_full,
-        remat_composite=remat and ad_backend == "xla", ad_backend=ad_backend,
+        ad_backend=ad_backend,
         opacity_cull=cfg.opacity_cull)
 
 
@@ -376,7 +375,7 @@ def make_train_step(cfg: GSTrainConfig, spatial_lr_scale: float, phase: str, hei
     if n_views < 1:
         raise ValueError(f"views_per_step must be >= 1, got {n_views}")
     mode = "train_rvq" if use_rvq else "train"
-    settings = make_settings_from_dims(height, width, cfg, views=n_views)
+    settings = make_settings_from_dims(height, width, cfg)
     vchunk = _view_chunk(n_views, view_chunk, _per_view_bytes(height, width, cfg, settings))
     batched = n_views > 1 or gaussian_shard is not None
 

@@ -10,6 +10,15 @@ unchanged one is loaded as it is.
 Builds and loads are safe across threads: one lock a source serialises its
 build and load (different sources still build in parallel), and the
 temporary file carries the process and thread ids.
+
+Every wrapper launches through the same few helpers: ``bind`` (a library
+with its entry points' argument types), ``check`` (the refusals every
+kernel shares: a CUDA tensor on the inputs' card, of its dtype and shape,
+contiguous and aligned), ``launch`` (the device guard, the current stream
+as the last argument, a launch error as ``RuntimeError``) and one registry
+of launch counts (``add_count``, ``read_counts``, ``reset_counts``), which
+counts outside any profiler too (``utils.profiling.count`` records only
+under one).
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -91,3 +102,67 @@ def library(name: str) -> ctypes.CDLL:
                 _build_locked(name)
                 lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def bind(name: str, **signatures) -> ctypes.CDLL:
+    """``library(name)`` with each entry point's ``argtypes`` set from
+    ``signatures`` (entry point name -> argument types) and its ``restype``
+    int, the CUDA error code every entry point returns."""
+    lib = library(name)
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device=None, align: int = 1) -> None:
+    """Refuse a tensor a kernel cannot read: ValueError unless it is a CUDA
+    tensor (on ``device`` when given), of ``shape`` (an int: the number of
+    dimensions; a tuple: the sizes, None for any), contiguous and
+    ``align``-byte aligned; TypeError unless of ``dtype`` (one or a tuple)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the kernel's other inputs on {device}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
+    fits = (t.ndim == shape if isinstance(shape, int) else
+            t.ndim == len(shape) and all(s is None or s == n for s, n in zip(shape, t.shape)))
+    if not fits or not t.is_contiguous() or t.data_ptr() % align:
+        want = (f"{shape}-d" if isinstance(shape, int)
+                else "[" + ", ".join("*" if s is None else str(s) for s in shape) + "]")
+        raise ValueError(f"{name} must be a contiguous, {align}-byte aligned {want} tensor, "
+                         f"got {tuple(t.shape)}")
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the entry point ``fn`` on ``device`` with ``args`` (a tensor
+    passes its data pointer) and the device's current stream appended.
+    Raises RuntimeError when it returns a CUDA error."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+
+
+_counts: dict[str, int] = {}
+
+
+def add_count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the count under ``key`` (a wrapper's launches, or another
+    tally of its own)."""
+    _counts[key] = _counts.get(key, 0) + n
+
+
+def read_counts(*keys: str) -> dict[str, int]:
+    """The counts under ``keys``, 0 for a key never counted."""
+    return {key: _counts.get(key, 0) for key in keys}
+
+
+def reset_counts(*keys: str) -> None:
+    for key in keys:
+        _counts[key] = 0

@@ -29,9 +29,9 @@ Here:
 * ``fold_rgb_conv``: folds the 1x1 RGB conv into the 3->64 conv.
 * ``tf32_round``: fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds.
 
-Tensors are NHWC; conv weights are OIHW (``nn.Conv2d`` layout). Each
-wrapper counts every kernel launch in ``<wrapper>.launches`` and each
-route's in ``<wrapper>.route_launches["bf16" or "fp32"]``.
+Tensors are NHWC; conv weights are OIHW (``nn.Conv2d`` layout).
+``launch_counts()`` counts each wrapper's kernel launches and
+``route_launch_counts()`` each route's.
 """
 
 from __future__ import annotations
@@ -43,25 +43,23 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
+
+# Input, four packed weight arrays, output; B, H, W; the stream.
+_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_NAMES = ("encode_head", "decode_tail")
+_ROUTES = ("bf16", "fp32")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("adain_head")
-    for fn in (lib.aip_encode_head, lib.aip_decode_tail):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return bind("adain_head", aip_encode_head=_SIGNATURE, aip_decode_tail=_SIGNATURE)
 
 
 @functools.cache
 def _lib_tc() -> ctypes.CDLL:
-    lib = library("adain_head_tc")
-    for fn in (lib.aip_encode_head_tc, lib.aip_decode_tail_tc):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return bind("adain_head_tc", aip_encode_head_tc=_SIGNATURE, aip_decode_tail_tc=_SIGNATURE)
 
 
 # ---------------------------------------------------------------------------
@@ -264,17 +262,6 @@ def packed_weights(kind, *weights):
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _check_input(t, name, channels):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: the kernels take float32 or bfloat16, got {t.dtype}")
-    if t.ndim != 4 or t.shape[-1] != channels:
-        raise ValueError(f"{name} must be [B, H, W, {channels}], got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous NHWC")
-
-
 def _check_weights(device, **shapes):
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
@@ -283,16 +270,20 @@ def _check_weights(device, **shapes):
             raise ValueError(f"{name} is on {t.device}, the input on {device}")
 
 
-def _launch(fn, x, out, args, sizes):
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(), *sizes, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+def _launch(name, x, out, weights):
+    """One launch of ``name``'s kernel of x's route on the weights packed
+    for it; counted under the name and the route."""
+    if x.dtype == torch.bfloat16:
+        route, fn, kind = "bf16", getattr(_lib_tc(), f"aip_{name}_tc"), name
+    else:
+        route, fn, kind = "fp32", getattr(_lib(), f"aip_{name}"), f"{name}_fp32"
+    launch(fn, x.device, x, *packed_weights(kind, *weights), out, *x.shape[:3])
+    add_count(f"{name}.{route}")
+    return out
 
 
 def _encode_head_cuda(x, w0, b0, w1, b1, w2, b2):
-    _check_input(x, "x", 3)
+    check(x, "x", (torch.float32, torch.bfloat16), (None, None, None, 3))
     bsz, h, w, _ = x.shape
     if h < 2 or w < 2:
         raise ValueError(f"encode_head needs H, W >= 2 for reflection, got {h}x{w}")
@@ -300,36 +291,18 @@ def _encode_head_cuda(x, w0, b0, w1, b1, w2, b2):
                    w1=(w1, (64, 3, 3, 3)), b1=(b1, (64,)),
                    w2=(w2, (64, 64, 3, 3)), b2=(b2, (64,)))
     out = torch.empty((bsz, (h + 1) // 2, (w + 1) // 2, 64), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        args = packed_weights("encode_head", w0, b0, w1, b1, w2, b2)
-        _launch(_lib_tc().aip_encode_head_tc, x, out, args, (bsz, h, w))
-        encode_head.route_launches["bf16"] += 1
-    else:
-        args = packed_weights("encode_head_fp32", w0, b0, w1, b1, w2, b2)
-        _launch(_lib().aip_encode_head, x, out, args, (bsz, h, w))
-        encode_head.route_launches["fp32"] += 1
-    encode_head.launches += 1
-    return out
+    return _launch("encode_head", x, out, (w0, b0, w1, b1, w2, b2))
 
 
 def _decode_tail_cuda(y, w2, b2, w1, b1):
-    _check_input(y, "y", 64)
+    check(y, "y", (torch.float32, torch.bfloat16), (None, None, None, 64))
     bsz, h, w, _ = y.shape
     if h < 1 or w < 1:
         raise ValueError(f"decode_tail needs a non-empty input, got {h}x{w}")
     _check_weights(y.device, w2=(w2, (64, 64, 3, 3)), b2=(b2, (64,)),
                    w1=(w1, (3, 64, 3, 3)), b1=(b1, (3,)))
     out = torch.empty((bsz, 2 * h, 2 * w, 3), dtype=y.dtype, device=y.device)
-    if y.dtype == torch.bfloat16:
-        args = packed_weights("decode_tail", w2, b2, w1, b1)
-        _launch(_lib_tc().aip_decode_tail_tc, y, out, args, (bsz, h, w))
-        decode_tail.route_launches["bf16"] += 1
-    else:
-        args = packed_weights("decode_tail_fp32", w2, b2, w1, b1)
-        _launch(_lib().aip_decode_tail, y, out, args, (bsz, h, w))
-        decode_tail.route_launches["fp32"] += 1
-    decode_tail.launches += 1
-    return out
+    return _launch("decode_tail", y, out, (w2, b2, w1, b1))
 
 
 # ---------------------------------------------------------------------------
@@ -397,23 +370,18 @@ def decode_tail(y, w2, b2, w1, b1):
 
 def reset_launch_counts() -> None:
     """Sets every count to 0, those of ``route_launch_counts`` too."""
-    for fn in (encode_head, decode_tail):
-        fn.launches = 0
-        fn.route_launches = {"bf16": 0, "fp32": 0}
+    reset_counts(*(f"{name}.{route}" for name in _NAMES for route in _ROUTES))
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches of each wrapper, both routes."""
-    return {"encode_head": encode_head.launches, "decode_tail": decode_tail.launches}
+    routes = route_launch_counts()
+    return {name: sum(routes[route][name] for route in _ROUTES) for name in _NAMES}
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
     """Launches of each route, ``{"bf16": {wrapper: n}, "fp32": {wrapper:
     n}}``: the bf16 kernels of ``csrc/adain_head_tc.cu`` and the fp32 ones
     of ``csrc/adain_head.cu``."""
-    return {route: {"encode_head": encode_head.route_launches[route],
-                    "decode_tail": decode_tail.route_launches[route]}
-            for route in ("bf16", "fp32")}
-
-
-reset_launch_counts()
+    return {route: {name: read_counts(f"{name}.{route}")[f"{name}.{route}"] for name in _NAMES}
+            for route in _ROUTES}

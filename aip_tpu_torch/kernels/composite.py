@@ -7,7 +7,7 @@ per-tile walk, the fused macro-to-tile walk and the coefficient walk); the
 header note of each says what bounds its kernels on the H100 and how they
 are laid out. Every wrapper launches its kernel for a CUDA tensor or
 raises, runs its plain version for a CPU tensor, and counts its launches
-in ``.launches``. Here:
+(``launch_counts()``). Here:
 
 * ``composite_macro_mxu_seg`` (replaces ``composite_macro_mxu_seg_pallas``)
   and ``composite_macro_mxu`` (replaces ``composite_macro_mxu_pallas``), the
@@ -83,7 +83,8 @@ import functools
 
 import torch
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
 from aip_tpu_torch.kernels.composite_ad import (
     EXP_MARGIN, LN_ALPHA_MIN, TILE, _pixels, box_visible, composite_ad_fwd_culled_reference,
     composite_ad_fwd_reference, live_slots, pack)
@@ -104,24 +105,17 @@ COEFF_MARGIN = 8 * 2.0 ** -24   # of S, the coefficient cull's float32 rounding 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("composite")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.aip_composite_macro.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, i, ll, p]
-    lib.aip_composite_macro.restype = ctypes.c_int
-    return lib
+    return bind("composite",
+                aip_composite_macro=[p, ll, p, ll, p, p, p, p, i, i, i, i, i, i, ll, p])
 
 
 @functools.cache
 def _walk_lib() -> ctypes.CDLL:
-    lib = library("composite_walk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_composite_tiles.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.aip_composite_from_macro.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.aip_composite_macro_blocks.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    for fn in (lib.aip_composite_tiles, lib.aip_composite_from_macro,
-               lib.aip_composite_macro_blocks):
-        fn.restype = ctypes.c_int
-    return lib
+    return bind("composite_walk", aip_composite_tiles=[p, p, p, p, p, p, p, i, i, i, i, p],
+                aip_composite_from_macro=[p, p, p, p, p, p, p, i, i, i, i, i, p],
+                aip_composite_macro_blocks=[p, p, p, p, p, i, i, i, i, p])
 
 
 # ---------------------------------------------------------------------------
@@ -606,38 +600,15 @@ def _macro_blocks_walk(coeff, colors, counts, bg_color, bs, keep=None):
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _check(t, name, dtype, ndim, device=None):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the table on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
-    if t.ndim != ndim or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
-
-
-def _check_common(table, counts, bg, n_blocks, bs, layout):
-    _check(table, "raw", torch.float32, table.ndim)
-    if table.shape[-1] != 16 or table.data_ptr() % 16:
-        raise ValueError(f"raw rows must be 16 float32 wide and 16-byte aligned, "
-                         f"got {tuple(table.shape)}")
-    _check(counts, "counts", torch.int32, 1, table.device)
-    _check(bg, "bg_color", torch.float32, 1, table.device)
-    if counts.shape[0] != n_blocks or bg.shape[0] != 3:
-        raise ValueError(f"counts must be [{n_blocks}] and bg_color [3], got "
-                         f"{tuple(counts.shape)} and {tuple(bg.shape)}")
+def _check_common(table, ndim, counts, bg, n_blocks, bs, layout):
+    """The macro-block kernel's inputs: ``table`` of ``ndim`` dimensions,
+    rows of 16 float32, 16-byte aligned; counts [n_blocks] and bg [3]."""
+    check(table, "raw", torch.float32, (None,) * (ndim - 1) + (16,), align=16)
+    check(counts, "counts", torch.int32, (n_blocks,), table.device)
+    check(bg, "bg_color", torch.float32, (3,), table.device)
     if bs not in BLOCK_SIZES:
         raise ValueError(f"the kernels take macro blocks of {BLOCK_SIZES} px, got bs={bs}")
     macro_layout(bs, *layout)
-
-
-def _launch(fn, device, args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
 
 def _bg(bg_color, device):
@@ -652,19 +623,10 @@ def _launch_macro(table, index, starts, counts, bg, n_blocks, kc, bs, mtw, layou
     dev = table.device
     out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=dev)
     if n_blocks:
-        rows = table.numel() // 16
-        ptr = (lambda t: None if t is None else t.data_ptr())
-        _launch(_lib().aip_composite_macro, dev,
-                (table.data_ptr(), rows, ptr(index), 0 if index is None else index.numel(),
-                 ptr(starts), counts.data_ptr(), bg.data_ptr(), out.data_ptr(), n_blocks, kc,
-                 bs, mtw, *layout, int(block0)))
+        launch(_lib().aip_composite_macro, dev, table, table.numel() // 16, index,
+               0 if index is None else index.numel(), starts, counts, bg, out, n_blocks, kc, bs,
+               mtw, *layout, int(block0))
     return out
-
-
-def _check_starts(starts, n_blocks, device):
-    _check(starts, "starts", torch.int32, 1, device)
-    if starts.shape[0] != n_blocks:
-        raise ValueError(f"starts must be [{n_blocks}], got {tuple(starts.shape)}")
 
 
 def composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color, n_blocks: int, kc: int,
@@ -676,13 +638,11 @@ def composite_macro_mxu_seg(raw_sorted, starts, counts, bg_color, n_blocks: int,
         return composite_macro_mxu_seg_reference(raw_sorted, starts, counts, bg_color,
                                                  n_blocks, kc, bs, mtw)
     bg = _bg(bg_color, raw_sorted.device)
-    _check_common(raw_sorted, counts, bg, n_blocks, bs, layout)
-    if raw_sorted.ndim != 2:
-        raise ValueError(f"raw_sorted must be [S, 16], got {tuple(raw_sorted.shape)}")
-    _check_starts(starts, n_blocks, raw_sorted.device)
+    _check_common(raw_sorted, 2, counts, bg, n_blocks, bs, layout)
+    check(starts, "starts", torch.int32, (n_blocks,), raw_sorted.device)
     out = _launch_macro(raw_sorted, None, starts, counts, bg, n_blocks, kc, bs, mtw, layout)
     if n_blocks:
-        composite_macro_mxu_seg.launches += 1
+        add_count("composite_macro_mxu_seg")
     return out
 
 
@@ -699,13 +659,11 @@ def composite_macro_mxu(raw, counts, bg_color, bs: int, mtw: int, layout=DEFAULT
         raise ValueError(f"block0 must be >= 0, got {block0}")
     bg = _bg(bg_color, raw.device)
     n_blocks = raw.shape[0]
-    _check_common(raw, counts, bg, n_blocks, bs, layout)
-    if raw.ndim != 3:
-        raise ValueError(f"raw must be [M, Kc, 16], got {tuple(raw.shape)}")
+    _check_common(raw, 3, counts, bg, n_blocks, bs, layout)
     out = _launch_macro(raw, None, None, counts, bg, n_blocks, raw.shape[1], bs, mtw, layout,
                         block0)
     if n_blocks:
-        composite_macro_mxu.launches += 1
+        add_count("composite_macro_mxu")
     return out
 
 
@@ -721,14 +679,12 @@ def composite_macro_mxu_seg_indexed(table, gid_s, starts, counts, bg_color, n_bl
         return composite_macro_mxu_seg(table[gid_s.long()], starts, counts, bg_color,
                                        n_blocks=n_blocks, kc=kc, bs=bs, mtw=mtw)
     bg = _bg(bg_color, table.device)
-    _check_common(table, counts, bg, n_blocks, bs, layout)
-    if table.ndim != 2:
-        raise ValueError(f"table must be [N, 16], got {tuple(table.shape)}")
-    _check(gid_s, "gid_s", torch.int32, 1, table.device)
-    _check_starts(starts, n_blocks, table.device)
+    _check_common(table, 2, counts, bg, n_blocks, bs, layout)
+    check(gid_s, "gid_s", torch.int32, 1, table.device)
+    check(starts, "starts", torch.int32, (n_blocks,), table.device)
     out = _launch_macro(table, gid_s, starts, counts, bg, n_blocks, kc, bs, mtw, layout)
     if n_blocks:
-        composite_macro_mxu_seg.launches += 1
+        add_count("composite_macro_mxu_seg")
     return out
 
 
@@ -745,14 +701,12 @@ def composite_macro_mxu_indexed(table, macro_idx, counts, bg_color, bs: int, mtw
                                    bg_color, bs=bs, mtw=mtw)
     bg = _bg(bg_color, table.device)
     n_blocks = macro_idx.shape[0]
-    _check_common(table, counts, bg, n_blocks, bs, layout)
-    if table.ndim != 2:
-        raise ValueError(f"table must be [N, 16], got {tuple(table.shape)}")
-    _check(macro_idx, "macro_idx", torch.int32, 2, table.device)
+    _check_common(table, 2, counts, bg, n_blocks, bs, layout)
+    check(macro_idx, "macro_idx", torch.int32, 2, table.device)
     out = _launch_macro(table, macro_idx, None, counts, bg, n_blocks, macro_idx.shape[1], bs,
                         mtw, layout)
     if n_blocks:
-        composite_macro_mxu.launches += 1
+        add_count("composite_macro_mxu")
     return out
 
 
@@ -763,17 +717,9 @@ def _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg):
     for t, name, shape in ((g_mean, "mean", (rows, k, 2)), (g_conic, "conic", (rows, k, 3)),
                            (g_color, "color", (rows, k, 3)), (g_op, "opacity", (rows, k)),
                            (slot_valid, "valid", (rows, k))):
-        _check(t, name, torch.float32, len(shape), g_mean.device)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    _check(bg, "bg_color", torch.float32, 1, g_mean.device)
-    if bg.shape[0] != 3:
-        raise ValueError(f"bg_color must be [3], got {tuple(bg.shape)}")
+        check(t, name, torch.float32, shape, g_mean.device)
+    check(bg, "bg_color", torch.float32, (3,), g_mean.device)
     return rows, k
-
-
-def _slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid):
-    return tuple(t.data_ptr() for t in (g_mean, g_conic, g_color, g_op, slot_valid))
 
 
 def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w: int,
@@ -791,10 +737,9 @@ def composite_tiles(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, tile_w
     n_tiles, k = _check_slots(g_mean, g_conic, g_color, g_op, slot_valid, bg)
     out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=dev)
     if n_tiles:
-        _launch(_walk_lib().aip_composite_tiles, dev,
-                (*_slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid), bg.data_ptr(),
-                 out.data_ptr(), n_tiles, k, tile_w, int(_dense)))
-        composite_tiles.launches += 1
+        launch(_walk_lib().aip_composite_tiles, dev, g_mean, g_conic, g_color, g_op, slot_valid,
+               bg, out, n_tiles, k, tile_w, int(_dense))
+        add_count("composite_tiles")
     return out
 
 
@@ -822,10 +767,9 @@ def composite_from_macro(g_mean, g_conic, g_color, g_op, slot_valid, bg_color, n
                          f"(a {macro_tile_w}-block row) need more than {n_blocks} blocks")
     out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=dev)
     if n_tiles:
-        _launch(_walk_lib().aip_composite_from_macro, dev,
-                (*_slot_pointers(g_mean, g_conic, g_color, g_op, slot_valid), bg.data_ptr(),
-                 out.data_ptr(), n_tiles, kc, tile_w, macro, macro_tile_w))
-        composite_from_macro.launches += 1
+        launch(_walk_lib().aip_composite_from_macro, dev, g_mean, g_conic, g_color, g_op,
+               slot_valid, bg, out, n_tiles, kc, tile_w, macro, macro_tile_w)
+        add_count("composite_from_macro")
     return out
 
 
@@ -844,36 +788,25 @@ def composite_macro_blocks(coeff, colors, counts, bg_color, bs: int, _dense: boo
                          f"got bs={bs} (macro {bs // TILE}); the plain version takes any size "
                          f"on a CPU tensor")
     n_blocks, kc = coeff.shape[:2]
-    for t, name, shape in ((coeff, "coeff", (n_blocks, kc, 8)),
-                           (colors, "colors", (n_blocks, kc, 4))):
-        _check(t, name, torch.float32, 3, dev)
-        if tuple(t.shape) != shape or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a 16-byte aligned {shape}, got {tuple(t.shape)}")
-    _check(counts, "counts", torch.int32, 1, dev)
-    _check(bg, "bg_color", torch.float32, 1, dev)
-    if counts.shape[0] != n_blocks or bg.shape[0] != 3:
-        raise ValueError(f"counts must be [{n_blocks}] and bg_color [3], got "
-                         f"{tuple(counts.shape)} and {tuple(bg.shape)}")
+    check(coeff, "coeff", torch.float32, (n_blocks, kc, 8), dev, align=16)
+    check(colors, "colors", torch.float32, (n_blocks, kc, 4), dev, align=16)
+    check(counts, "counts", torch.int32, (n_blocks,), dev)
+    check(bg, "bg_color", torch.float32, (3,), dev)
     out = torch.empty((n_blocks, 3, 1, bs * bs), dtype=torch.float32, device=dev)
     if n_blocks:
-        _launch(_walk_lib().aip_composite_macro_blocks, dev,
-                (coeff.data_ptr(), colors.data_ptr(), counts.data_ptr(), bg.data_ptr(),
-                 out.data_ptr(), n_blocks, kc, bs, int(_dense)))
-        composite_macro_blocks.launches += 1
+        launch(_walk_lib().aip_composite_macro_blocks, dev, coeff, colors, counts, bg, out,
+               n_blocks, kc, bs, int(_dense))
+        add_count("composite_macro_blocks")
     return out
 
 
-_WRAPPERS = (composite_macro_mxu_seg, composite_macro_mxu, composite_tiles,
-             composite_from_macro, composite_macro_blocks)
+_NAMES = ("composite_macro_mxu_seg", "composite_macro_mxu", "composite_tiles",
+          "composite_from_macro", "composite_macro_blocks")
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    reset_counts(*_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launch_counts()
+    return read_counts(*_NAMES)

@@ -45,7 +45,8 @@ import math
 
 import torch
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
 
 TILE = 16
 SLOT = 9                      # packed row: mean 2, conic 3, colour 3, opacity 1
@@ -62,14 +63,10 @@ LN_ALPHA_MIN = math.log(ALPHA_MIN)
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("composite_ad")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_composite_ad_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.aip_composite_ad_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-    lib.aip_composite_ad_smem.argtypes = [i, i, i]
-    for fn in (lib.aip_composite_ad_fwd, lib.aip_composite_ad_bwd, lib.aip_composite_ad_smem):
-        fn.restype = ctypes.c_int
-    return lib
+    return bind("composite_ad", aip_composite_ad_fwd=[p, p, p, p, p, i, i, i, i, p],
+                aip_composite_ad_bwd=[p, p, p, p, p, p, i, i, i, i, p],
+                aip_composite_ad_smem=[i, i, i])
 
 
 def pack(mean, conic, color, op):
@@ -348,28 +345,14 @@ def composite_ad_bwd_culled_reference(g, valid, bg, t_final, g_out, tile_w: int,
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-_LAUNCHES = {"composite_ad_fwd": 0, "composite_ad_bwd": 0}
-
-
-def _check(t, name, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernels take float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {tuple(shape)} tensor, "
-                         f"got {tuple(t.shape)}")
+_NAMES = ("composite_ad_fwd", "composite_ad_bwd")
 
 
 def _check_inputs(g, valid, bg, p, backward):
-    if g.device.type != "cuda":
-        raise ValueError(f"the kernels run on a CUDA or a CPU tensor, got {g.device}")
-    if g.ndim != 3:
-        raise ValueError(f"g must be [T, K, {SLOT}], got {tuple(g.shape)}")
+    check(g, "g", torch.float32, (None, None, SLOT))
     n_tiles, k = g.shape[0], g.shape[1]
-    _check(g, "g", (n_tiles, k, SLOT), g.device)
-    _check(valid, "valid", (n_tiles, k, 1), g.device)
-    _check(bg, "bg", (3,), g.device)
+    check(valid, "valid", torch.float32, (n_tiles, k, 1), g.device)
+    check(bg, "bg", torch.float32, (3,), g.device)
     if p not in PIXELS_PER_THREAD:
         raise ValueError(f"P = {p}: the kernels are built for P in {PIXELS_PER_THREAD}")
     smem = _lib().aip_composite_ad_smem(k, p, int(backward))
@@ -377,13 +360,6 @@ def _check_inputs(g, valid, bg, p, backward):
         raise ValueError(f"K={k} slots exceed kernel {'B' if backward else 'A'}'s shared "
                          f"memory at P={p} ({smem} > {MAX_SMEM} bytes)")
     return n_tiles, k
-
-
-def _launch(fn, device, args):
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
 
 def composite_ad_fwd_packed(g, valid, bg, tile_w: int, p: int = FWD_P):
@@ -395,10 +371,9 @@ def composite_ad_fwd_packed(g, valid, bg, tile_w: int, p: int = FWD_P):
     out = torch.empty((n_tiles, 3, TILE, TILE), dtype=torch.float32, device=g.device)
     t_final = torch.empty((n_tiles, TILE, TILE), dtype=torch.float32, device=g.device)
     if n_tiles:
-        _launch(_lib().aip_composite_ad_fwd, g.device,
-                (g.data_ptr(), valid.data_ptr(), bg.data_ptr(), out.data_ptr(),
-                 t_final.data_ptr(), n_tiles, k, tile_w, p))
-        _LAUNCHES["composite_ad_fwd"] += 1
+        launch(_lib().aip_composite_ad_fwd, g.device, g, valid, bg, out, t_final, n_tiles, k,
+               tile_w, p)
+        add_count("composite_ad_fwd")
     return out, t_final
 
 
@@ -409,14 +384,13 @@ def composite_ad_bwd_packed(g, valid, bg, t_final, g_out, tile_w: int, p: int = 
         return torch.cat(composite_ad_bwd_reference(*_unpack(g), valid, bg, t_final, g_out,
                                                     tile_w), dim=-1)
     n_tiles, k = _check_inputs(g, valid, bg, p, backward=True)
-    _check(t_final, "t_final", (n_tiles, TILE, TILE), g.device)
-    _check(g_out, "g_out", (n_tiles, 3, TILE, TILE), g.device)
+    check(t_final, "t_final", torch.float32, (n_tiles, TILE, TILE), g.device)
+    check(g_out, "g_out", torch.float32, (n_tiles, 3, TILE, TILE), g.device)
     d_g = torch.empty((n_tiles, k, SLOT), dtype=torch.float32, device=g.device)
     if n_tiles:
-        _launch(_lib().aip_composite_ad_bwd, g.device,
-                (g.data_ptr(), valid.data_ptr(), bg.data_ptr(), t_final.data_ptr(),
-                 g_out.data_ptr(), d_g.data_ptr(), n_tiles, k, tile_w, p))
-        _LAUNCHES["composite_ad_bwd"] += 1
+        launch(_lib().aip_composite_ad_bwd, g.device, g, valid, bg, t_final, g_out, d_g, n_tiles,
+               k, tile_w, p)
+        add_count("composite_ad_bwd")
     return d_g
 
 
@@ -439,12 +413,11 @@ def composite_ad_bwd(mean, conic, color, op, valid, bg, t_final, g_out, tile_w: 
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    reset_counts(*_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return read_counts(*_NAMES)
 
 
 class _CompositeTilesAD(torch.autograd.Function):

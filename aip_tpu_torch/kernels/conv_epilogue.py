@@ -12,8 +12,7 @@ only where autograd records nothing.
 
 * ``conv_epilogue``: for a CUDA tensor the kernel (bf16 only: the walks
   send fp32 to the op chain, and any other dtype raises), for a CPU tensor
-  the plain version. Counts every kernel launch in
-  ``conv_epilogue.launches``.
+  the plain version. ``launch_counts()`` counts its launches.
 * ``conv_epilogue_reference``: the plain version, the kernel's arithmetic
   and per-pixel index maps in PyTorch ops. The bias is added in fp32 and
   rounded to the dtype once, where PyTorch's own add of a conv bias rounds;
@@ -31,17 +30,16 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
 
 RESAMPLE = {None: 0, "pool": 1, "up": 2}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("conv_epilogue")
-    lib.aip_conv_epilogue.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.aip_conv_epilogue.restype = ctypes.c_int
-    return lib
+    return bind("conv_epilogue",
+                aip_conv_epilogue=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def output_size(h: int, w: int, resample=None) -> tuple[int, int]:
@@ -122,23 +120,15 @@ def conv_epilogue_chain(raw, bias=None, relu=False, resample=None, border=True):
 
 def _conv_epilogue_cuda(raw, bias, relu, resample, border):
     ho, wo = _check(raw, bias, resample, border)
-    if raw.dtype != torch.bfloat16:
-        raise TypeError(f"raw: the kernel takes bfloat16, got {raw.dtype}")
-    if not raw.is_contiguous():
-        raise ValueError("raw must be contiguous NHWC")
-    if bias is not None and (bias.device != raw.device or not bias.is_contiguous()):
-        raise ValueError(f"bias must be contiguous on {raw.device}")
+    check(raw, "raw", torch.bfloat16, 4)
+    if bias is not None:
+        check(bias, "bias", torch.float32, 1, raw.device)
     n, h, w, c = raw.shape
     pad = 2 if border else 0
     out = torch.empty((n, ho + pad, wo + pad, c), dtype=raw.dtype, device=raw.device)
-    with torch.cuda.device(raw.device):
-        stream = torch.cuda.current_stream(raw.device).cuda_stream
-        err = _lib().aip_conv_epilogue(
-            raw.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, w,
-            c, int(relu), RESAMPLE[resample], int(border), stream)
-    if err != 0:
-        raise RuntimeError(f"aip_conv_epilogue failed to launch: CUDA error {err}")
-    conv_epilogue.launches += 1
+    launch(_lib().aip_conv_epilogue, raw.device, raw, bias, out, n, h, w, c, int(relu),
+           RESAMPLE[resample], int(border))
+    add_count("conv_epilogue")
     return out
 
 
@@ -160,4 +150,9 @@ def conv_epilogue(raw, bias=None, relu=False, resample=None, border=True):
     return _conv_epilogue_cuda(raw, bias, relu, resample, border)
 
 
-conv_epilogue.launches = 0
+def reset_launch_counts() -> None:
+    reset_counts("conv_epilogue")
+
+
+def launch_counts() -> dict[str, int]:
+    return read_counts("conv_epilogue")

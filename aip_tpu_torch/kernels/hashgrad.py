@@ -10,7 +10,7 @@ bounds it and how it is laid out). Here:
   On a CUDA tensor it launches the kernel (which recomputes each corner's
   index and weight from x01, and writes every entry of the table itself:
   the table comes from ``torch.empty``) or raises; on a CPU tensor it runs
-  the plain version. Launches are counted in ``hash_grad.launches``.
+  the plain version. ``launch_counts()`` counts its launches.
 * ``hash_grad_reference``: the plain version, ``_encode_terms``'s indices
   and weights and one ``index_add_`` into the flattened [L*T, F] table.
 * ``level_table(l, t)``: the per-level (res, dense, rows) of ``_levels`` as
@@ -29,16 +29,14 @@ import functools
 
 import torch
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("hashgrad")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aip_hash_grad.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.aip_hash_grad.restype = ctypes.c_int
-    return lib
+    return bind("hashgrad", aip_hash_grad=[p, p, p, p, p, i, i, i, i, p])
 
 
 def _levels(n_levels: int, table_cap: int):
@@ -90,16 +88,6 @@ def hash_grad_reference(x01: torch.Tensor, g_out: torch.Tensor, table_shape) -> 
     return grad.reshape(l, t, f)
 
 
-def _check(t, name, shape, align=4):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % align:
-        raise ValueError(f"{name} must be a contiguous, {align}-byte aligned {shape} tensor, "
-                         f"got {tuple(t.shape)}")
-
-
 def hash_grad(x01: torch.Tensor, g_out: torch.Tensor, table_shape) -> torch.Tensor:
     """Kernel C (replaces ``hash_grad_pallas``): dL/dtables [L, T, F]
     float32 for positions x01 [N, 3] and upstream gradient g_out [N, L*F]."""
@@ -107,29 +95,23 @@ def hash_grad(x01: torch.Tensor, g_out: torch.Tensor, table_shape) -> torch.Tens
         return hash_grad_reference(x01, g_out, table_shape)
     l, t, f = (int(s) for s in table_shape)
     n = x01.shape[0]
-    _check(x01, "x01", (n, 3))
-    _check(g_out, "g_out", (n, l * f), align=16)   # read as one vector a (point, level)
+    check(x01, "x01", torch.float32, (n, 3), align=4)
+    # g_out is read as one vector a (point, level).
+    check(g_out, "g_out", torch.float32, (n, l * f), x01.device, align=16)
     if t & (t - 1) or t <= 0 or f not in (1, 2, 4) or not 0 < l <= SYNC_WORDS - 1:
         raise ValueError(f"the kernel takes 1 to {SYNC_WORDS - 1} levels of a power-of-two "
                          f"table and 1, 2 or 4 features, got {(l, t, f)}")
     grad = torch.empty((l, t, f), dtype=torch.float32, device=x01.device)
-    with torch.cuda.device(x01.device):
-        stream = torch.cuda.current_stream(x01.device).cuda_stream
-        err = _lib().aip_hash_grad(x01.data_ptr(), g_out.data_ptr(), grad.data_ptr(),
-                                   level_table(l, t), _sync_words(x01.device, stream).data_ptr(),
-                                   n, l, t, f, stream)
-    if err != 0:
-        raise RuntimeError(f"aip_hash_grad failed to launch: CUDA error {err}")
-    hash_grad.launches += 1
+    sync = _sync_words(x01.device, torch.cuda.current_stream(x01.device).cuda_stream)
+    launch(_lib().aip_hash_grad, x01.device, x01, g_out, grad, level_table(l, t), sync, n, l, t,
+           f)
+    add_count("hash_grad")
     return grad
 
 
-hash_grad.launches = 0
-
-
 def reset_launch_counts() -> None:
-    hash_grad.launches = 0
+    reset_counts("hash_grad")
 
 
 def launch_counts() -> dict[str, int]:
-    return {"hash_grad": hash_grad.launches}
+    return read_counts("hash_grad")

@@ -15,8 +15,8 @@ says what bounds it and how it is laid out). Here:
   up to ``FRAME_SIDE`` x ``FRAME_SIDE`` the whole frame stays on chip for
   all ``iters`` iterations (one launch), above it the tile form runs k
   iterations a launch on ``TILE_SIDE``-pixel regions, each a tile with a
-  k-pixel halo. ``tvl1_inner.launches`` counts the kernel launches,
-  ``tvl1_inner.iterations`` the iterations run on the kernel.
+  k-pixel halo. ``launch_counts()`` counts the kernel launches,
+  ``iteration_counts()`` the iterations run on the kernel.
 * ``tvl1_inner_reference``: the same loop in PyTorch ops, written from
   ``ops/pallas/tvl1.py:50-94`` expression for expression, so that the
   kernel (which rounds every product and sum on its own, no fused
@@ -37,7 +37,8 @@ import functools
 
 import torch
 
-from aip_tpu_torch.kernels._build import library
+from aip_tpu_torch.kernels._build import (add_count, bind, check, launch, read_counts,
+                                           reset_counts)
 
 FRAME_SIDE = 64      # frames up to this side run whole on chip, one launch a call
 TILE_SIDE = 64       # the tile form's region side, halo included
@@ -49,13 +50,10 @@ TILE_LOAD_ITERS = 1.5
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("tvl1")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # 10 inputs, 6 outputs, 6 scratch fields; B, H, W, iters, k; l_t, theta,
     # taut; the stream.
-    lib.aip_tvl1_inner.argtypes = [p] * 22 + [i] * 5 + [f] * 3 + [p]
-    lib.aip_tvl1_inner.restype = ctypes.c_int
-    return lib
+    return bind("tvl1", aip_tvl1_inner=[p] * 22 + [i] * 5 + [f] * 3 + [p])
 
 
 def _grad_fwd(x: torch.Tensor):
@@ -185,15 +183,6 @@ def launches_per_call(h: int, w: int, iters: int, k: int | None = None) -> int:
     return 0 if iters == 0 else 1 if k == 0 else -(-iters // k)
 
 
-def _check(t, name, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, rho_c on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {shape} tensor, got {tuple(t.shape)}")
-
-
 def tvl1_inner(rho_c, i1wx, i1wy, grad2, u1, u2, p, iters: int, l_t: float, theta: float,
                taut: float):
     """``iters`` primal-dual iterations for every frame pair of the batch
@@ -208,8 +197,6 @@ def tvl1_inner(rho_c, i1wx, i1wy, grad2, u1, u2, p, iters: int, l_t: float, thet
 def _launch(rho_c, i1wx, i1wy, grad2, u1, u2, p, iters, l_t, theta, taut, k=None):
     """The kernel on CUDA tensors, in the form ``k`` (``form(H, W)`` by
     default; 0 whole frame, else one of TILE_KS)."""
-    if rho_c.device.type != "cuda":
-        raise ValueError(f"tvl1_inner runs on a CUDA or a CPU tensor, got {rho_c.device}")
     if rho_c.ndim != 3:
         raise ValueError(f"rho_c must be [B, H, W], got {tuple(rho_c.shape)}")
     shape = tuple(rho_c.shape)
@@ -226,35 +213,24 @@ def _launch(rho_c, i1wx, i1wy, grad2, u1, u2, p, iters, l_t, theta, taut, k=None
     ins = (rho_c, i1wx, i1wy, grad2, u1, u2, *p)
     for name, t in zip(("rho_c", "i1wx", "i1wy", "grad2", "u1", "u2", "p11", "p12", "p21",
                         "p22"), ins):
-        _check(t, name, shape, rho_c.device)
+        check(t, name, torch.float32, shape, rho_c.device)
     launches = launches_per_call(h, w, iters, k)
     outs = torch.empty((6, b, h, w), dtype=torch.float32, device=rho_c.device)
     scratch = torch.empty_like(outs) if launches > 1 else outs
-    with torch.cuda.device(rho_c.device):
-        stream = torch.cuda.current_stream(rho_c.device).cuda_stream
-        err = _lib().aip_tvl1_inner(*(t.data_ptr() for t in ins),
-                                    *(o.data_ptr() for o in outs),
-                                    *(s.data_ptr() for s in scratch),
-                                    b, h, w, iters, k, l_t, theta, taut, stream)
-    if err != 0:
-        raise RuntimeError(f"aip_tvl1_inner failed to launch: CUDA error {err}")
-    tvl1_inner.launches += launches
-    tvl1_inner.iterations += iters
+    launch(_lib().aip_tvl1_inner, rho_c.device, *ins, *outs, *scratch, b, h, w, iters, k, l_t,
+           theta, taut)
+    add_count("tvl1", launches)
+    add_count("tvl1.iterations", iters)
     return outs[0], outs[1], tuple(outs[2:])
 
 
-tvl1_inner.launches = 0
-tvl1_inner.iterations = 0
-
-
 def reset_launch_counts() -> None:
-    tvl1_inner.launches = 0
-    tvl1_inner.iterations = 0
+    reset_counts("tvl1", "tvl1.iterations")
 
 
 def launch_counts() -> dict[str, int]:
-    return {"tvl1": tvl1_inner.launches}
+    return read_counts("tvl1")
 
 
 def iteration_counts() -> dict[str, int]:
-    return {"tvl1": tvl1_inner.iterations}
+    return {"tvl1": read_counts("tvl1.iterations")["tvl1.iterations"]}

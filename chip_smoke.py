@@ -579,13 +579,13 @@ def main():
     content = rand(32, 512, 512, 3)
     K.reset_launch_counts()
     style_mean, style_std = adain_infer.precompute_style_stats(vgg, style, device=dev)
-    KE.conv_epilogue.launches = 0
+    KE.reset_launch_counts()
     out = adain_infer.stylize_with_stats(vgg, dec, content, style_mean, style_std, alpha=0.5,
                                          compute_dtype=bf16, device=dev)
     torch.cuda.synchronize()
     launches = K.launch_counts()
     routes = K.route_launch_counts()
-    epilogues = KE.conv_epilogue.launches     # the serving call's alone
+    epilogues = KE.launch_counts()["conv_epilogue"]     # the serving call's alone
     emit("serving_path", batch=32, size=512, dtype="bfloat16", alpha=0.5,
          out_shape=list(out.shape), finite=bool(torch.isfinite(out).all()), launches=launches,
          route_launches=routes, conv_epilogue_launches=epilogues)
@@ -1107,11 +1107,11 @@ def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
     walks = {}
     for dtype in (bf16, f32):
         for grad in (False, True):
-            KE.conv_epilogue.launches = 0
+            KE.reset_launch_counts()
             with torch.set_grad_enabled(grad):
                 out = tdec.decoder_apply(dec, tvgg.vgg_encode(enc, x, "relu4_1", dtype), dtype)
             torch.cuda.synchronize()
-            walks[(dtype, grad)] = (out.detach(), KE.conv_epilogue.launches)
+            walks[(dtype, grad)] = (out.detach(), KE.launch_counts()["conv_epilogue"])
         (fused, n_fused), (chain, n_chain) = walks[(dtype, False)], walks[(dtype, True)]
         diff = float((fused.float() - chain.float()).abs().max())
         emit("conv_epilogue_walks", dtype=str(dtype)[6:], launches_no_grad=n_fused,
@@ -1124,11 +1124,11 @@ def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
     if serve_launches is None:    # run alone: a serving call of its own
         content = torch.rand(32, 512, 512, 3, generator=gen, device=dev)
         mean, std = adain_infer.precompute_style_stats(enc, content[:1], device=dev)
-        KE.conv_epilogue.launches = 0
+        KE.reset_launch_counts()
         adain_infer.stylize_with_stats(enc, dec, content, mean, std, alpha=0.5,
                                        compute_dtype=bf16, device=dev)
         torch.cuda.synchronize()
-        serve_launches = KE.conv_epilogue.launches
+        serve_launches = KE.launch_counts()["conv_epilogue"]
         emit("conv_epilogue_serving", batch=32, size=512, launches=serve_launches)
         del content
     if serve_launches != len(_serve_epilogues()):
@@ -1522,7 +1522,6 @@ class _capture:
                 self.store.setdefault(key, (args, kw))
             return orig(*args, **kw)
 
-        spy.launches = 0  # the wrapper counts on its module's name, here the spy
         setattr(self.module, self.name, spy)
 
     def __exit__(self, *exc):
@@ -1730,6 +1729,7 @@ def _train_phases(torch, dev, bed):
     from aip_tpu_torch.gs import colorfield as CF
     from aip_tpu_torch.gs.colorfield import _encode_terms
     from aip_tpu_torch.gs.dataset import Scene
+    from aip_tpu_torch.gs.render import takes_macro_route
     from aip_tpu_torch.kernels import composite as KC
     from aip_tpu_torch.kernels import composite_ad as KAD
     from aip_tpu_torch.kernels import hashgrad as KH
@@ -1823,8 +1823,8 @@ def _train_phases(torch, dev, bed):
     render_launches = KC.launch_counts()
     emit("train_render", gif=str(gif.relative_to(ROOT)), gif_exists=gif.is_file(),
          pngs=len(pngs), launches=render_launches)
-    # From 512^2 up the inference render takes the macro-block compositors.
-    macro = TRAIN_SIZE * TRAIN_SIZE >= 512 * 512
+    # On the macro-block route the inference render takes its compositors.
+    macro = takes_macro_route(TRAIN_SIZE, TRAIN_SIZE)
     if not (gif.is_file() and len(pngs) == len(cams)
             and (sum(render_launches.values()) > 0 or not macro)):
         raise AssertionError("the trained model did not render")
@@ -5404,7 +5404,7 @@ def _sharded_render_phase(torch, np, dev, bed):
     """Phase 43: the committed model at 800^2 with its Gaussians over
     [cuda:0, cuda:0] against the replicated render; the windowed kernel's
     call at block0 > 0 against its walk emulation."""
-    from aip_tpu_torch.gs.render import render, settings_from_selection
+    from aip_tpu_torch.gs.render import inference_settings, render, settings_from_selection
     from aip_tpu_torch.kernels import composite as KC
     from aip_tpu_torch.parallel import mesh as PM
 
@@ -5412,11 +5412,8 @@ def _sharded_render_phase(torch, np, dev, bed):
     mesh = PM.make_mesh([cuda0, cuda0], ("dp",), (2,))
     state, field, style_f, enc = bed["state"], bed["field"], bed["style_f"], bed["enc"]
     cam, sel = bed["cams"][0], bed["sel"]
-    settings = settings_from_selection(sel, cam.image_height, cam.image_width,
-                                       max_per_tile=sel.get("max_per_tile", 128))
-    if settings.macro <= 1:
-        settings = settings._replace(macro=4, macro_capacity=max(settings.macro_capacity, 1024),
-                                     composite_backend="mxu")
+    settings = inference_settings(settings_from_selection(
+        sel, cam.image_height, cam.image_width, max_per_tile=sel.get("max_per_tile", 128)))
     bg = torch.zeros(3, device=dev)
     kw = dict(style_f=style_f, mode="inference", settings=settings, precomputed_enc=enc)
     replicated = lambda: render(cam, state, field, bg, renderer="matmul", **kw).render
@@ -5429,13 +5426,12 @@ def _sharded_render_phase(torch, np, dev, bed):
         calls.append((args, k))
         return orig(*args, **k)
 
-    spy.launches = 0
     KC.composite_macro_mxu = spy
     try:
         got, counts = _run_path(torch, "gs_sharded_render", sharded, ())
     finally:
         KC.composite_macro_mxu = orig
-    counts["composite_macro_mxu"] = spy.launches
+    launches = counts.get("composite_macro_mxu", 0)
     err = float((got - want).abs().max())
     (args, k), = [c for c in calls if c[1].get("block0", 0) > 0]
     out = orig(*args, **k)
@@ -5456,11 +5452,11 @@ def _sharded_render_phase(torch, np, dev, bed):
          block0_vs_plain_mean_abs=float(plain_err.mean()),
          frame_ms_sharded=sh_ms, frame_ms_replicated=rep_ms,
          timing="CUDA events, median of 5 after 2")
-    if not (err <= GS_FRAME_TOL and spy.launches == 2 and block0_err == 0.0
+    if not (err <= GS_FRAME_TOL and launches == 2 and block0_err == 0.0
             and float(plain_err.max()) <= 1e-3 * max(1.0, float(plain.abs().max()))
             and float(plain_err.mean()) <= 1e-5):
         raise AssertionError("the Gaussian-sharded frame or the kernel at block0 > 0 disagrees")
-    return {"gs_sharded_render": {"composite_macro_mxu": spy.launches}}, block0_err
+    return {"gs_sharded_render": {"composite_macro_mxu": launches}}, block0_err
 
 
 # ---------------------------------------------------------------------------

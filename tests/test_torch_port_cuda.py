@@ -1874,11 +1874,12 @@ def test_no_grad_walks_launch_one_epilogue_a_conv(cuda, dtype):
     x = torch.rand(1, 40, 54, 3, generator=torch.Generator().manual_seed(13)).to(cuda)
     outs = {}
     for grad in (False, True):
-        KE.conv_epilogue.launches = 0
+        KE.reset_launch_counts()
         with torch.set_grad_enabled(grad):
             outs[grad] = tdec.decoder_apply(dec, tvgg.vgg_encode(vgg, x, "relu4_1", dtype), dtype)
         torch.cuda.synchronize()
-        assert KE.conv_epilogue.launches == (16 if dtype == torch.bfloat16 and not grad else 0)
+        assert KE.launch_counts() == {"conv_epilogue": 16 if dtype == torch.bfloat16 and not grad
+                                      else 0}
     assert torch.equal(outs[False], outs[True].detach())
 
 

@@ -344,4 +344,4 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(rng):
                                   "composite_tiles": 0, "composite_from_macro": 0,
                                   "composite_macro_blocks": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
-        TK._check(raw, "raw", torch.float32, 3)
+        TK.check(raw, "raw", torch.float32, 3)      # the wrappers' shared check

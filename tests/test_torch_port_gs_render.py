@@ -278,3 +278,90 @@ def test_render_refuses_an_unknown_renderer_or_mode(kw):
     "inference" as training (:398-413)."""
     with pytest.raises(ValueError, match="unknown render"):
         TRN.render(None, None, None, None, **kw)
+
+
+@pytest.mark.parametrize("recorded", [True, False], ids=["recorded", "legacy"])
+@pytest.mark.parametrize("mesh_dp", [0, 2], ids=["one_device", "mesh"])
+@pytest.mark.parametrize("renderer", ["auto", "matmul", "pallas", "xla"])
+@pytest.mark.parametrize("hw", [(511, 512), (512, 512)], ids=["511x512", "512x512"])
+def test_render_views_routes_each_view_by_the_one_rule(tmp_path, rng, monkeypatch, hw, renderer,
+                                                       mesh_dp, recorded):
+    """How a trained scene's view renders, with every rasterizer and the
+    fit replaced by spies (nothing renders at 512^2): a view of at least
+    MACRO_ROUTE_PIXELS with no mesh and renderer auto or matmul goes through
+    one make_inference_frame_fn; every other view through render, which
+    takes the sharded rasterizer on a mesh, else the renderer's own. The
+    macro-block rasterizers get macro 4, at least 1024 candidates a block
+    and the "mxu" compositors; the others the selection's settings as they
+    are. The selection is the recorded one, else on the macro-block route
+    the fitted one with the legacy spans, else the per-tile defaults."""
+    from aip_tpu_torch.gs import colorfield as TCF
+    from aip_tpu_torch.gs import pipeline as TP
+    from aip_tpu_torch.parallel import gs as TPG
+    from aip_tpu_torch.parallel.mesh import make_dp_mesh
+
+    h, w = hw
+    ts, _ = from_jax_arrays(_state_np(rng, 64), None, "cpu")
+    field = TCF.init_colorfield(0, style_dim=None, log2_hashmap=10, device="cpu")
+    cam = _look_at(np.zeros(3), 3.0, 0.3, 0.4, w, h)
+    mesh = make_dp_mesh(mesh_dp, device="cpu")
+    seen, frame_fns = [], []
+    fitted = {"macro_capacity": 2048, "dup_span": 2, "giant_capacity": 256,
+              "giant_backend": "direct", "giant_tiers": ((2, 128),), "giant_pool_full": 64,
+              "max_per_tile": 96}
+    fits = []
+
+    def rasterizer(name):
+        def spy(*args, **kw):
+            settings = next(a for a in args if isinstance(a, TR.RasterSettings))
+            seen.append((name, settings))
+            return torch.zeros(h, w, 3), torch.zeros(ts.xyz.shape[0])
+        return spy
+
+    for name in ("rasterize", "rasterize_fast", "rasterize_matmul"):
+        monkeypatch.setattr(TRN, name, rasterizer(name))
+    monkeypatch.setattr(TPG, "rasterize_sharded", rasterizer("rasterize_sharded"))
+    make_frame_fn = TRN.make_inference_frame_fn
+    monkeypatch.setattr(TRN, "make_inference_frame_fn",
+                        lambda *a, **kw: frame_fns.append(a) or make_frame_fn(*a, **kw))
+    monkeypatch.setattr(TRN, "fit_selection", lambda *a, **kw: fits.append(a) or dict(fitted))
+
+    sel = {"max_per_tile": 64, "macro_capacity": 512, "dup_span": 2, "giant_capacity": 128,
+           "giant_backend": "merge"} if recorded else None
+    paths = TP.render_views([cam], ts, field, torch.zeros(3), None, tmp_path, sel, 32,
+                            renderer=renderer, mesh=mesh)
+    assert [p.name for p in paths] == ["00000.png"] and paths[0].is_file()
+
+    macro_route = TRN.takes_macro_route(h, w)
+    assert macro_route == (h * w >= 512 * 512) and TRN.MACRO_ROUTE_PIXELS == 512 * 512
+    takes_fit = not recorded and macro_route and renderer in ("auto", "matmul")
+    assert len(fits) == takes_fit
+    if recorded:
+        want_sel = sel
+    elif takes_fit:
+        want_sel = dict(fitted, dup_span=3, giant_capacity=128, giant_backend="merge")
+    else:
+        want_sel = {"macro_capacity": 1024, "dup_span": 2, "giant_capacity": 128}
+    assert TP.default_selection(ts, [cam], renderer) == (
+        dict(fitted, dup_span=3, giant_capacity=128, giant_backend="merge")
+        if macro_route and renderer in ("auto", "matmul")
+        else {"macro_capacity": 1024, "dup_span": 2, "giant_capacity": 128})
+    base = TRN.settings_from_selection(want_sel, h, w, max_per_tile=32)
+
+    frame_fn = mesh is None and renderer in ("auto", "matmul") and macro_route
+    assert len(frame_fns) == frame_fn
+    if mesh is not None:
+        want = "rasterize_sharded"
+    elif renderer == "auto":
+        want = "rasterize_matmul" if macro_route else "rasterize"
+    else:
+        want = {"matmul": "rasterize_matmul", "pallas": "rasterize_fast",
+                "xla": "rasterize"}[renderer]
+    (name, got), = seen
+    assert name == want
+    if want in ("rasterize_matmul", "rasterize_sharded"):
+        assert got == base._replace(macro=4, macro_capacity=max(base.macro_capacity, 1024),
+                                    composite_backend="mxu")
+        assert TRN.inference_settings(got) == got      # a macro grid is kept as it is
+    else:
+        assert got == base

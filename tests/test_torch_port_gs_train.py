@@ -325,12 +325,16 @@ def test_run_3dgs_training_and_cli_end_to_end(tmp_path, rng, weights_dir):
 
 def test_settings_and_view_bytes_match_jax():
     """make_settings_from_dims and _per_view_bytes (the JAX package's
-    view-chunk budget) for flat and hierarchical sizes."""
+    view-chunk budget) for flat and hierarchical sizes. The port's settings
+    have every field of the JAX package's but ``remat_composite``, an XLA
+    rematerialisation switch no port path reads."""
     for h, w in ((32, 48), (256, 256), (800, 800)):
         for kw in ({}, {"max_per_tile": 192, "macro_capacity": 2048}):
             jcfg, tcfg = JT.GSTrainConfig(**kw), TT.GSTrainConfig(**kw)
             js, ts = JT.make_settings_from_dims(h, w, jcfg), TT.make_settings_from_dims(h, w, tcfg)
-            assert ts._asdict() == js._asdict()
+            jfields = js._asdict()
+            del jfields["remat_composite"]
+            assert ts._asdict() == jfields
             assert TT._per_view_bytes(h, w, tcfg, ts) == JT._per_view_bytes(h, w, jcfg, js)
 
 

@@ -334,8 +334,9 @@ def test_macro_coeffs_match_jax(rng):
 
 @pytest.mark.parametrize("how", ["renderer", "use_pallas", "frame_fn"])
 def test_pallas_renders_of_the_committed_model_match_jax(bed_subset, rng, jax_interpret, how):
-    """render(renderer="pallas"), render(use_pallas=True) (both
-    rasterize_fast, the per-tile walk) and make_inference_frame_fn with
+    """render(renderer="pallas") against JAX's render(renderer="pallas")
+    and, in the use_pallas case, against JAX's render(use_pallas=True)
+    (rasterize_fast, the per-tile walk), and make_inference_frame_fn with
     composite_backend="pallas" at macro 4 (the coefficient walk) on 4096
     splats of bed_0037 at 96 x 128: mean abs <= 1e-5, and >= 99.9 % of
     values within 1e-4 for the per-tile walk. The coefficient walk keeps
@@ -361,13 +362,13 @@ def test_pallas_renders_of_the_committed_model_match_jax(bed_subset, rng, jax_in
         assert fn.settings.composite_backend == "pallas" and fn.settings.macro == 4
         out = TRN.render_frame(fn, cam)
     else:
-        kw = dict(renderer="pallas") if how == "renderer" else dict(use_pallas=True)
+        jkw = dict(renderer="pallas") if how == "renderer" else dict(use_pallas=True)
         jset = JRN.settings_from_selection(sel, 96, 128, max_per_tile=64)
         tset = TRN.settings_from_selection(sel, 96, 128, max_per_tile=64)
         ref = JRN.render(cam, js, jf, jnp.asarray(bg), style_f=jnp.asarray(style),
-                         mode="inference", settings=jset, **kw).render
+                         mode="inference", settings=jset, **jkw).render
         out = TRN.render(cam, ts, tf, _t(bg), style_f=_t(style), mode="inference",
-                         settings=tset, **kw).render
+                         settings=tset, renderer="pallas").render
     assert sum(TK.launch_counts().values()) == 0
     err = np.abs(out.numpy().astype(np.float64) - np.asarray(ref, np.float64))
     within = 0.995 if how == "frame_fn" else 0.999
