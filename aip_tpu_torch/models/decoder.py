@@ -4,7 +4,8 @@ Port of ``aip_tpu.models.decoder`` (reference ``AdaIN/net.py:6-36``).
 The last up2x -> conv 64->64 -> ReLU -> conv 64->3 runs as the fused
 ``decode_tail`` kernel whenever the walk reaches it: on a CUDA tensor that
 is always the hand-written kernel, on a CPU tensor its plain version. The
-other convs run as the encoder's (``models.vgg``): in bf16 where autograd
+other convs run as the encoder's (``models.vgg``): in fp32 where autograd
+records nothing, each goes to ``conv3x3_f32``; in bf16 where autograd
 records nothing, one ``conv_epilogue`` finishes each (bias, ReLU,
 upsample, the next conv's border), elsewhere the PyTorch op chain. A conv
 that is not an ``nn.Conv2d`` (the tensor-parallel conv of
@@ -21,7 +22,7 @@ from aip_tpu_torch.device import fp32_convs, resolve_device
 from aip_tpu_torch.kernels.adain_head import decode_tail
 from aip_tpu_torch.kernels.conv_epilogue import conv_epilogue, conv_epilogue_chain
 from aip_tpu_torch.models.vgg import (_empty_convs, conv_raw, epilogue_ops, he_normal_,
-                                      takes_epilogue)
+                                      walk_route)
 from aip_tpu_torch.utils.profiling import count, span
 
 # ('conv', in, out, torch_index) | ('relu',) | ('up',) | ('pad',)
@@ -75,6 +76,19 @@ class AdaINDecoder(nn.Module):
         return decoder_apply(self, x, compute_dtype)
 
 
+def walk_conv_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """(Cin, Cout, H_out, W_out) of each conv that an fp32 no-grad decode
+    of an h x w relu4_1 map sends to ``conv3x3_f32``, in walk order: every
+    conv before the tail's two."""
+    shapes, n_walk = [], len(conv_specs()) - 2
+    for layer in DECODER_LAYERS:
+        if layer[0] == "conv" and len(shapes) < n_walk:
+            shapes.append((layer[1], layer[2], h, w))
+        elif layer[0] == "up":
+            h, w = 2 * h, 2 * w
+    return shapes
+
+
 def init_decoder_params(seed: int = 1, device=None) -> AdaINDecoder:
     """He-normal random init (fallback when pretrained weights are absent)."""
     dec = AdaINDecoder(device)
@@ -86,23 +100,23 @@ def decoder_apply(params: AdaINDecoder, x: torch.Tensor,
                   compute_dtype=torch.float32) -> torch.Tensor:
     """Decode a [N, h, w, 512] relu4_1-space feature map to [N, 8h, 8w, 3]
     (NHWC, compute dtype). The last upsample and the two convs after it go
-    through ``decode_tail``. Where ``takes_epilogue`` (bf16, not recorded),
-    on a decoder of ``nn.Conv2d``s, one ``conv_epilogue`` finishes each
-    conv; elsewhere the PyTorch op chain runs. The convs run under
+    through ``decode_tail``. The other convs run by the walk's
+    ``walk_route`` (``models.vgg``). cuDNN's convs run under
     ``fp32_convs`` (no TF32 for fp32 convs). One ``adain.decode`` span,
     device-timed on a card."""
     convs = params.convs
-    fused = (takes_epilogue(x, convs, compute_dtype)
-             and all(isinstance(c, nn.Conv2d) for c in convs))
+    route = walk_route(x, convs, compute_dtype)
     with span("adain.decode", device=x), fp32_convs():
-        return _decode_layers(convs, x, compute_dtype, fused)
+        return _decode_layers(convs, x, compute_dtype, route)
 
 
-def _decode_layers(convs, x, compute_dtype, fused):
+def _decode_layers(convs, x, compute_dtype, route):
     """``decoder_apply``'s walk over ``DECODER_LAYERS`` on NHWC, each conv's
-    output finished by one ``conv_epilogue`` (fused) or by the op chain
-    (``conv_epilogue_chain``); the conv before the tail's upsample is
-    finished without a border and handed to ``decode_tail``."""
+    output (``conv_raw`` by ``route``) finished by one ``conv_epilogue``
+    ("epilogue") or by the op chain (``conv_epilogue_chain``); the conv
+    before the tail's upsample is finished without a border and handed to
+    ``decode_tail``."""
+    fused = route == "epilogue"
     finish = conv_epilogue if fused else conv_epilogue_chain
     n_convs = len(convs)
     t = finish(x.to(compute_dtype).contiguous())     # the leading ("pad",)
@@ -110,7 +124,7 @@ def _decode_layers(convs, x, compute_dtype, fused):
     while i < len(DECODER_LAYERS):
         conv = convs[ci]
         if isinstance(conv, nn.Conv2d):
-            raw, bias = conv_raw(t, conv, compute_dtype, fused)
+            raw, bias = conv_raw(t, conv, compute_dtype, route)
         else:   # a conv split over devices (parallel.train.ColumnParallelConv), bias added
             raw, bias = conv(t.permute(0, 3, 1, 2), compute_dtype).permute(0, 2, 3, 1), None
         relu, _, resample, border, i = epilogue_ops(DECODER_LAYERS, i)

@@ -60,7 +60,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    chain the walks ran before it (``conv_epilogue_chain`` on the NCHW conv
    output). Its kernel line's launches are phase 4's serving call's. Runs
    alone as ``python3 -c "import chip_smoke; chip_smoke.conv_epilogue_phase()"``,
-   then with a serving call of its own.
+   then with a serving call of its own. (fp32 walks launch the fp32 walk
+   conv instead where nothing records, and cuDNN where it records, so
+   there each output is held to the walk in float64 on the CPU, within
+   ``WALK_FLOAT64_TOL`` of its largest value.)
+8c. fp32 walk conv (``csrc/conv3x3_f32.cu``), ``conv3x3_f32_phase``: each
+   distinct walk conv shape of a 1 x 512x683 request
+   (``models.vgg.walk_conv_shapes``, ``models.decoder.walk_conv_shapes``;
+   ``scripts/bench_conv3x3_f32.py``'s ``measure``), one launch each, within
+   ``FP32_FLOAT64_TOL`` of the conv in float64 and no farther than cuDNN's
+   fp32 conv (TF32 off), then the kernel, ``conv3x3_f32`` on the walks'
+   NHWC view and cuDNN timed (20 calls in a CUDA-event window) beside the
+   three-TF32-product bound, and summed over the request's 14 convs; an
+   fp32 encode and decode launch it 14 times without grad and never when
+   recorded, each within ``WALK_FLOAT64_TOL`` of the walk in float64. Its
+   kernel line's launches are phase 5's fp32 request's (TF32 off), 21.
+   Runs alone as ``python3 -c "import chip_smoke;
+   chip_smoke.conv3x3_f32_phase()"``, then with an fp32 request of its
+   own. The fp32 paths below (phases 5, 6,
+   31-35, 38-40 and the paths of 41-46) also print its launches
+   (``conv3x3_f32_launches``, or ``conv3x3_f32`` among a path's counts).
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -466,9 +485,13 @@ PEAK_BYTES = 3.35e12
 # read 2.5-5.1e-6 and misses this limit, as does a 3xbf16 split (5-7e-6,
 # emulated on the CPU).
 FP32_FLOAT64_TOL = 1.5e-6
+# An fp32 encode to relu4_1 and decode (seeded nets, no grad or recorded)
+# against the same walk in float64 on the CPU, max abs over the largest
+# float64 value: PERF.md gives the readings on the card it was set from.
+WALK_FLOAT64_TOL = 1e-5
 
 SOURCES = ("adain_head", "adain_head_tc", "composite", "composite_ad", "hashgrad", "tvl1",
-           "composite_walk", "conv_epilogue")
+           "composite_walk", "conv_epilogue", "conv3x3_f32")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:278"),
@@ -484,7 +507,44 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "hash_grad": ("hashgrad", "aip_tpu/ops/pallas/hashgrad.py:74"),
     "tvl1": ("tvl1", "aip_tpu/ops/pallas/tvl1.py:99"),
     "conv_epilogue": ("conv_epilogue", "none (aip_tpu leaves the chain to XLA's fusion)"),
+    "conv3x3_f32": ("conv3x3_f32", "none (aip_tpu leaves the walks' 3x3 convs to XLA)"),
 }
+
+
+def _fp32_walk_launches():
+    """The fp32 walk conv's launches since its count was last set to 0."""
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+
+    return KF.launch_counts()["conv3x3_f32"]
+
+
+def _reset_fp32_counts(K):
+    """Sets the AdaIN head and tail's launch counts (``K``) and the fp32
+    walk conv's to 0."""
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+
+    K.reset_launch_counts()
+    KF.reset_launch_counts()
+
+
+def _float64_walk(torch, enc, dec, x):
+    """The encode to relu4_1 and decode of ``x`` by copies of ``enc`` and
+    ``dec`` in float64 on the CPU."""
+    import copy
+
+    from aip_tpu_torch.models import decoder as tdec
+    from aip_tpu_torch.models import vgg as tvgg
+
+    f64 = torch.float64
+    with torch.no_grad():
+        enc64, dec64 = copy.deepcopy(enc).to("cpu", f64), copy.deepcopy(dec).to("cpu", f64)
+        return tdec.decoder_apply(dec64, tvgg.vgg_encode(enc64, x.cpu().to(f64), "relu4_1", f64),
+                                  f64)
+
+
+def _from_float64(out, ref64):
+    """max |out - ref64| over the largest |ref64|."""
+    return float((out.detach().cpu().double() - ref64).abs().max() / ref64.abs().max())
 
 
 def emit(phase, **fields):
@@ -609,23 +669,28 @@ def main():
                                              ("pytorch_defaults", default_tf32)):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
             tf32_conv, tf32_matmul)
-        K.reset_launch_counts()
+        _reset_fp32_counts(K)
         m, s = adain_infer.precompute_style_stats(vgg, sty, compute_dtype=f32, device=dev)
         on_card = adain_infer.stylize_with_stats(vgg, dec, img, m, s, compute_dtype=f32,
                                                  device=dev).cpu()
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         card_launches = K.launch_counts()
         routes = K.route_launch_counts()
+        walk_launches = _fp32_walk_launches()
         diff = (on_card - on_cpu).abs()
         emit("end_to_end_fp32", size=256, flags=flags, tf32_conv=tf32_conv,
              tf32_matmul=tf32_matmul, mean_abs=diff.mean().item(), max_abs=diff.max().item(),
-             launches_on_card=card_launches, route_launches=routes, tol_mean_abs=1e-3)
+             launches_on_card=card_launches, route_launches=routes,
+             conv3x3_f32_launches=walk_launches, tol_mean_abs=1e-3)
         if not (diff.mean().item() <= 1e-3 and min(card_launches.values()) > 0
-                and routes["fp32"] == card_launches):
+                and routes["fp32"] == card_launches and walk_launches == 21):
             raise AssertionError(f"card and CPU disagree end to end ({flags}), or an fp32 "
-                                 f"launch missed the fp32 route: {routes}")
+                                 f"launch missed the fp32 route: {routes}, walk conv "
+                                 f"{walk_launches} (21: the style's encoder, the content's, "
+                                 f"the decoder)")
         if flags == "tf32_off":
             launches.update({f"{k}_fp32": n for k, n in card_launches.items()})
+            request_walk_launches = walk_launches
 
     # 6. CLI ----------------------------------------------------------------
     from PIL import Image
@@ -639,14 +704,14 @@ def main():
         paths.append(str(p))
     for flags in ([], ["--use_depth"]):
         name = "depth" if flags else "plain"
-        K.reset_launch_counts()
+        _reset_fp32_counts(K)
         path = run_depth.main(["--content", paths[0], "--style", paths[1], "--output",
                                str(cli_dir), "--file_name", name, *flags])
         torch.cuda.synchronize()
         counts = K.launch_counts()
         size = Image.open(path).size if path.exists() else None
         emit("cli", flags=flags, output=str(path.relative_to(ROOT)), image_size=size,
-             launches=counts, file_io=True)
+             launches=counts, conv3x3_f32_launches=_fp32_walk_launches(), file_io=True)
         if size is None or min(counts.values()) <= 0:
             raise AssertionError(f"CLI run {flags} wrote nothing or launched no kernel")
 
@@ -739,6 +804,9 @@ def main():
     # 8b. the conv epilogue between the VGG and decoder convs -------------------
     lines.append(conv_epilogue_phase(torch, dev, serve_launches=epilogues))
     torch.cuda.empty_cache()
+    # 8c. the fp32 walk conv -----------------------------------------------------
+    lines.append(conv3x3_f32_phase(torch, dev, request_launches=request_walk_launches))
+    torch.cuda.empty_cache()
 
     # 9-14. stylized 3DGS inference render -------------------------------------
     gs_lines, bed = _gs_phases(torch, dev)
@@ -761,9 +829,9 @@ def main():
     # 38-40. AdaIN decoder training, magenta distillation, MiDaS -------------------
     by_path = _slice7_phases(torch, dev, default_tf32)
     for line in lines:
-        if line["name"] in ("encode_head_fp32", "decode_tail_fp32"):
-            line["launches_by_path"] = {path: counts[line["name"][:-5]]
-                                        for path, counts in by_path.items()}
+        if line["name"] in ("encode_head_fp32", "decode_tail_fp32", "conv3x3_f32"):
+            key = line["name"] if line["name"] == "conv3x3_f32" else line["name"][:-5]
+            line["launches_by_path"] = {path: counts[key] for path, counts in by_path.items()}
     torch.cuda.empty_cache()
     # 41-43. multi-view training, the meshes, Gaussian-sharded rendering ----------
     slice8, block0_err = _slice8_phases(torch, dev, bed, default_tf32)
@@ -1105,6 +1173,7 @@ def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
     dec = tdec.init_decoder_params(1, device=dev)
     x = torch.rand(2, 96, 128, 3, generator=gen, device=dev)
     walks = {}
+    ref64 = _float64_walk(torch, enc, dec, x)
     for dtype in (bf16, f32):
         for grad in (False, True):
             KE.reset_launch_counts()
@@ -1114,13 +1183,23 @@ def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
             walks[(dtype, grad)] = (out.detach(), KE.launch_counts()["conv_epilogue"])
         (fused, n_fused), (chain, n_chain) = walks[(dtype, False)], walks[(dtype, True)]
         diff = float((fused.float() - chain.float()).abs().max())
+        # bf16: the same cuDNN convs either way, so the same bits. fp32: no grad
+        # the fp32 walk conv kernel, recorded cuDNN, each held to float64.
+        fields = ({"bit_equal": bool(torch.equal(fused, chain))} if dtype == bf16 else
+                  {"no_grad_from_float64": _from_float64(fused, ref64),
+                   "recorded_from_float64": _from_float64(chain, ref64),
+                   "tol_float64": WALK_FLOAT64_TOL})
         emit("conv_epilogue_walks", dtype=str(dtype)[6:], launches_no_grad=n_fused,
-             launches_recorded=n_chain, bit_equal=bool(torch.equal(fused, chain)),
-             max_abs=diff, max_ref=float(chain.float().abs().max()))
-        want = 16 if dtype == bf16 else 0     # fp32 keeps the chain (NCHW cuDNN convs)
-        if n_fused != want or n_chain != 0 or not torch.equal(fused, chain):
+             launches_recorded=n_chain, max_abs=diff,
+             max_ref=float(chain.float().abs().max()), **fields)
+        want = 16 if dtype == bf16 else 0     # the epilogue is bf16 only
+        same = (fields["bit_equal"] if dtype == bf16 else
+                max(fields["no_grad_from_float64"], fields["recorded_from_float64"])
+                <= WALK_FLOAT64_TOL)
+        if n_fused != want or n_chain != 0 or not same:
             raise AssertionError(f"conv_epilogue launches {n_fused} (no grad; {want} expected), "
-                                 f"{n_chain} (recorded; 0 expected), or the outputs differ")
+                                 f"{n_chain} (recorded; 0 expected), or the outputs differ: "
+                                 f"{fields}")
     if serve_launches is None:    # run alone: a serving call of its own
         content = torch.rand(32, 512, 512, 3, generator=gen, device=dev)
         mean, std = adain_infer.precompute_style_stats(enc, content[:1], device=dev)
@@ -1178,6 +1257,100 @@ def conv_epilogue_phase(torch=None, dev=None, serve_launches=None):
             "max_abs_err": max_abs_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "bytes",
             "library_ms": totals["chain_ms"]}
+
+
+def conv3x3_f32_phase(torch=None, dev=None, request_launches=None):
+    """Phase 8c (see the module docstring). ``request_launches``: the
+    kernel's launches in phase 5's fp32 request (TF32 off); run alone, the
+    phase makes a request of its own. Returns the kernel's line."""
+    if torch is None:
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        sys.path.insert(0, str(ROOT))
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=_card(),
+             torch=torch.__version__, cuda=torch.version.cuda)
+    from collections import Counter
+
+    from aip_tpu_torch.kernels import _build
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+    from aip_tpu_torch.models import decoder as tdec
+    from aip_tpu_torch.models import vgg as tvgg
+    from aip_tpu_torch.pipelines import adain_infer
+    from scripts.bench_conv3x3_f32 import measure, walk_shapes
+
+    t0 = time.perf_counter()
+    report = _build.build("conv3x3_f32")
+    lib = _build.library("conv3x3_f32")
+    emit("conv3x3_f32_build", seconds=time.perf_counter() - t0, compiled=bool(report),
+         registers=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l],
+         dynamic_smem_bytes={"rows8": lib.aip_conv3x3_f32_smem(1),
+                             "rows16": lib.aip_conv3x3_f32_smem(2)})
+
+    # Each walk shape of a 512x683 request (the encoder past its head, the
+    # decoder before its tail): against float64 and cuDNN, then timed.
+    gen = torch.Generator(device=dev).manual_seed(14)
+    uses = Counter(walk_shapes(512, 683))
+    totals = Counter()
+    worst = 0.0
+    for shape, n in uses.items():
+        row = measure(torch, dev, gen, 1, *shape)
+        row["uses"] = n
+        emit("conv3x3_f32_shape", **row, tol_float64=FP32_FLOAT64_TOL,
+             timing="20 calls in one CUDA-event window, median of 5")
+        if not (row["err_kernel"] <= FP32_FLOAT64_TOL and row["err_kernel"] <= row["err_cudnn"]
+                and row["kernel_launches"] == 1):
+            raise AssertionError(f"conv3x3_f32 at {shape}: {row['err_kernel']} from float64 "
+                                 f"(cuDNN {row['err_cudnn']}), {row['kernel_launches']} launches")
+        worst = max(worst, row["err_kernel"])
+        for key in ("kernel_ms", "wrapper_ms", "cudnn_ms", "bound_ms", "bound_fp32_ms"):
+            totals[key] += row[key] * n
+        torch.cuda.empty_cache()
+    emit("conv3x3_f32_request", size="512x683", convs=sum(uses.values()), **totals,
+         bound_share=totals["bound_ms"] / totals["kernel_ms"], max_err_float64=worst)
+
+    # The walks: an fp32 encode and decode launch it once a conv past the
+    # head (7 a net) where autograd records nothing, never where it records;
+    # each output held to the same walk in float64.
+    enc = tvgg.init_vgg_params(0, device=dev)
+    dec = tdec.init_decoder_params(1, device=dev)
+    x = torch.rand(2, 96, 128, 3, generator=gen, device=dev)
+    ref64 = _float64_walk(torch, enc, dec, x)
+    walks = {}
+    for grad in (False, True):
+        KF.reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            out = tdec.decoder_apply(dec, tvgg.vgg_encode(enc, x, "relu4_1"))
+        torch.cuda.synchronize()
+        walks[grad] = (_from_float64(out, ref64), KF.launch_counts()["conv3x3_f32"])
+    emit("conv3x3_f32_walks", launches_no_grad=walks[False][1], launches_recorded=walks[True][1],
+         no_grad_from_float64=walks[False][0], recorded_from_float64=walks[True][0],
+         tol_float64=WALK_FLOAT64_TOL)
+    if (walks[False][1] != 14 or walks[True][1] != 0
+            or max(walks[False][0], walks[True][0]) > WALK_FLOAT64_TOL):
+        raise AssertionError(f"fp32 walks launched conv3x3_f32 {walks[False][1]} times (no "
+                             f"grad; 14 expected), {walks[True][1]} (recorded; 0), or lie "
+                             f"{walks} from float64")
+    if request_launches is None:    # run alone: an fp32 request of its own
+        img, sty = (torch.rand(1, 256, 256, 3, generator=gen, device=dev) for _ in range(2))
+        KF.reset_launch_counts()
+        mean, std = adain_infer.precompute_style_stats(enc, sty, compute_dtype=torch.float32,
+                                                       device=dev)
+        adain_infer.stylize_with_stats(enc, dec, img, mean, std, compute_dtype=torch.float32,
+                                       device=dev)
+        torch.cuda.synchronize()
+        request_launches = KF.launch_counts()["conv3x3_f32"]
+        emit("conv3x3_f32_request_launches", size=256, launches=request_launches)
+    if request_launches != 21:
+        raise AssertionError(f"an fp32 request launched conv3x3_f32 {request_launches} times, "
+                             f"not 21 (7 convs of the style's encode, the content's, the decode)")
+    return {"name": "conv3x3_f32", "route": "cuda", "source": "aip_tpu_torch/csrc/conv3x3_f32.cu",
+            "replaces": KERNELS["conv3x3_f32"][1], "launches": request_launches,
+            "max_abs_err": worst, "ms": totals["kernel_ms"], "plain_ms": totals["cudnn_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": "operations",
+            "library_ms": totals["cudnn_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3621,7 +3794,7 @@ def _slice5_phases(torch, dev, default_tf32):
         def by_shape(name):
             return lambda a: (name, tuple(a[0].shape), a[0].dtype)
 
-        KA.reset_launch_counts()
+        _reset_fp32_counts(KA)
         t0 = time.perf_counter()
         with _capture(VGG, "encode_head", served, key=by_shape("encode_head")), \
                 _capture(DEC, "decode_tail", served, key=by_shape("decode_tail")):
@@ -3631,6 +3804,7 @@ def _slice5_phases(torch, dev, default_tf32):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         fp32_launches = KA.route_launch_counts()["fp32"]
+        walk_launches = _fp32_walk_launches()
         combined_card = LOC.composite_localized(
             content, _to_array(SLICE5_WORK / "card" / "test.jpg"), mask_card, device=dev)
     finally:
@@ -3650,7 +3824,8 @@ def _slice5_phases(torch, dev, default_tf32):
          segmenter="classical (border colour)", content_hw=[h, w], style_hw=[512, 512],
          flags="pytorch_defaults", tf32_conv=default_tf32[0], tf32_matmul=default_tf32[1],
          result=str(Path(result).relative_to(ROOT)), result_size=Image.open(result).size,
-         background_share=bg_share, fp32_launches=fp32_launches, wall_s_first_call=first_s,
+         background_share=bg_share, fp32_launches=fp32_launches,
+         conv3x3_f32_launches=walk_launches, wall_s_first_call=first_s,
          masks_differ_px=int(differ.sum()), masks_differ_outside_band_px=int(
              (differ & ~in_band).sum()), pixels_in_band=int(in_band.sum()), band=MASK_BAND,
          combined_mean_abs=float(err.mean()), combined_max_abs=float(err.max()),
@@ -3660,8 +3835,9 @@ def _slice5_phases(torch, dev, default_tf32):
         raise AssertionError("the localized call wrote no result of the content's size")
     if not 0.2 <= bg_share <= 0.8:
         raise AssertionError(f"the classical mask keeps {bg_share} background, not 20-80 %")
-    if min(fp32_launches.values()) <= 0:
-        raise AssertionError(f"an fp32 AdaIN kernel was not launched: {fp32_launches}")
+    if min(fp32_launches.values()) <= 0 or walk_launches <= 0:
+        raise AssertionError(f"an fp32 AdaIN kernel was not launched: {fp32_launches}, "
+                             f"walk conv {walk_launches}")
     if (differ & ~in_band).any():
         raise AssertionError("card and CPU masks differ outside the threshold band")
     if not err.mean() <= LOCALIZED_TOL:
@@ -3682,7 +3858,7 @@ def _slice5_phases(torch, dev, default_tf32):
         _conv_profile(torch, lambda: LOC.run_localized_style_transfer(
             str(content_png), str(style_png), output_path=str(SLICE5_WORK / "card"), device=dev),
             "localized_conv_profile")
-        KA.reset_launch_counts()
+        _reset_fp32_counts(KA)
         cli_out = run_semantic_segm.main(["--content", str(content_png), "--style",
                                           str(style_png), "--output", str(SLICE5_WORK / "cli")])
         torch.cuda.synchronize()
@@ -3692,7 +3868,8 @@ def _slice5_phases(torch, dev, default_tf32):
     emit("localized_time", wall_ms=statistics.median(wall_ms), wall_ms_runs=wall_ms,
          timing="host clock, median of 3, JPEG IO included")
     emit("localized_cli", entry="aip_tpu_torch.cli.run_semantic_segm.main",
-         output=str(Path(cli_out).relative_to(ROOT)), fp32_launches=cli_launches)
+         output=str(Path(cli_out).relative_to(ROOT)), fp32_launches=cli_launches,
+         conv3x3_f32_launches=_fp32_walk_launches())
     if not (Path(cli_out).is_file() and min(cli_launches.values()) > 0):
         raise AssertionError("the run_semantic_segm CLI wrote nothing or launched no kernel")
 
@@ -3737,7 +3914,7 @@ def _slice5_phases(torch, dev, default_tf32):
     del out, ref, params_cpu
     SEG.register_segmenter(DL.make_background_segmenter(params))
     try:
-        KA.reset_launch_counts()
+        _reset_fp32_counts(KA)
         deeplab_result = LOC.run_localized_style_transfer(
             str(content_png), str(style_png), output_path=str(SLICE5_WORK / "deeplab"),
             device=dev)
@@ -3748,6 +3925,7 @@ def _slice5_phases(torch, dev, default_tf32):
     dl_launches = KA.route_launch_counts()["fp32"]
     emit("localized_deeplab", segmenter="deeplab.make_background_segmenter (registered)",
          result=str(Path(deeplab_result).relative_to(ROOT)), fp32_launches=dl_launches,
+         conv3x3_f32_launches=_fp32_walk_launches(),
          background_share=float(dl_mask.float().mean()))
     if not (Path(deeplab_result).is_file() and min(dl_launches.values()) > 0):
         raise AssertionError("the registered DeepLab segmenter's localized run failed")
@@ -4147,7 +4325,7 @@ def _depixelize_phase(torch, dev, default_tf32, check):
                 return lambda a: (name, tuple(a[0].shape), a[0].dtype)
 
             _set_tf32(torch, tf32)
-            KA.reset_launch_counts()
+            _reset_fp32_counts(KA)
             try:
                 with _capture(VGG, "encode_head", served, key=by_shape("encode_head")), \
                         _capture(DEC, "decode_tail", served, key=by_shape("decode_tail")):
@@ -4164,6 +4342,7 @@ def _depixelize_phase(torch, dev, default_tf32, check):
             emit("depixelize_and_stylize", method="adain", flags=flags, tf32_conv=tf32[0],
                  sprite_hw=list(SPRITE_HW), scale=10, raster_hw=list(raster.shape[:2]),
                  out_shape=list(saved[str(path)].shape), fp32_launches=launches,
+                 conv3x3_f32_launches=_fp32_walk_launches(),
                  mean_abs_err=err, tol=STYLIZE_TOL, wall_s=wall_s,
                  timing="host clock, the first call in these flags: depixelize, depth, "
                         "AdaIN fp32, JPEG")
@@ -4592,13 +4771,15 @@ def _fp32_gate(ref, ref64):
 
 def _train_cli(torch, K, name, main, argv):
     """Run a trainer's CLI with the launch counts set to 0 just before and
-    read just after; returns (wall s, fp32 and bf16 launches)."""
-    K.reset_launch_counts()
+    read just after; returns (wall s, fp32 and bf16 launches, the fp32 walk
+    conv's under "conv3x3_f32")."""
+    _reset_fp32_counts(K)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     main(argv)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, K.route_launch_counts()
+    return time.perf_counter() - t0, {**K.route_launch_counts(),
+                                      "conv3x3_f32": _fp32_walk_launches()}
 
 
 def _step_checks(torch, K, default_tf32, label, module, loss_fn, grads_fn, loss_cpu, ref, ref64):
@@ -4770,7 +4951,7 @@ def _adain_train_phase(torch, dev, default_tf32, dirs):
 
     _train_timing(torch, K, "adain_train", one,
                   "one make_train_step step, batch 8 x 256^2, fp32, TF32 off", cap.tail[0])
-    return routes["fp32"]
+    return {**routes["fp32"], "conv3x3_f32": routes["conv3x3_f32"]}
 
 
 def _distill_phase(torch, dev, default_tf32, dirs):
@@ -4867,7 +5048,7 @@ def _distill_phase(torch, dev, default_tf32, dirs):
          mean_abs_err=err, tol=MAGENTA_FP32_TOL, finite=bool(torch.isfinite(out).all()))
     if not err <= MAGENTA_FP32_TOL:
         raise AssertionError(f"the distilled stylizer's frame: card {err} from the CPU")
-    return routes["fp32"]
+    return {**routes["fp32"], "conv3x3_f32": routes["conv3x3_f32"]}
 
 
 def _midas_phase(torch, dev, default_tf32, dirs):
@@ -4912,14 +5093,15 @@ def _midas_phase(torch, dev, default_tf32, dirs):
     for where in ("cpu", dev):
         MD.use_midas(None, device=where)
         try:
-            K.reset_launch_counts()
+            _reset_fp32_counts(K)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             path = adain_inference(str(content), str(style), output=str(SLICE7_WORK / "depth"),
                                    file_name=f"midas_{torch.device(where).type}",
                                    save_ext=".png", use_depth=True, device=where)
             torch.cuda.synchronize()
-            calls[torch.device(where).type] = (time.perf_counter() - t0, K.route_launch_counts())
+            calls[torch.device(where).type] = (time.perf_counter() - t0, {
+                **K.route_launch_counts(), "conv3x3_f32": _fp32_walk_launches()})
             outs[torch.device(where).type] = np.asarray(Image.open(path), np.float32) / 255.0
             if where == dev:
                 device_ms, _ = _stage_profile(
@@ -4942,7 +5124,7 @@ def _midas_phase(torch, dev, default_tf32, dirs):
     if not (err <= DEPTH_CALL_TOL and min(routes["fp32"].values()) > 0 and same):
         raise AssertionError(f"the MiDaS depth call failed: err {err}, launches {routes}, "
                              f"classical proxy restored {same}")
-    return routes["fp32"]
+    return {**routes["fp32"], "conv3x3_f32": routes["conv3x3_f32"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4984,14 +5166,14 @@ def _slice8_phases(torch, dev, bed, default_tf32):
     return by_path, block0_err
 
 
-def _path_launches(K, KAD, KH, KT, KC):
+def _path_launches(K, KAD, KH, KT, KC, KF):
     """Every kernel wrapper's count, by the kernels table's names (the AdaIN
     head and tail per route)."""
     routes = K.route_launch_counts()
     out = {**{k: n for k, n in routes["bf16"].items()},
            **{f"{k}_fp32": n for k, n in routes["fp32"].items()},
            **KAD.launch_counts(), **KH.launch_counts(), **KT.launch_counts(),
-           **KC.launch_counts()}
+           **KC.launch_counts(), **KF.launch_counts()}
     return out
 
 
@@ -5004,10 +5186,11 @@ def _kernel_modules():
     from aip_tpu_torch.kernels import adain_head as K
     from aip_tpu_torch.kernels import composite as KC
     from aip_tpu_torch.kernels import composite_ad as KAD
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
     from aip_tpu_torch.kernels import hashgrad as KH
     from aip_tpu_torch.kernels import tvl1 as KT
 
-    return K, KAD, KH, KT, KC
+    return K, KAD, KH, KT, KC, KF
 
 
 def _run_path(torch, name, fn, expect):

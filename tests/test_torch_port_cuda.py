@@ -1867,7 +1867,10 @@ def test_conv_epilogue_equals_its_plain_version_bit_for_bit(cuda, mode):
 def test_no_grad_walks_launch_one_epilogue_a_conv(cuda, dtype):
     """Encode to relu4_1 and decode in bf16: 7 convs a net past the head,
     and one border for each net's input; a recorded call, and any fp32
-    call, launches none; recorded or not, the output is the same."""
+    call, launches none; recorded or not, the output is the same. bf16: bit
+    for bit. fp32: a no-grad walk's convs are the fp32 walk conv kernel's
+    and a recorded one's cuDNN's, so each is held to the same walk in
+    float64 on the CPU, within WALK_FLOAT64_TOL of its largest value."""
     from aip_tpu_torch.kernels import conv_epilogue as KE
 
     vgg, dec = tvgg.init_vgg_params(0, cuda), tdec.init_decoder_params(1, cuda)
@@ -1880,7 +1883,30 @@ def test_no_grad_walks_launch_one_epilogue_a_conv(cuda, dtype):
         torch.cuda.synchronize()
         assert KE.launch_counts() == {"conv_epilogue": 16 if dtype == torch.bfloat16 and not grad
                                       else 0}
-    assert torch.equal(outs[False], outs[True].detach())
+    if dtype == torch.bfloat16:
+        assert torch.equal(outs[False], outs[True].detach())
+    else:   # no grad: the fp32 walk conv kernel; recorded: cuDNN
+        ref = _float64_walk(vgg, dec, x)
+        errs = [_max_rel_err(out.cpu().double(), ref) for out in outs.values()]
+        assert max(errs) <= WALK_FLOAT64_TOL, errs
+
+
+# An fp32 encode to relu4_1 and decode of seeded nets against the same walk
+# in float64 on the CPU, max abs over the largest float64 value; the
+# readings on an H100 it was set from are in PERF.md (row F).
+WALK_FLOAT64_TOL = 1e-5
+
+
+def _float64_walk(vgg, dec, x):
+    """Encode ``x`` to relu4_1 and decode it by copies of the nets in
+    float64 on the CPU."""
+    import copy
+
+    f64 = torch.float64
+    with torch.no_grad():
+        vgg64, dec64 = copy.deepcopy(vgg).to("cpu", f64), copy.deepcopy(dec).to("cpu", f64)
+        return tdec.decoder_apply(dec64, tvgg.vgg_encode(vgg64, x.cpu().to(f64), "relu4_1", f64),
+                                  f64)
 
 
 @pytest.mark.cuda
@@ -1895,3 +1921,108 @@ def test_conv_epilogue_refuses_what_the_kernel_does_not_take(cuda):
     for dtype in (torch.float32, torch.float16):           # the kernel is bf16 only
         with pytest.raises(TypeError):
             KE.conv_epilogue(raw.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# The fp32 walk conv (csrc/conv3x3_f32.cu)
+# ---------------------------------------------------------------------------
+
+def _walk_conv_shapes(h, w, decoder=True):
+    """The distinct (Cin, Cout, H_out, W_out) of the fp32 walk convs on an
+    h x w image: the encoder's past its head and, with ``decoder``, the
+    decoder's before its tail on the encoder's relu4_1 map."""
+    shapes = tvgg.walk_conv_shapes(h, w)
+    if decoder:
+        shapes += tdec.walk_conv_shapes(*shapes[-1][2:])
+    return list(dict.fromkeys(shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,decoder", [(1, 512, 683, True), (1, 512, 910, True),
+                                           (1, 512, 512, False), (4, 512, 683, True)])
+def test_fp32_walk_conv_kernel_holds_float64_on_every_walk_shape(cuda, b, h, w, decoder):
+    """Every walk conv shape of a request's content (512x683), the
+    localized cell's (512x910), the style's encoder (512^2) and batch 4:
+    one launch each, within 1.5e-6 of the largest value of the conv in
+    float64, and no farther from it than cuDNN's fp32 conv (TF32 off) on
+    the same input, FFT convs included."""
+    import torch.nn.functional as F
+
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    errs = {}
+    for cin, cout, ho, wo in _walk_conv_shapes(h, w, decoder):
+        x = torch.relu(torch.randn(b, cin, ho, wo, generator=gen, device=cuda))
+        x = F.pad(x, (1, 1, 1, 1), mode="reflect")
+        wt = torch.randn(cout, cin, 3, 3, generator=gen, device=cuda) * (2 / (9 * cin)) ** .5
+        KF.reset_launch_counts()
+        out = KF.conv3x3_f32(x.permute(0, 2, 3, 1), wt)
+        torch.cuda.synchronize()
+        assert KF.launch_counts() == {"conv3x3_f32": 1}
+        assert out.shape == (b, ho, wo, cout) and out.is_contiguous()
+        ref = F.conv2d(x.double(), wt.double()).permute(0, 2, 3, 1)
+        cudnn = F.conv2d(x, wt).permute(0, 2, 3, 1)
+        errs[(cin, cout, ho, wo)] = (_max_rel_err(out.double(), ref),
+                                     _max_rel_err(cudnn.double(), ref))
+        del ref, cudnn
+    assert max(k for k, _ in errs.values()) <= 1.5e-6, errs
+    assert all(k <= c for k, c in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_fp32_adain_inference_launches_the_walk_conv_and_no_fft_conv(cuda, tmp_path):
+    """A profiled fp32 ``adain_inference`` of a 1024x768 content (512x683
+    at 512) and a 768^2 style: 21 walk conv launches (7 encoder convs for
+    the content, 7 for the style, 7 decoder convs) and none of cuDNN's FFT
+    conv's kernels: no cuFFT kernel, no ``region_transform`` and no cuBLAS
+    gemv on complex (``float2``) operands. (The resizes' real fp32 gemv
+    stays.)"""
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+    from aip_tpu_torch.pipelines.adain_infer import adain_inference
+
+    g = np.random.default_rng(21)
+    for name, shape in (("c.png", (768, 1024, 3)), ("s.png", (768, 768, 3))):
+        Image.fromarray(g.integers(0, 256, shape, dtype=np.uint8)).save(tmp_path / name)
+    args = (str(tmp_path / "c.png"), str(tmp_path / "s.png"))
+    adain_inference(*args, save_ext=".png", output=str(tmp_path), file_name="warm", device=cuda)
+    KF.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        adain_inference(*args, save_ext=".png", output=str(tmp_path), file_name="x",
+                        device=cuda)
+        torch.cuda.synchronize()
+    assert KF.launch_counts() == {"conv3x3_f32": 21}
+    kernels = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert any("conv3x3_f32" in k for k in kernels)
+    fft_conv = [k for k in kernels if "fft" in k.lower() or "region_transform" in k
+                or ("gemv" in k and "float2" in k)]
+    assert not fft_conv, fft_conv
+
+
+@pytest.mark.cuda
+def test_a_recorded_decoder_walk_launches_no_walk_conv_and_keeps_its_gradients(cuda):
+    """The decoder under autograd (a training step's forward) keeps cuDNN:
+    no walk conv launch, and every parameter's gradient within 1e-4 of its
+    largest value of the CPU's; the same walk without grad launches 7."""
+    import copy
+
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+
+    dec_c = tdec.init_decoder_params(1, "cpu")
+    dec = copy.deepcopy(dec_c).to(cuda)
+    f = torch.relu(torch.randn(1, 12, 16, 512, generator=torch.Generator().manual_seed(22)))
+    grads = {}
+    for net, x in ((dec_c, f), (dec, f.to(cuda))):
+        KF.reset_launch_counts()
+        loss = tdec.decoder_apply(net, x).square().mean()
+        grads[x.device.type] = torch.autograd.grad(loss, list(net.parameters()))
+        torch.cuda.synchronize()
+        assert KF.launch_counts() == {"conv3x3_f32": 0}
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert _max_rel_err(g_card.cpu(), g_cpu) <= 1e-4
+    with torch.no_grad():
+        tdec.decoder_apply(dec, f.to(cuda))
+    assert KF.launch_counts() == {"conv3x3_f32": 7}

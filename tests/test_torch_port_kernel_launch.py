@@ -78,6 +78,7 @@ COUNTERS = {
     "hashgrad": {"hash_grad"},
     "tvl1": {"tvl1"},
     "conv_epilogue": {"conv_epilogue"},
+    "conv3x3_f32": {"conv3x3_f32"},
 }
 
 
