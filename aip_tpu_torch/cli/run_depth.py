@@ -1,6 +1,8 @@
 """AdaIN stylisation CLI (reference ``AdaIN/run_depth.py:17-55`` arguments,
-plus ``--device``). ``python -m aip_tpu_torch.cli.run_depth --content c.jpg
---style s.jpg [--use_depth] [--device cuda|cpu]``."""
+plus ``--device`` and the depth network's flags). ``python -m
+aip_tpu_torch.cli.run_depth --content c.jpg --style s.jpg [--use_depth
+[--depth_model midas_small|dpt_large] [--depth_weights hub.pt]
+[--save_depth]] [--device cuda|cpu]``."""
 
 import argparse
 
@@ -20,6 +22,13 @@ def main(argv=None):
                         help="Depth prominence factor.")
     parser.add_argument("--use_depth", action="store_true",
                         help="Enable depth-aware stylization.")
+    parser.add_argument("--depth_model", type=str, default=None,
+                        choices=("midas_small", "dpt_large"),
+                        help="Learned depth network (default: the classical proxy).")
+    parser.add_argument("--depth_weights", type=str, default=None,
+                        help="The depth network's hub state dict (default: seeded init).")
+    parser.add_argument("--save_depth", action="store_true",
+                        help="Also write <file_name>_depth.png (16-bit proximity).")
     parser.add_argument("--alpha", type=float, default=0.5,
                         help="Content/style blend factor.")
     parser.add_argument("--preserve_color", action="store_true",
@@ -38,6 +47,9 @@ def main(argv=None):
         output=args.output,
         file_name=args.file_name,
         use_depth=args.use_depth,
+        depth_model=args.depth_model,
+        depth_weights=args.depth_weights,
+        save_depth=args.save_depth,
         alpha=args.alpha,
         preserve_color=args.preserve_color,
         device=args.device,

@@ -43,3 +43,17 @@ def fp32_convs():
         yield
     finally:
         cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """cuBLAS's fp32 matmuls in full fp32 inside the block, whatever the
+    process set (``torch.backends.cuda.matmul.allow_tf32``, which a caller
+    may have turned on for speed); its old value comes back on exit."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = old

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from aip_tpu_torch.device import fp32_convs, resolve_device
+from aip_tpu_torch.utils.profiling import count
 
 # EfficientNet-Lite3 (width 1.2, depth 1.4): per-stage
 # (expand, channels, repeats, stride, kernel).
@@ -366,7 +367,8 @@ def _to_image(img, device: torch.device) -> torch.Tensor:
 def make_depth_estimator(params: MidasNet):
     """fn(img HWC [0,1] or uint8, numpy or tensor) -> [H, W] proximity on the
     weights' device, for ``models.depthnet.register_depth_model``: the hub's
-    normalisation, 256^2 bicubic in and out."""
+    normalisation, 256^2 bicubic in and out. Counter ``depth.network_calls``
+    (under a profiler): the estimates that ran the network."""
     from aip_tpu_torch.ops.image import resize_bicubic
 
     device = next(params.parameters()).device
@@ -376,6 +378,7 @@ def make_depth_estimator(params: MidasNet):
         x = _to_image(img, device)
         h, w = x.shape[0], x.shape[1]
         pred = params(resize_bicubic(x[None], (WORK_SIZE, WORK_SIZE)))
+        count("depth.network_calls", 1)
         # Hub post-processing: bicubic upsample back to the input size.
         return resize_bicubic(pred[0][:, :, None], (h, w))[:, :, 0]
 

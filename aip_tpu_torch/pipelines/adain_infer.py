@@ -10,6 +10,14 @@ Parity with the reference ``AdaIN/test.py``:
   image save); returns the output path;
 * ``get_style_embeddings`` (:27-49): relu4_1 features of a style image.
 
+The depth-aware path's network is the caller's choice: ``depth_model=None``
+keeps the ``depth_fn``, registered-estimator, classical-proxy order;
+``"midas_small"`` (``models.midas``, the reference's ``--use_depth``
+network, :84-116) or ``"dpt_large"`` (``models.dpt``, the hub's
+``DPT_Large``) is built from ``depth_weights`` (a hub state dict; None is
+the seeded init) once a process and kept on its device
+(``depth_network``).
+
 Tensors are NHWC in [0, 1]. Convs run in ``compute_dtype`` (bf16 by
 default on the batched paths, fp32 on the reference-parity IO wrapper);
 AdaIN statistics are fp32. Every function here takes ``device=None``,
@@ -32,7 +40,15 @@ from aip_tpu_torch.ops.adain import adain, calc_mean_std, coral
 from aip_tpu_torch.ops.depth import compute_stylization_strength_map
 from aip_tpu_torch.ops.image import (center_crop, resize_bilinear, resize_nearest,
                                      resize_smaller_edge, smaller_edge_size)
-from aip_tpu_torch.utils.profiling import span
+from aip_tpu_torch.utils.profiling import count, span
+
+DEPTH_MODELS = ("midas_small", "dpt_large")
+
+# (model, resolved checkpoint path or None, device) -> ((file size, mtime
+# ns) or None, depth estimator, load ms): the network stays on its device
+# across calls, as a server keeps it; the load's milliseconds are its
+# ``adain.depth_load``.
+_DEPTH = {}
 
 
 def _place(device, modules=(), tensors=()):
@@ -242,6 +258,52 @@ def get_style_embeddings(style_img, style_size: int = 512, crop: bool = False,
     return style_embedding(vgg_params, style, compute_dtype=compute_dtype, device=dev)
 
 
+def depth_network(depth_model: str, depth_weights=None, device=None):
+    """The depth estimator of ``depth_model`` (one of ``DEPTH_MODELS``) on
+    ``device``: fn(img HWC) -> [H, W] proximity. Built once a process from
+    ``depth_weights`` (a hub state dict; None is the model's seeded init): a
+    later call with the same file (path, size and mtime) on the same device
+    reads nothing. A path that is no real checkpoint raises."""
+    from aip_tpu_torch.models import dpt, midas
+
+    if depth_model not in DEPTH_MODELS:
+        raise ValueError(f"depth_model must be one of {DEPTH_MODELS}, not {depth_model!r}")
+    dev = resolve_device(device)
+    path, stamp = None, None
+    if depth_weights is not None:
+        path = Path(depth_weights).resolve()
+        if not weights_mod._is_real_checkpoint(path):
+            raise FileNotFoundError(f"no {depth_model} checkpoint at {path} (missing, or a "
+                                    "git-LFS pointer)")
+        stat = path.stat()
+        stamp = (stat.st_size, stat.st_mtime_ns)
+    key = (depth_model, str(path) if path else None, str(dev))
+    cached = _DEPTH.get(key)
+    if cached is None or cached[0] != stamp:
+        with span("adain.depth_load", timed=True) as load:
+            if depth_model == "dpt_large":
+                fn = dpt.make_depth_estimator(dpt.get_dpt_params(path, dev))
+            else:
+                fn = midas.make_depth_estimator(midas.get_midas_params(path, dev))
+        cached = _DEPTH[key] = (stamp, fn, load.ms())
+    return cached[1]
+
+
+def save_depth_png(depth_map, path) -> None:
+    """The [H, W] proximity min-max normalised to [0, 1] (a constant map
+    gives zeros) and written as a 16-bit grey PNG, rounded half up. zlib
+    level 1: a 1024x768 map encodes in a third of the default level's time
+    (6), 3 % larger."""
+    from PIL import Image
+
+    d = depth_map.detach().double().cpu().numpy()
+    extent = d.max() - d.min()
+    norm = (d - d.min()) / extent if extent > 0 else np.zeros_like(d)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.floor(norm * 65535.0 + 0.5).astype(np.uint16)).save(str(path),
+                                                                         compress_level=1)
+
+
 @span("adain.request")
 def adain_inference(
     content_img,
@@ -263,20 +325,35 @@ def adain_inference(
     depth_fn=None,
     compute_dtype=torch.float32,
     device=None,
+    depth_model=None,
+    depth_weights=None,
+    save_depth: bool = False,
 ) -> Path:
     """Full 2D stylisation entry point (reference ``test.py:153-247``).
 
     ``depth_fn(img_hwc_float) -> [H, W]`` injects a depth estimator; the
     default is ``models.depthnet.estimate_proximity`` on ``device``.
+    ``depth_model`` (``"midas_small"`` or ``"dpt_large"``, with
+    ``depth_weights``) names a learned network instead (``depth_network``).
+    ``save_depth`` also writes ``<file_name>_depth.png``: the proximity at
+    the content's full size, min-max normalised, as 16-bit grey.
     fp32 by default: this is the reference-parity surface (BASELINE.md
     budgets 1e-3 mean abs pixel error). Returns the saved output path.
 
     One ``adain.request`` span over ``adain.weights`` (both networks' load),
     ``adain.load`` (decode, resize and upload of content and style),
-    ``adain.stylize`` (the device work) and ``adain.save`` (its
-    ``adain.fetch``, the wait for the output, then the encode and write).
+    ``adain.stylize`` (the device work; in it ``adain.depth``, the depth
+    estimate: transform, forward and resize back) and ``adain.save`` (its
+    ``adain.fetch``, the wait for the output, then the encode and write;
+    the depth PNG's too). Counter ``depth.calls``: depth estimates.
     """
+    if depth_model is not None and depth_fn is not None:
+        raise ValueError("pass depth_fn or depth_model, not both")
+    if (depth_model is not None or save_depth) and not use_depth:
+        raise ValueError("depth_model and save_depth need use_depth=True")
     dev = resolve_device(device)
+    if depth_model is not None:
+        depth_fn = depth_network(depth_model, depth_weights, dev)
     with span("adain.weights"):
         vgg_params = weights_mod.get_vgg_params(vgg_str, device=dev)
         dec_params = weights_mod.get_decoder_params(decoder_str, device=dev)
@@ -293,12 +370,17 @@ def adain_inference(
         style_b = style[None]
 
         if use_depth:
-            if depth_fn is None:
-                from aip_tpu_torch.models.depthnet import estimate_proximity
+            count("depth.calls", 1)
+            with span("adain.depth"):
+                if depth_fn is None:
+                    from aip_tpu_torch.models.depthnet import estimate_proximity
 
-                depth_map = estimate_proximity(torch.from_numpy(content_np).to(dev))
-            else:
-                depth_map = torch.as_tensor(np.asarray(depth_fn(content_np)), device=dev)
+                    depth_map = estimate_proximity(torch.from_numpy(content_np).to(dev))
+                else:
+                    depth_map = depth_fn(content_np)
+                    if not isinstance(depth_map, torch.Tensor):
+                        depth_map = np.asarray(depth_map)
+                    depth_map = torch.as_tensor(depth_map, device=dev)
             out = stylize_depth(vgg_params, dec_params, content_b, style_b, depth_map,
                                 offset=float(depth_offset),
                                 prominence=float(depth_prominence),
@@ -324,4 +406,6 @@ def adain_inference(
     output_path = Path(output) / f"{file_name}{save_ext}"
     with span("adain.save"):
         save_image(out, output_path)
+        if save_depth:
+            save_depth_png(depth_map, Path(output) / f"{file_name}_depth.png")
     return output_path

@@ -1520,6 +1520,48 @@ def test_deeplab_holds_fp32_under_pytorchs_default_tf32_flags(cuda, monkeypatch)
 
 
 @pytest.mark.cuda
+def test_dpt_large_on_the_card_matches_the_plain_cpu_reference(cuda):
+    """DPT-Large at its published widths, seeded as the depth cell seeds it
+    (``portbench/drivers/_dpt.py``), on one 384x512 input: the card's
+    min-max normalised prediction within the cell's ``depth_levels`` limit
+    (16-bit levels) of the plain reference's on the CPU, with TF32 on in
+    the process as PyTorch's matmul flag may be and cuDNN's is by default
+    (the model holds both off inside); the flags are as they were after."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from aip_tpu_torch.models import dpt
+    from portbench.drivers import _adain, _dpt
+    from portbench.reference import dpt as ref_dpt
+
+    cfg = json.loads((root / "portbench" / "configs" / "dpt-large-midas.json").read_text())
+    limit = json.loads((root / "portbench" / "workloads" / "depth.request.512.fp32.json")
+                       .read_text())["limits"]["depth_levels"]
+    sd = _dpt.seeded_state_dict(cfg, 26, _adain.images(27, 1, 768, 1024, cuda), 0.9)
+    sd = {k: v.cpu() for k, v in sd.items()}
+    net = dpt.dpt_from_state_dict({k: v.numpy() for k, v in sd.items()}, cuda)
+    x = _adain.images(28, 1, 384, 512, "cpu")
+    with torch.no_grad():
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            out = net(x.to(cuda)).cpu().double()
+            assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        ref = ref_dpt.forward(sd, ((x - 0.5) / 0.5).permute(0, 3, 1, 2).contiguous(),
+                              cfg).double()
+
+    def norm(p):
+        return (p - p.min()) / (p.max() - p.min())
+
+    assert out.shape == ref.shape == (1, 384, 512)
+    assert float((65535.0 * (norm(out) - norm(ref))).abs().max()) <= limit
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("net,hw", [("vgg", (160, 136)), ("alex", (129, 96)),
                                     ("squeeze", (97, 130))])
 def test_lpips_card_matches_cpu_under_pytorchs_default_tf32_flags(cuda, net, hw):
