@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from aip_tpu_torch.device import check_module_device, resolve_device
+from aip_tpu_torch.kernels import png_filter
 from aip_tpu_torch.models import weights as weights_mod
 from aip_tpu_torch.models.decoder import decoder_apply
 from aip_tpu_torch.models.vgg import vgg_encode
@@ -40,9 +41,12 @@ from aip_tpu_torch.ops.adain import adain, calc_mean_std, coral
 from aip_tpu_torch.ops.depth import compute_stylization_strength_map
 from aip_tpu_torch.ops.image import (center_crop, resize_bilinear, resize_nearest,
                                      resize_smaller_edge, smaller_edge_size)
+from aip_tpu_torch.utils import png as png_writer
 from aip_tpu_torch.utils.profiling import count, span
 
 DEPTH_MODELS = ("midas_small", "dpt_large")
+PNG_LEVEL = 6           # zlib level of save_image's PNGs (PIL's default)
+DEPTH_PNG_LEVEL = 1     # and of save_depth_png's
 
 # (model, resolved checkpoint path or None, device) -> ((file size, mtime
 # ns) or None, depth estimator, load ms): the network stays on its device
@@ -231,20 +235,38 @@ def _test_transform(img, size: int, crop: bool, device) -> torch.Tensor:
 
 def save_image(arr, path) -> None:
     """Clamp to [0,1] and save (torchvision save_image: round half away).
-    The copy of a tensor to the host is an ``adain.fetch`` span."""
+
+    A CUDA tensor of an 8-bit grey, RGB or RGBA image is quantised on the
+    card (``kernels.png_filter``); for a PNG its scanlines are filtered
+    there too and ``utils.png`` deflates them at zlib level 6 (PIL's
+    default), so the host fetches and deflates only the filtered rows. A
+    host array or CPU tensor, and any other shape, is quantised by the
+    same rule in numpy and encoded by PIL, as is every other file type.
+    The copy of a tensor to the host is an ``adain.fetch`` span. Counters:
+    ``io.png_writes`` (PNGs written) and ``io.png_card_filtered`` (those
+    filtered on the card)."""
     from PIL import Image
 
-    if isinstance(arr, torch.Tensor):
-        with span("adain.fetch"):
-            a = arr.detach().float().cpu().numpy()
-    else:
-        a = np.asarray(arr)
+    path = Path(path)
+    a = arr.detach() if isinstance(arr, torch.Tensor) else np.asarray(arr)
     if a.ndim == 4:
         a = a[0]
-    a = np.clip(a, 0.0, 1.0)
-    a8 = np.clip(np.floor(a * 255.0 + 0.5), 0, 255).astype(np.uint8)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(a8).save(str(path))
+    shape = tuple(a.shape)
+    png = path.suffix.lower() == ".png"
+    on_card = isinstance(a, torch.Tensor) and a.is_cuda and png_filter.takes(shape)
+    if isinstance(a, torch.Tensor):
+        with span("adain.fetch"):
+            a = (png_filter.png_rows8(a, filtered=png) if on_card else a.float()).cpu().numpy()
+    if not on_card:
+        a = png_filter.quantise8(a)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if png:
+        count("io.png_writes", 1)
+        count("io.png_card_filtered", int(on_card))
+    if on_card and png:
+        png_writer.write(path, a, 8, png_filter.channels(shape), PNG_LEVEL)
+    else:
+        Image.fromarray(a.reshape(shape)).save(str(path))
 
 
 def get_style_embeddings(style_img, style_size: int = 512, crop: bool = False,
@@ -291,17 +313,24 @@ def depth_network(depth_model: str, depth_weights=None, device=None):
 
 def save_depth_png(depth_map, path) -> None:
     """The [H, W] proximity min-max normalised to [0, 1] (a constant map
-    gives zeros) and written as a 16-bit grey PNG, rounded half up. zlib
-    level 1: a 1024x768 map encodes in a third of the default level's time
-    (6), 3 % larger."""
+    gives zeros) and written as a 16-bit grey PNG, rounded half up: a CUDA
+    map quantised and filtered on the card (``kernels.png_filter.png_rows16``)
+    and deflated by ``utils.png``, a CPU one quantised in numpy
+    (``quantise16``) and encoded by PIL. zlib level 1: a 1024x768 map
+    encodes in a third of the default level's time (6), 3 % larger.
+    Counted as ``save_image`` counts a PNG."""
     from PIL import Image
 
-    d = depth_map.detach().double().cpu().numpy()
-    extent = d.max() - d.min()
-    norm = (d - d.min()) / extent if extent > 0 else np.zeros_like(d)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(np.floor(norm * 65535.0 + 0.5).astype(np.uint16)).save(str(path),
-                                                                         compress_level=1)
+    d = depth_map.detach()
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    count("io.png_writes", 1)
+    count("io.png_card_filtered", int(d.is_cuda))
+    if d.is_cuda:
+        png_writer.write(path, png_filter.png_rows16(d).cpu().numpy(), 16, 1, DEPTH_PNG_LEVEL)
+    else:
+        Image.fromarray(png_filter.quantise16(d.double().numpy())).save(
+            str(path), compress_level=DEPTH_PNG_LEVEL)
 
 
 @span("adain.request")

@@ -80,6 +80,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    own. The fp32 paths below (phases 5, 6,
    31-35, 38-40 and the paths of 41-46) also print its launches
    (``conv3x3_f32_launches``, or ``conv3x3_f32`` among a path's counts).
+8d. the PNG writer (``csrc/png_filter.cu``, ``utils/png.py``),
+   ``png_filter_phase``: ``scripts/bench_png_writer.py``'s ``measure`` on
+   the request cells' 512x683 RGB output and the depth cell's 768x1024 map:
+   the kernel's rows equal the plain version's, the written files decode to
+   the pixels PIL's files of the path it replaced hold (the kernel line's
+   ``max_abs_err``: the largest byte or pixel difference of the two); the
+   kernel timed beside its bytes bound, the writer and that path on the host
+   clock. Then an fp32 request at 512x683 writing its PNG and a depth request
+   writing the depth PNG beside it: the kernel line's ``launches`` and
+   ``depth_request_launches`` (1 and 2). Runs alone as
+   ``python3 -c "import chip_smoke; chip_smoke.png_filter_phase()"``.
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -456,6 +467,7 @@ port's deterministic random init (no checkpoint is committed); everything
 the run writes goes under ``build/chip_smoke/`` in the checkout.
 """
 
+import functools
 import itertools
 import json
 import math
@@ -491,7 +503,7 @@ FP32_FLOAT64_TOL = 1.5e-6
 WALK_FLOAT64_TOL = 1e-5
 
 SOURCES = ("adain_head", "adain_head_tc", "composite", "composite_ad", "hashgrad", "tvl1",
-           "composite_walk", "conv_epilogue", "conv3x3_f32")
+           "composite_walk", "conv_epilogue", "conv3x3_f32", "png_filter")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "encode_head": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:174"),
     "decode_tail": ("adain_head_tc", "aip_tpu/ops/pallas/adain_head.py:278"),
@@ -508,6 +520,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "tvl1": ("tvl1", "aip_tpu/ops/pallas/tvl1.py:99"),
     "conv_epilogue": ("conv_epilogue", "none (aip_tpu leaves the chain to XLA's fusion)"),
     "conv3x3_f32": ("conv3x3_f32", "none (aip_tpu leaves the walks' 3x3 convs to XLA)"),
+    "png_filter": ("png_filter", "none (aip_tpu writes its PNGs through PIL on the host)"),
 }
 
 
@@ -807,6 +820,8 @@ def main():
     # 8c. the fp32 walk conv -----------------------------------------------------
     lines.append(conv3x3_f32_phase(torch, dev, request_launches=request_walk_launches))
     torch.cuda.empty_cache()
+    # 8d. the PNG writer's filter kernel ----------------------------------------------
+    lines.append(png_filter_phase(torch, dev))
 
     # 9-14. stylized 3DGS inference render -------------------------------------
     gs_lines, bed = _gs_phases(torch, dev)
@@ -1351,6 +1366,70 @@ def conv3x3_f32_phase(torch=None, dev=None, request_launches=None):
             "max_abs_err": worst, "ms": totals["kernel_ms"], "plain_ms": totals["cudnn_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": "operations",
             "library_ms": totals["cudnn_ms"]}
+
+
+def png_filter_phase(torch=None, dev=None):
+    """Phase 8d (see the module docstring). Returns the kernel's line."""
+    if torch is None:
+        import torch
+
+        dev = torch.device("cuda")
+        sys.path.insert(0, str(ROOT))
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=_card(),
+             torch=torch.__version__, cuda=torch.version.cuda, host_cores=len(
+                 os.sched_getaffinity(0)))
+    import numpy as np
+    from PIL import Image
+
+    from aip_tpu_torch.kernels import _build
+    from aip_tpu_torch.pipelines.adain_infer import adain_inference
+    from scripts.bench_png_writer import measure
+
+    t0 = time.perf_counter()
+    report = _build.build("png_filter")
+    emit("png_filter_build", seconds=time.perf_counter() - t0, compiled=bool(report),
+         registers=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l])
+    rows = measure(torch, dev, out_dir=WORK / "png_writer")
+    for row in rows:
+        emit("png_writer", **row, timing="kernel: 20 calls in one CUDA-event window, median "
+             "of 5; write and PIL: host clock, median of 20")
+        if not (row["equal_plain"] and row["same_pixels"]):
+            raise AssertionError(f"png writer on {row['file']}: rows equal the plain version's "
+                                 f"{row['equal_plain']}, same pixels as PIL's {row['same_pixels']}")
+    max_abs_err = max(max(row["max_abs_rows"], row["max_abs_pixels"]) for row in rows)
+
+    # The request cells' path: an fp32 request at 512x683 writing its PNG,
+    # and a depth request writing the depth PNG beside it, every count set
+    # to 0 just before each and read just after.
+    work = WORK / "png_writer" / "requests"
+    work.mkdir(parents=True, exist_ok=True)
+    g = np.random.default_rng(27)
+    for name, hw in (("content.png", (512, 683)), ("style.png", (512, 512))):
+        Image.fromarray(g.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(work / name)
+    inputs = (str(work / "content.png"), str(work / "style.png"))
+
+    def ramp(img):
+        return torch.linspace(0, 1, img.shape[0])[:, None].expand(img.shape[:2])
+
+    launches = {}
+    for key, extra in (("request", {}),
+                       ("depth_request", {"use_depth": True, "depth_fn": ramp,
+                                          "save_depth": True})):
+        _, counts = _run_path(torch, f"png_{key}", functools.partial(
+            adain_inference, *inputs, save_ext=".png", output=str(work), file_name=key,
+            device=dev, **extra), ("png_filter",))
+        launches[key] = counts["png_filter"]
+    emit("png_filter_request_launches", size="512x683", **launches,
+         files=sorted(p.name for p in work.glob("*_*.png")))
+    if launches != {"request": 1, "depth_request": 2}:
+        raise AssertionError(f"png_filter launched {launches} times (1 a request, 2 a depth "
+                             f"request with its depth PNG)")
+    image = rows[0]
+    return {"name": "png_filter", "route": "cuda", "source": "aip_tpu_torch/csrc/png_filter.cu",
+            "replaces": KERNELS["png_filter"][1], "launches": launches["request"],
+            "depth_request_launches": launches["depth_request"], "max_abs_err": max_abs_err,
+            "ms": image["kernel_ms"], "plain_ms": image["plain_ms"], "bound_ms": image["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -5166,14 +5245,14 @@ def _slice8_phases(torch, dev, bed, default_tf32):
     return by_path, block0_err
 
 
-def _path_launches(K, KAD, KH, KT, KC, KF):
+def _path_launches(K, KAD, KH, KT, KC, KF, KP):
     """Every kernel wrapper's count, by the kernels table's names (the AdaIN
     head and tail per route)."""
     routes = K.route_launch_counts()
     out = {**{k: n for k, n in routes["bf16"].items()},
            **{f"{k}_fp32": n for k, n in routes["fp32"].items()},
            **KAD.launch_counts(), **KH.launch_counts(), **KT.launch_counts(),
-           **KC.launch_counts(), **KF.launch_counts()}
+           **KC.launch_counts(), **KF.launch_counts(), **KP.launch_counts()}
     return out
 
 
@@ -5188,9 +5267,10 @@ def _kernel_modules():
     from aip_tpu_torch.kernels import composite_ad as KAD
     from aip_tpu_torch.kernels import conv3x3_f32 as KF
     from aip_tpu_torch.kernels import hashgrad as KH
+    from aip_tpu_torch.kernels import png_filter as KP
     from aip_tpu_torch.kernels import tvl1 as KT
 
-    return K, KAD, KH, KT, KC, KF
+    return K, KAD, KH, KT, KC, KF, KP
 
 
 def _run_path(torch, name, fn, expect):

@@ -2068,3 +2068,119 @@ def test_a_recorded_decoder_walk_launches_no_walk_conv_and_keeps_its_gradients(c
     with torch.no_grad():
         tdec.decoder_apply(dec, f.to(cuda))
     assert KF.launch_counts() == {"conv3x3_f32": 7}
+
+
+# The PNG writer's kernel (csrc/png_filter.cu): quantised and filtered rows
+# byte for byte with the plain version, and the files it leads to.
+
+def _png_inputs(g, h, w, c):
+    """fp32 samples in [-0.1, 1.1], a share of them a float32 ulp either
+    side of a rounding point k/255 + 0.5/255."""
+    shape = (h, w) if c == 1 else (h, w, c)
+    x = g.random(shape, dtype=np.float32) * 1.2 - 0.1
+    mid = ((g.integers(0, 256, shape) + 0.5) / 255.0).astype(np.float32)
+    near = np.nextafter(mid, np.where(g.random(shape) < 0.5, -2, 2).astype(np.float32))
+    pick = g.random(shape)
+    return np.where(pick < 0.2, near, np.where(pick < 0.3, mid, x)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(512, 683, 3), (1, 1, 3), (1, 37, 1), (41, 1, 4),
+                                   (7, 333, 4), (300, 1001, 1)])
+@pytest.mark.parametrize("filtered", [True, False])
+def test_png_filter_kernel_equals_its_plain_version_byte_for_byte(cuda, h, w, c, filtered):
+    from aip_tpu_torch.kernels import png_filter as PF
+
+    x = torch.from_numpy(_png_inputs(np.random.default_rng(h * w + c), h, w, c))
+    want = PF.png_rows8(x, filtered=filtered)
+    got = PF.png_rows8(x.to(cuda), filtered=filtered)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,case", [(768, 1024, "smooth"), (1, 1, "smooth"), (37, 5, "wide"),
+                                      (9, 4, "constant")])
+def test_png_filter_kernel_16_bit_equals_its_plain_version(cuda, h, w, case):
+    from aip_tpu_torch.kernels import png_filter as PF
+
+    g = np.random.default_rng(h + w)
+    d = {"smooth": np.cumsum(g.random((h, w)), axis=1) * 1e-3,
+         "wide": g.standard_normal((h, w)) * 1e6,
+         "constant": np.full((h, w), 2.5)}[case].astype(np.float32)
+    t = torch.from_numpy(d)
+    for m in (t, t.double(), t.bfloat16()):     # fp32 and float64 as they are, bf16 widened
+        got = PF.png_rows16(m.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), PF.png_rows16(m))
+
+
+@pytest.mark.cuda
+def test_save_image_of_a_cuda_tensor_writes_its_cpu_copys_file(cuda, tmp_path):
+    """The card's PNG decodes to the pixels of the CPU copy's (PIL's) file
+    and is the writer's file of the plain version's rows, byte for byte;
+    the JPEG is the CPU copy's, byte for byte; one launch each, none for
+    the CPU copy. The depth PNG too, from an fp32 and a float64 map."""
+    from PIL import Image
+
+    from aip_tpu_torch.kernels import png_filter as PF
+    from aip_tpu_torch.pipelines.adain_infer import save_depth_png, save_image
+    from aip_tpu_torch.utils import png
+
+    def pixels(p):
+        with Image.open(p) as im:
+            return np.asarray(im)
+
+    x = torch.from_numpy(_png_inputs(np.random.default_rng(7), 512, 683, 3))[None]
+    d = torch.from_numpy(np.random.default_rng(8).random((768, 1024)).astype(np.float32))
+    for name in ("x.png", "x.jpg"):
+        PF.reset_launch_counts()
+        save_image(x.to(cuda), tmp_path / f"card_{name}")
+        assert PF.launch_counts() == {"png_filter": 1}
+        save_image(x, tmp_path / f"cpu_{name}")
+        assert PF.launch_counts() == {"png_filter": 1}
+        card, cpu = (tmp_path / f"{k}_{name}" for k in ("card", "cpu"))
+        if name.endswith(".png"):
+            assert np.array_equal(pixels(card), pixels(cpu))
+            assert card.read_bytes() == png.encode(PF.png_rows8(x[0]).numpy(), 8, 3, 6)
+        else:
+            assert card.read_bytes() == cpu.read_bytes()
+    for m in (d, d.double()):
+        PF.reset_launch_counts()
+        save_depth_png(m.to(cuda), tmp_path / "card_d.png")
+        save_depth_png(m, tmp_path / "cpu_d.png")
+        assert PF.launch_counts() == {"png_filter": 1}
+        assert np.array_equal(pixels(tmp_path / "card_d.png"), pixels(tmp_path / "cpu_d.png"))
+        assert (tmp_path / "card_d.png").read_bytes() == png.encode(
+            PF.png_rows16(m).numpy(), 16, 1, 1)
+
+
+@pytest.mark.cuda
+def test_adain_inference_filters_its_pngs_on_the_card(cuda, tmp_path):
+    """A profiled depth request writes two PNGs, both filtered on the card
+    (the counters the benchmark's share reads), in two launches."""
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from aip_tpu_torch.kernels import png_filter as PF
+    from aip_tpu_torch.pipelines.adain_infer import adain_inference
+    from aip_tpu_torch.utils import profiling as P
+
+    g = np.random.default_rng(27)
+    for name, shape in (("c.png", (96, 128, 3)), ("s.png", (64, 64, 3))):
+        Image.fromarray(g.integers(0, 256, shape, dtype=np.uint8)).save(tmp_path / name)
+    args = (str(tmp_path / "c.png"), str(tmp_path / "s.png"))
+    ramp = lambda img: torch.linspace(0, 1, img.shape[0])[:, None].expand(img.shape[:2])
+    PF.reset_launch_counts()
+    P.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        adain_inference(*args, content_size=64, style_size=64, save_ext=".png",
+                        output=str(tmp_path), file_name="x", device=cuda, use_depth=True,
+                        depth_fn=ramp, save_depth=True)
+        torch.cuda.synchronize()
+        stats = P.span_stats()
+    P.reset_spans()
+    assert stats["io.png_writes"] == 2 and stats["io.png_card_filtered"] == 2
+    assert PF.launch_counts() == {"png_filter": 2}
+    with Image.open(tmp_path / "x_depth.png") as im:
+        assert im.size == (128, 96)
