@@ -1,7 +1,8 @@
 """AdaIN stylisation CLI (reference ``AdaIN/run_depth.py:17-55`` arguments,
 plus ``--device`` and the depth network's flags). ``python -m
 aip_tpu_torch.cli.run_depth --content c.jpg --style s.jpg [--use_depth
-[--depth_model midas_small|dpt_large] [--depth_weights hub.pt]
+[--depth_model midas_small|dpt_large|dpt_swin2_large_384]
+[--depth_weights hub.pt]
 [--save_depth]] [--device cuda|cpu]``."""
 
 import argparse
@@ -23,7 +24,7 @@ def main(argv=None):
     parser.add_argument("--use_depth", action="store_true",
                         help="Enable depth-aware stylization.")
     parser.add_argument("--depth_model", type=str, default=None,
-                        choices=("midas_small", "dpt_large"),
+                        choices=("midas_small", "dpt_large", "dpt_swin2_large_384"),
                         help="Learned depth network (default: the classical proxy).")
     parser.add_argument("--depth_weights", type=str, default=None,
                         help="The depth network's hub state dict (default: seeded init).")

@@ -83,6 +83,7 @@ class DPTConfig:
     num_classes: int = 1000                # timm's classifier, held, never run
     net_size: int = 384
     multiple_of: int = 32
+    keep_aspect_ratio: bool = True
 
 
 DPT_LARGE = DPTConfig()
@@ -182,7 +183,68 @@ def resize_pos_embed(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
     return torch.cat([tok, grid.permute(0, 2, 3, 1).reshape(1, gh * gw, -1)], dim=1)
 
 
-class DPT(nn.Module):
+def make_scratch(in_widths, features: int, head_features: int) -> nn.Module:
+    """The hub's ``scratch``, the decoder every DPT here shares:
+    ``layer{1..4}_rn`` (3x3 from ``in_widths`` to ``features``, no bias), the
+    fusion blocks ``refinenet1..4`` and the ``non_negative`` head
+    ``output_conv``."""
+    sc = nn.Module()
+    for k, width in enumerate(in_widths):
+        setattr(sc, f"layer{k + 1}_rn", nn.Conv2d(width, features, 3, padding=1, bias=False))
+    for k in range(4):
+        setattr(sc, f"refinenet{k + 1}", _FeatureFusion(features, expand=False))
+    # Hub indices: 0 conv f -> f/2, 1 Interpolate(x2, align_corners), 2
+    # conv f/2 -> 32, 3 ReLU, 4 conv 32 -> 1, 5 ReLU, 6 Identity.
+    sc.output_conv = nn.Sequential(
+        nn.Conv2d(features, features // 2, 3, padding=1), nn.Identity(),
+        nn.Conv2d(features // 2, head_features, 3, padding=1), nn.ReLU(),
+        nn.Conv2d(head_features, 1, 1), nn.ReLU(), nn.Identity())
+    return sc
+
+
+class DPTBase(nn.Module):
+    """The hub's ``DPT.forward``, which every encoder here feeds: the
+    encoder subclass gives ``_tokens`` (the ``dpt.tokens`` count),
+    ``_embed``, ``_encode`` (the hooked taps) and ``_reassemble`` (four NCHW
+    maps at strides 4, 8, 16 and 32 of the input); ``scratch``
+    (``make_scratch``) decodes them."""
+
+    def _head0(self, conv, y):
+        """The head's first conv (``features`` -> half, 3x3) on the last
+        fusion block's output."""
+        return conv(y)
+
+    def forward(self, x01: torch.Tensor, relu: bool = True) -> torch.Tensor:
+        """[N, H, W, 3] in [0, 1] -> [N, H, W] inverse depth; ``relu=False``
+        gives the last conv's output before the final ReLU (the seeded
+        init's calibration reads it)."""
+        sc = self.scratch
+        n, hgt, wid, _ = x01.shape
+        with span("dpt.forward", device=x01), fp32_convs(), fp32_matmuls():
+            count("dpt.tokens", self._tokens(n, hgt, wid))
+            with span("dpt.embed"):
+                t = self._embed(x01)
+            with span("dpt.encoder", device=x01):
+                taps = self._encode(t, x01)
+            with span("dpt.reassemble"):
+                rn = [getattr(sc, f"layer{k + 1}_rn")(y)
+                      for k, y in enumerate(self._reassemble(taps, hgt, wid))]
+            with span("dpt.fusion"):
+                y = sc.refinenet4(rn[3])
+                y = sc.refinenet3(y, rn[2])
+                y = sc.refinenet2(y, rn[1])
+                y = sc.refinenet1(y, rn[0])
+            with span("dpt.head"):
+                head = sc.output_conv
+                y = self._head0(head[0], y)
+                y = F.interpolate(y, scale_factor=2, mode="bilinear", align_corners=True)
+                y = head[4](torch.relu(head[2](y)))
+                if relu:
+                    y = torch.relu(y)
+        return y[:, 0]
+
+
+class DPT(DPTBase):
     """Hub ``DPTDepthModel(backbone="vitl16_384", non_negative=True)`` with
     the hub's key layout (``config`` sets the sizes; the default is
     DPT-Large). Weights are whatever the constructor drew until filled: use
@@ -191,24 +253,17 @@ class DPT(nn.Module):
     def __init__(self, config: DPTConfig = DPT_LARGE):
         super().__init__()
         self.config = cfg = config
-        h, f = cfg.hidden_size, cfg.features
+        h = cfg.hidden_size
         self.pretrained = nn.Module()
         self.pretrained.model = _ViT(cfg)
         for k, width in enumerate(cfg.reassemble_widths):
             setattr(self.pretrained, f"act_postprocess{k + 1}", _postprocess(k, h, width))
-        self.scratch = nn.Module()
-        for k, width in enumerate(cfg.reassemble_widths):
-            setattr(self.scratch, f"layer{k + 1}_rn", nn.Conv2d(width, f, 3, padding=1,
-                                                                 bias=False))
-        for k in range(4):
-            setattr(self.scratch, f"refinenet{k + 1}", _FeatureFusion(f, expand=False))
-        # Hub indices: 0 conv f -> f/2, 1 Interpolate(x2, align_corners), 2
-        # conv f/2 -> 32, 3 ReLU, 4 conv 32 -> 1, 5 ReLU, 6 Identity.
-        self.scratch.output_conv = nn.Sequential(
-            nn.Conv2d(f, f // 2, 3, padding=1), nn.Identity(),
-            nn.Conv2d(f // 2, cfg.head_features, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(cfg.head_features, 1, 1), nn.ReLU(), nn.Identity())
+        self.scratch = make_scratch(cfg.reassemble_widths, cfg.features, cfg.head_features)
         self.eval()
+
+    def _tokens(self, n, hgt, wid):
+        p = self.config.patch_size
+        return n * (1 + (hgt // p) * (wid // p))
 
     def _embed(self, x01):
         vit, p = self.pretrained.model, self.config.patch_size
@@ -220,67 +275,50 @@ class DPT(nn.Module):
         t = torch.cat([vit.cls_token.expand(n, -1, -1), t], dim=1)
         return t + resize_pos_embed(vit.pos_embed, hgt // p, wid // p)
 
-    def _reassemble(self, k, tokens, gh, gw):
-        post = getattr(self.pretrained, f"act_postprocess{k + 1}")
-        y = post[0](tokens)
-        y = y.transpose(1, 2).reshape(y.shape[0], y.shape[2], gh, gw).contiguous()
-        for mod in post[3:]:
-            y = mod(y)
-        return y
+    def _encode(self, t, x01):
+        hooks, taps = self.config.hooks, []
+        for i, block in enumerate(self.pretrained.model.blocks[:max(hooks) + 1]):
+            t = block(t)
+            if i in hooks:
+                taps.append(t)
+        return taps
 
-    def forward(self, x01: torch.Tensor, relu: bool = True) -> torch.Tensor:
-        """[N, H, W, 3] in [0, 1] -> [N, H, W] inverse depth; ``relu=False``
-        gives the last conv's output before the final ReLU (the seeded
-        init's calibration reads it)."""
-        cfg, sc = self.config, self.scratch
-        n, hgt, wid, _ = x01.shape
-        gh, gw = hgt // cfg.patch_size, wid // cfg.patch_size
-        with span("dpt.forward", device=x01), fp32_convs(), fp32_matmuls():
-            count("dpt.tokens", n * (1 + gh * gw))
-            with span("dpt.embed"):
-                t = self._embed(x01)
-            with span("dpt.encoder", device=x01):
-                taps = []
-                for i, block in enumerate(self.pretrained.model.blocks[:max(cfg.hooks) + 1]):
-                    t = block(t)
-                    if i in cfg.hooks:
-                        taps.append(t)
-            with span("dpt.reassemble"):
-                layers = [self._reassemble(k, tap, gh, gw) for k, tap in enumerate(taps)]
-                rn = [getattr(sc, f"layer{k + 1}_rn")(y) for k, y in enumerate(layers)]
-            with span("dpt.fusion"):
-                y = sc.refinenet4(rn[3])
-                y = sc.refinenet3(y, rn[2])
-                y = sc.refinenet2(y, rn[1])
-                y = sc.refinenet1(y, rn[0])
-            with span("dpt.head"):
-                head = sc.output_conv
-                y = head[0](y)
-                y = F.interpolate(y, scale_factor=2, mode="bilinear", align_corners=True)
-                y = head[4](torch.relu(head[2](y)))
-                if relu:
-                    y = torch.relu(y)
-        return y[:, 0]
+    def _reassemble(self, taps, hgt, wid):
+        gh, gw = hgt // self.config.patch_size, wid // self.config.patch_size
+        out = []
+        for k, tokens in enumerate(taps):
+            post = getattr(self.pretrained, f"act_postprocess{k + 1}")
+            y = post[0](tokens)
+            y = y.transpose(1, 2).reshape(y.shape[0], y.shape[2], gh, gw).contiguous()
+            for mod in post[3:]:
+                y = mod(y)
+            out.append(y)
+        return out
 
 
 def transform_size(h: int, w: int, config: DPTConfig = DPT_LARGE) -> tuple[int, int]:
-    """The hub's ``Resize(384, 384, keep_aspect_ratio=True,
-    ensure_multiple_of=32, resize_method="minimal")``: the one scale of the
-    two sides' that lies nearer 1, each side then rounded (half to even)
-    to a multiple of 32, never below one multiple."""
+    """The hub's ``Resize(384, 384, keep_aspect_ratio=...,
+    ensure_multiple_of=32, resize_method="minimal")``: with
+    ``config.keep_aspect_ratio`` the one scale of the two sides' that lies
+    nearer 1, else each side's own (a square ``net_size`` input); each side
+    then rounded (half to even) to a multiple of 32, never below one
+    multiple."""
     m = config.multiple_of
     scale_h, scale_w = config.net_size / h, config.net_size / w
-    scale = scale_w if abs(1 - scale_w) < abs(1 - scale_h) else scale_h
-    return tuple(max(m, int(np.round(scale * s / m)) * m) for s in (h, w))
+    if config.keep_aspect_ratio:
+        scale_h = scale_w = scale_w if abs(1 - scale_w) < abs(1 - scale_h) else scale_h
+    return tuple(max(m, int(np.round(scale * s / m)) * m)
+                 for scale, s in ((scale_h, h), (scale_w, w)))
 
 
-def make_depth_estimator(net: DPT):
+def make_depth_estimator(net: DPTBase):
     """fn(img HWC [0,1] or uint8, numpy or tensor) -> [H, W] proximity on the
-    weights' device: the hub's ``dpt_transform`` (bicubic to
-    ``transform_size``, mean and std 0.5) and its post-processing (bicubic
-    back to the input's size). The resizes are ``ops.image.resize_bicubic``
-    (``F.interpolate``'s bicubic, a=-0.75) where the hub resizes the input
-    with cv2's INTER_CUBIC (the same kernel and centres, in float64)."""
+    weights' device: the hub's transform of ``net`` (``dpt_transform`` or
+    ``swin384_transform``: bicubic to ``transform_size``, mean and std 0.5)
+    and its post-processing (bicubic back to the input's size). The resizes
+    are ``ops.image.resize_bicubic`` (``F.interpolate``'s bicubic, a=-0.75)
+    where the hub resizes the input with cv2's INTER_CUBIC (the same kernel
+    and centres, in float64)."""
     from aip_tpu_torch.ops.image import resize_bicubic
 
     device = next(net.parameters()).device
@@ -308,13 +346,27 @@ def dpt_from_state_dict(state_dict: dict, device=None, config: DPTConfig | None 
     return net.to(resolve_device(device)).requires_grad_(False)
 
 
-def calibration_image(generator: torch.Generator) -> torch.Tensor:
-    """A smooth seeded [1, H, W, 3] image in [0, 1] at ``CALIBRATION_HW``:
-    6 x 8 uniform noise resized bicubically, plus fine noise."""
+def calibration_image(generator: torch.Generator, hw=CALIBRATION_HW) -> torch.Tensor:
+    """A smooth seeded [1, H, W, 3] image in [0, 1] at ``hw``: 6 x 8 uniform
+    noise resized bicubically, plus fine noise."""
     low = torch.rand((1, 3, 6, 8), generator=generator)
-    img = F.interpolate(low, size=CALIBRATION_HW, mode="bicubic", align_corners=False)
-    img = img + 0.05 * torch.randn((1, 3, *CALIBRATION_HW), generator=generator)
+    img = F.interpolate(low, size=tuple(hw), mode="bicubic", align_corners=False)
+    img = img + 0.05 * torch.randn((1, 3, *hw), generator=generator)
     return img.clamp(0.0, 1.0).permute(0, 2, 3, 1).contiguous()
+
+
+@torch.no_grad()
+def calibrate_last_bias(net: DPTBase, img: torch.Tensor) -> DPTBase:
+    """Set the last conv's bias so that the output ReLU passes
+    ``PASS_SHARE`` of ``img``'s pixels: without it a seeded network's
+    proximity is flat over large regions and the strength map says
+    nothing."""
+    last = net.scratch.output_conv[4]
+    last.bias.zero_()
+    pre = net(img.to(last.bias.device), relu=False).flatten()
+    k = max(1, int(round((1.0 - PASS_SHARE) * pre.numel())))
+    last.bias.fill_(-torch.kthvalue(pre.cpu(), k).values.item())
+    return net
 
 
 @torch.no_grad()
@@ -349,19 +401,11 @@ def draw_dpt_params(generator: torch.Generator, config: DPTConfig | None = None)
 def init_dpt_params(generator: torch.Generator | None = None, device=None,
                     config: DPTConfig | None = None) -> DPT:
     """``draw_dpt_params`` from ``generator`` (seed 0 when None), moved to
-    ``device``; then the last conv's bias is set so that the output ReLU
-    passes ``PASS_SHARE`` of the pixels of the generator's next
-    ``calibration_image``: without it the proximity is flat over large
-    regions and the strength map says nothing."""
+    ``device``; then ``calibrate_last_bias`` on the generator's next
+    ``calibration_image``."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     net = draw_dpt_params(gen, config).to(resolve_device(device))
-    img = calibration_image(gen).to(next(net.parameters()).device)
-    last = net.scratch.output_conv[4]
-    last.bias.zero_()
-    pre = net(img, relu=False).flatten()
-    k = max(1, int(round((1.0 - PASS_SHARE) * pre.numel())))
-    last.bias.fill_(-torch.kthvalue(pre.cpu(), k).values.item())
-    return net
+    return calibrate_last_bias(net, calibration_image(gen))
 
 
 def get_dpt_params(torch_path=None, device=None, config: DPTConfig | None = None) -> DPT:

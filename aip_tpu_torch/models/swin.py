@@ -56,7 +56,7 @@ def _rel_index(window):
                                   indexing="ij")).reshape(2, -1)
     rel = coords[:, :, None] - coords[:, None, :]
     rel = rel.transpose(1, 2, 0) + (window - 1)
-    return rel[..., 0] * (2 * window - 1) + rel[..., 1]  # [49, 49]
+    return rel[..., 0] * (2 * window - 1) + rel[..., 1]  # [window^2, window^2]
 
 
 _REL_IDX = torch.from_numpy(_rel_index(WINDOW))
@@ -103,39 +103,39 @@ def from_jax_params(params, device=None):
     return tree_from_jax(params, device)
 
 
-def _window_partition(x, sh, sw):
-    """[N, H, W, C] -> [N*nW, 49, C]; (sh, sw) is the cyclic shift."""
+def _window_partition(x, sh, sw, window=WINDOW):
+    """[N, H, W, C] -> [N*nW, window^2, C]; (sh, sw) is the cyclic shift."""
     n, h, w, c = x.shape
     if sh or sw:
         x = torch.roll(x, (-sh, -sw), dims=(1, 2))
-    nh, nw = h // WINDOW, w // WINDOW
-    xw = x.reshape(n, nh, WINDOW, nw, WINDOW, c).permute(0, 1, 3, 2, 4, 5)
-    return xw.reshape(n * nh * nw, WINDOW * WINDOW, c), (n, nh, nw)
+    nh, nw = h // window, w // window
+    xw = x.reshape(n, nh, window, nw, window, c).permute(0, 1, 3, 2, 4, 5)
+    return xw.reshape(n * nh * nw, window * window, c), (n, nh, nw)
 
 
-def _window_reverse(xw, dims, h, w, c, sh, sw):
+def _window_reverse(xw, dims, h, w, c, sh, sw, window=WINDOW):
     n, nh, nw = dims
-    x = xw.reshape(n, nh, nw, WINDOW, WINDOW, c).permute(0, 1, 3, 2, 4, 5)
+    x = xw.reshape(n, nh, nw, window, window, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(n, h, w, c)
     if sh or sw:
         x = torch.roll(x, (sh, sw), dims=(1, 2))
     return x
 
 
-def _shift_mask(h, w, sh, sw, device):
+def _shift_mask(h, w, sh, sw, device, window=WINDOW):
     """Attention mask for shifted windows (cross-boundary pairs masked).
     Per-axis: an unshifted axis contributes no region boundaries."""
     def regions(n, s):
         ids = np.zeros(n)
         if s:
-            ids[-WINDOW:-s] = 1
+            ids[-window:-s] = 1
             ids[-s:] = 2
         return ids
 
     img = regions(h, sh)[:, None] * 3 + regions(w, sw)[None, :]
-    nh, nw = h // WINDOW, w // WINDOW
-    win = img.reshape(nh, WINDOW, nw, WINDOW).transpose(0, 2, 1, 3).reshape(-1, WINDOW * WINDOW)
-    mask = (win[:, :, None] != win[:, None, :]) * -100.0  # [nW, 49, 49]
+    nh, nw = h // window, w // window
+    win = img.reshape(nh, window, nw, window).transpose(0, 2, 1, 3).reshape(-1, window * window)
+    mask = (win[:, :, None] != win[:, None, :]) * -100.0  # [nW, window^2, window^2]
     return torch.tensor(mask, dtype=torch.float32, device=device)
 
 

@@ -16,7 +16,13 @@ frozen ``nn.Parameter``; ``tree_from_jax`` builds one from the JAX tree.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
+import struct
+import threading
+import zipfile
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +86,80 @@ def load_params_npz(path: Path, n_convs: int | None = None) -> list[dict]:
         params = [{"w": data[f"w{i}"], "b": data[f"b{i}"]} for i in range(n_convs)]
     count("weights.bytes_read", _nbytes(params))
     return params
+
+
+class _PinnedNpz:
+    """The npz cache read for a network on a card: the byte span of the
+    members asked for, in one ``readinto`` a call, into a page-locked
+    buffer that the process keeps (grown as needed, anew in a child after a
+    fork). Each member is checked against its CRC-32, as ``np.load`` checks
+    it, and given as a numpy view of the buffer, which the card copies
+    without a pageable staging copy. The views live until the next read:
+    the caller holds the lock until its ``build`` has copied them. A file
+    that is not a plain stored npz of C-ordered little-endian float32
+    members gives None, and ``np.load`` reads it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.buf = None     # (pid, pinned uint8 tensor)
+
+    def _buffer(self, n: int) -> np.ndarray:
+        if self.buf is None or self.buf[0] != os.getpid() or self.buf[1].numel() < n:
+            self.buf = (os.getpid(), torch.empty(max(n, 16 << 20), dtype=torch.uint8,
+                                                 pin_memory=True))
+        return self.buf[1].numpy()
+
+    def read(self, path: Path, n_convs: int | None) -> list[dict] | None:
+        """HWIO params of the first ``n_convs`` convs (all by default) as
+        views of the buffer, or None (see the class docstring)."""
+        with zipfile.ZipFile(path) as z:
+            infos = sorted(z.infolist(), key=lambda i: i.header_offset)
+            if not infos:
+                return None
+            end_of = {i.filename: j.header_offset for i, j in zip(infos, infos[1:])}
+            end_of[infos[-1].filename] = z.start_dir
+            if n_convs is None:
+                n_convs = sum(1 for i in infos if i.filename.startswith("w"))
+            names = [f"{k}{i}.npy" for i in range(n_convs) for k in "wb"]
+            if not set(names) <= end_of.keys():
+                return None
+            want = [z.getinfo(n) for n in names]
+        if any(i.compress_type != zipfile.ZIP_STORED for i in want):
+            return None
+        start = min(i.header_offset for i in want)
+        size = max(end_of[i.filename] for i in want) - start
+        buf = self._buffer(size)
+        with open(path, "rb") as f:
+            f.seek(start)
+            if f.readinto(memoryview(buf)[:size]) != size:
+                return None
+        arrays = {}
+        for info in want:
+            at = info.header_offset - start
+            head = buf[at:at + 30].tobytes()
+            if head[:4] != b"PK\x03\x04":
+                return None
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            data = at + 30 + name_len + extra_len
+            member = memoryview(buf)[data:data + info.file_size]
+            if zlib.crc32(member) != info.CRC:
+                raise zipfile.BadZipFile(f"bad CRC-32 for {info.filename} in {path}")
+            npy = io.BytesIO(member[:min(info.file_size, 1 << 16)])
+            version = np.lib.format.read_magic(npy)
+            if version not in ((1, 0), (2, 0)):
+                return None
+            header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                      else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = header(npy)
+            count_ = int(np.prod(shape))
+            if fortran or dtype != np.dtype("<f4") or npy.tell() + 4 * count_ != info.file_size:
+                return None
+            arrays[info.filename] = np.frombuffer(buf, np.float32, count_,
+                                                  data + npy.tell()).reshape(shape)
+        return [{"w": arrays[f"w{i}.npy"], "b": arrays[f"b{i}.npy"]} for i in range(n_convs)]
+
+
+_PINNED_NPZ = _PinnedNpz()
 
 
 # The AdaIN encoder's convs up to relu4_1, the deepest tap any caller asks
@@ -193,7 +273,8 @@ def _convs_used(module, n_convs: int) -> int:
 def _get_params(name: str, torch_path, torch_indices, init_fn, device,
                 build=from_jax_params, n_convs=None):
     """Cache, then checkpoint, then ``init_fn(device=...)``; ``build`` turns
-    HWIO params into the module (the AdaIN networks by default), from the
+    HWIO params into the module (the AdaIN networks by default), copying
+    what it keeps (on a card it gets ``_PinnedNpz``'s views), from the
     first ``n_convs`` convs (all by default; the cache's others are not
     read). A load from the cache counts the bytes of the convs the network
     runs as ``weights.bytes_used``, beside ``load_params_npz``'s
@@ -201,8 +282,16 @@ def _get_params(name: str, torch_path, torch_indices, init_fn, device,
     device = resolve_device(device)
     cache = DEFAULT_WEIGHTS_DIR / f"{name}.npz"
     if cache.is_file():
-        params = load_params_npz(cache, n_convs)
-        module = build(params, device)
+        with contextlib.ExitStack() as held:
+            params = None
+            if device.type == "cuda":
+                held.enter_context(_PINNED_NPZ.lock)
+                params = _PINNED_NPZ.read(cache, n_convs)
+                if params is not None:
+                    count("weights.bytes_read", _nbytes(params))
+            if params is None:
+                params = load_params_npz(cache, n_convs)
+            module = build(params, device)
         count("weights.bytes_used", _nbytes(params[:_convs_used(module, len(params))]))
         return module
     if torch_path is not None and _is_real_checkpoint(Path(torch_path)):

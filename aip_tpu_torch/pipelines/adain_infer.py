@@ -13,9 +13,10 @@ Parity with the reference ``AdaIN/test.py``:
 The depth-aware path's network is the caller's choice: ``depth_model=None``
 keeps the ``depth_fn``, registered-estimator, classical-proxy order;
 ``"midas_small"`` (``models.midas``, the reference's ``--use_depth``
-network, :84-116) or ``"dpt_large"`` (``models.dpt``, the hub's
-``DPT_Large``) is built from ``depth_weights`` (a hub state dict; None is
-the seeded init) once a process and kept on its device
+network, :84-116), ``"dpt_large"`` (``models.dpt``, the hub's
+``DPT_Large``) or ``"dpt_swin2_large_384"`` (``models.dpt_swin2``, the
+hub's ``DPT_SwinV2_L_384``) is built from ``depth_weights`` (a hub state
+dict; None is the seeded init) once a process and kept on its device
 (``depth_network``).
 
 Tensors are NHWC in [0, 1]. Convs run in ``compute_dtype`` (bf16 by
@@ -44,7 +45,7 @@ from aip_tpu_torch.ops.image import (center_crop, resize_bilinear, resize_neares
 from aip_tpu_torch.utils import png as png_writer
 from aip_tpu_torch.utils.profiling import count, span
 
-DEPTH_MODELS = ("midas_small", "dpt_large")
+DEPTH_MODELS = ("midas_small", "dpt_large", "dpt_swin2_large_384")
 PNG_LEVEL = 6           # zlib level of save_image's PNGs (PIL's default)
 DEPTH_PNG_LEVEL = 1     # and of save_depth_png's
 
@@ -202,6 +203,26 @@ def _to_array(img) -> np.ndarray:
     return np.ascontiguousarray(img, dtype=np.float32)
 
 
+def _depth_input(img, device):
+    """The full-size content for a learned depth network: a decoded 8-bit
+    PIL image goes to ``device`` as it is and is divided by 255 there,
+    grey spread to three channels and alpha dropped, the same float32
+    numbers as ``_to_array`` on the host (IEEE division rounds alike; the
+    divisor is a tensor on ``device``, as a host scalar would make the card
+    multiply by its reciprocal instead). Anything else is ``_to_array``'s."""
+    from PIL import Image
+
+    a = np.asarray(img) if isinstance(img, Image.Image) else None
+    if a is None or a.dtype != np.uint8:
+        return _to_array(img if a is None else a)
+    x = torch.tensor(a, device=device).float() / torch.tensor(255.0, device=device)
+    if x.ndim == 2:
+        x = torch.stack([x] * 3, dim=-1)
+    if x.shape[-1] == 4:
+        x = x[..., :3]
+    return x.contiguous()
+
+
 def _test_transform(img, size: int, crop: bool, device) -> torch.Tensor:
     """Parity with reference ``test.py:16-24`` test_transform.
 
@@ -286,7 +307,7 @@ def depth_network(depth_model: str, depth_weights=None, device=None):
     ``depth_weights`` (a hub state dict; None is the model's seeded init): a
     later call with the same file (path, size and mtime) on the same device
     reads nothing. A path that is no real checkpoint raises."""
-    from aip_tpu_torch.models import dpt, midas
+    from aip_tpu_torch.models import dpt, dpt_swin2, midas
 
     if depth_model not in DEPTH_MODELS:
         raise ValueError(f"depth_model must be one of {DEPTH_MODELS}, not {depth_model!r}")
@@ -305,6 +326,8 @@ def depth_network(depth_model: str, depth_weights=None, device=None):
         with span("adain.depth_load", timed=True) as load:
             if depth_model == "dpt_large":
                 fn = dpt.make_depth_estimator(dpt.get_dpt_params(path, dev))
+            elif depth_model == "dpt_swin2_large_384":
+                fn = dpt.make_depth_estimator(dpt_swin2.get_dpt_swin2_params(path, dev))
             else:
                 fn = midas.make_depth_estimator(midas.get_midas_params(path, dev))
         cached = _DEPTH[key] = (stamp, fn, load.ms())
@@ -362,8 +385,8 @@ def adain_inference(
 
     ``depth_fn(img_hwc_float) -> [H, W]`` injects a depth estimator; the
     default is ``models.depthnet.estimate_proximity`` on ``device``.
-    ``depth_model`` (``"midas_small"`` or ``"dpt_large"``, with
-    ``depth_weights``) names a learned network instead (``depth_network``).
+    ``depth_model`` (one of ``DEPTH_MODELS``, with ``depth_weights``) names
+    a learned network instead (``depth_network``).
     ``save_depth`` also writes ``<file_name>_depth.png``: the proximity at
     the content's full size, min-max normalised, as 16-bit grey.
     fp32 by default: this is the reference-parity surface (BASELINE.md
@@ -387,9 +410,15 @@ def adain_inference(
         vgg_params = weights_mod.get_vgg_params(vgg_str, device=dev)
         dec_params = weights_mod.get_decoder_params(decoder_str, device=dev)
     with span("adain.load"):
-        # The full-size float content only feeds the depth estimate; the
-        # stylized path decodes the content once, in _test_transform.
-        content_np = _to_array(content_img) if use_depth else None
+        # The full-size float content only feeds the depth estimate (on the
+        # card for a learned network). A path is decoded once:
+        # _test_transform resizes the same PIL image.
+        if use_depth and isinstance(content_img, (str, Path)):
+            content_img = _to_pil(content_img)
+        content_full = None
+        if use_depth:
+            content_full = (_depth_input(content_img, dev) if depth_model is not None
+                            else _to_array(content_img))
         content = _test_transform(content_img, content_size, crop, dev)
         style = _test_transform(style_img, style_size, crop, dev)
     with span("adain.stylize"):
@@ -404,9 +433,9 @@ def adain_inference(
                 if depth_fn is None:
                     from aip_tpu_torch.models.depthnet import estimate_proximity
 
-                    depth_map = estimate_proximity(torch.from_numpy(content_np).to(dev))
+                    depth_map = estimate_proximity(torch.from_numpy(content_full).to(dev))
                 else:
-                    depth_map = depth_fn(content_np)
+                    depth_map = depth_fn(content_full)
                     if not isinstance(depth_map, torch.Tensor):
                         depth_map = np.asarray(depth_map)
                     depth_map = torch.as_tensor(depth_map, device=dev)

@@ -91,6 +91,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    writing the depth PNG beside it: the kernel line's ``launches`` and
    ``depth_request_launches`` (1 and 2). Runs alone as
    ``python3 -c "import chip_smoke; chip_smoke.png_filter_phase()"``.
+8e. DPT-SwinV2-L-384 (``models.dpt_swin2``; no new kernel), ``dpt_swin2_phase``:
+   the network at its published widths, seeded as the cell
+   ``depth.request.swin2l-384.fp32`` seeds it (``portbench/drivers/_dpt_swin2.py``),
+   on one 384^2 image on the card against the plain reference on the card
+   (``portbench/reference/dpt_swin2.py``) in fp32: the min-max normalised
+   prediction within the cell's ``depth_levels`` limit (16-bit levels), the
+   reference at TF32 over it; the forward timed (CUDA events, median of 10)
+   beside its bound (``portbench/roofline/dpt_swin2.py``), its spans' device
+   ms, its kernels' summed device ms and launches, and its heaviest
+   kernels; the head's first conv, the one shape where this path launches
+   the fp32 3x3 kernel (256 -> 128 at 192^2): phase 8c's ``measure`` there
+   (within ``FP32_FLOAT64_TOL`` of float64, no farther than cuDNN, one
+   launch, timed beside its bound), and ``DPTSwin2._head0`` (border, layout
+   and bias) against the conv in float64 and cuDNN's on one input, the
+   same tolerance; then one depth request
+   (``adain_inference(depth_model="dpt_swin2_large_384", save_depth=True)``
+   on a 1024x768 PNG) with every launch count set to 0 before it and
+   ``depth.network_calls`` counted under a profiler (1). Runs alone as
+   ``python3 -c "import chip_smoke; chip_smoke.dpt_swin2_phase()"``.
 
 Stylized 3DGS inference render, on the committed trained model
 ``docs/examples/bed_0037_r5`` (130,968 Gaussians, its recorded selection)
@@ -822,6 +841,10 @@ def main():
     torch.cuda.empty_cache()
     # 8d. the PNG writer's filter kernel ----------------------------------------------
     lines.append(png_filter_phase(torch, dev))
+    torch.cuda.empty_cache()
+    # 8e. DPT-SwinV2-L-384 on the depth-aware path ------------------------------------
+    dpt_swin2_phase(torch, dev)
+    torch.cuda.empty_cache()
 
     # 9-14. stylized 3DGS inference render -------------------------------------
     gs_lines, bed = _gs_phases(torch, dev)
@@ -1430,6 +1453,166 @@ def png_filter_phase(torch=None, dev=None):
             "depth_request_launches": launches["depth_request"], "max_abs_err": max_abs_err,
             "ms": image["kernel_ms"], "plain_ms": image["plain_ms"], "bound_ms": image["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+def dpt_swin2_phase(torch=None, dev=None):
+    """Phase 8e (see the module docstring). Returns the request's launches
+    by kernel."""
+    if torch is None:
+        import torch
+
+        dev = torch.device("cuda")
+        sys.path.insert(0, str(ROOT))
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=_card(),
+             torch=torch.__version__, cuda=torch.version.cuda)
+    import numpy as np
+    import torch.nn.functional as F
+    from PIL import Image
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+    from aip_tpu_torch.models import dpt_swin2
+    from aip_tpu_torch.pipelines.adain_infer import adain_inference
+    from aip_tpu_torch.utils import profiling
+    from portbench.drivers import _adain, _dpt_swin2
+    from portbench.reference import dpt_swin2 as ref
+    from portbench.roofline import dpt_swin2 as work
+    from scripts.bench_conv3x3_f32 import measure
+
+    cell = "depth.request.swin2l-384.fp32"
+    cfg = json.loads((ROOT / "portbench" / "configs" / "dpt-swin2-large-384-midas.json")
+                     .read_text())
+    limit = json.loads((ROOT / "portbench" / "workloads" / f"{cell}.json")
+                       .read_text())["limits"]["depth_levels"]
+    out_dir = WORK / "dpt_swin2"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sd = _dpt_swin2.seeded_state_dict(cfg, 28, _adain.images(29, 2, 768, 1024, dev), 0.9)
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    net = dpt_swin2.dpt_swin2_from_state_dict(sd_cpu, dev)
+    build_s = time.perf_counter() - t0
+    x = _adain.images(30, 1, 384, 384, dev)
+    xn = ((x - ref.MEAN) / ref.STD).permute(0, 3, 1, 2).contiguous()
+
+    def norm(p):
+        p = p.double()
+        return (p - p.min()) / (p.max() - p.min())
+
+    with torch.no_grad():
+        out = net(x)
+        refs = {}
+        for precision in ("fp32", "tf32"):
+            with ref.precision_flags(precision):
+                refs[precision] = ref.forward(sd, xn, cfg)
+    levels = {k: float((65535.0 * (norm(v) - norm(refs["fp32"]))).abs().max())
+              for k, v in (("program", out), ("reference_tf32", refs["tf32"]))}
+    rel = float((out - refs["fp32"]).abs().max() / refs["fp32"].abs().max())
+    del refs, sd
+    torch.cuda.empty_cache()
+
+    def forward():
+        with torch.no_grad():
+            net(x)
+
+    times = []
+    for i in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    bound_ms = 1e3 * work.work(cfg)["dpt_swin2_bound_s"]
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    stats = profiling.span_stats()
+    spans = {name: 1e3 * stats[name]["device_s"] for name in
+             ("dpt.forward", "dpt.encoder", "swin2.windowed", "swin2.global")}
+    by_name = {}
+    for e in prof.events():     # the spans' own ranges on the device's timeline left out
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("dpt.", "swin2.")):
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    emit("dpt_swin2_forward", size="384x384", widths=list(ref.widths(cfg)), build_s=build_s,
+         max_rel_err=rel, depth_levels=levels["program"],
+         control_tf32_levels=levels["reference_tf32"], limit=limit, ms=ms, bound_ms=bound_ms,
+         roofline_share=bound_ms / ms,
+         span_device_ms=spans, windows=stats.get("swin2.windows"),
+         kernel_ms=sum(t for t, _ in by_name.values()),
+         launches=sum(n for _, n in by_name.values()),
+         kernels=[{"name": k[:100], "ms": t, "launches": n} for k, (t, n) in top],
+         timing="CUDA events, median of 10 after 2; spans and kernels from one profiled call")
+    if levels["program"] > limit or levels["reference_tf32"] <= limit:
+        raise AssertionError(f"DPT-SwinV2 on the card: {levels['program']} levels from the "
+                             f"reference (limit {limit}); TF32 control {levels['reference_tf32']}")
+
+    # The head's first conv at the shape this path launches the fp32 3x3
+    # kernel (features -> half at net_size / 2, on the zero-bordered NHWC
+    # map): the kernel against float64 and cuDNN and timed beside its bound,
+    # as phase 8c does at the walk shapes; then the network's own
+    # ``_head0`` (border, layout and bias included) against the conv in
+    # float64 and cuDNN's, on one input.
+    conv = net.scratch.output_conv[0]
+    side = net.config.net_size // 2
+    gen = torch.Generator(device=dev).manual_seed(32)
+    with ref.precision_flags("fp32"):
+        row = measure(torch, dev, gen, 1, conv.in_channels, conv.out_channels, side, side)
+        y = torch.randn(1, conv.in_channels, side, side, generator=gen, device=dev)
+        KF.reset_launch_counts()
+        with torch.no_grad():
+            got = net._head0(conv, y)
+            cudnn = F.conv2d(y, conv.weight, conv.bias, padding=1)
+        torch.cuda.synchronize()
+    head_launches = KF.launch_counts()["conv3x3_f32"]
+    want = F.conv2d(y.double(), conv.weight.double(), conv.bias.double(), padding=1)
+    scale = float(want.abs().max())
+    head_err = float((got.double() - want).abs().max()) / scale
+    head_err_cudnn = float((cudnn.double() - want).abs().max()) / scale
+    del y, got, cudnn, want
+    emit("dpt_swin2_head_conv", **row, tol_float64=FP32_FLOAT64_TOL, head0_launches=head_launches,
+         head0_from_float64=head_err, head0_cudnn_from_float64=head_err_cudnn,
+         timing="20 calls in one CUDA-event window, median of 5")
+    if not (max(row["err_kernel"], head_err) <= FP32_FLOAT64_TOL
+            and row["err_kernel"] <= row["err_cudnn"] and head_err <= head_err_cudnn
+            and row["kernel_launches"] == 1 and head_launches == 1):
+        raise AssertionError(f"conv3x3_f32 at DPT-SwinV2's head: {row['err_kernel']} from "
+                             f"float64 (cuDNN {row['err_cudnn']}), {row['kernel_launches']} "
+                             f"launches; _head0 {head_err} (cuDNN {head_err_cudnn}), "
+                             f"{head_launches} launches")
+
+    # One depth request through adain_inference, every count set to 0.
+    g = np.random.default_rng(31)
+    for name, hw in (("content.png", (768, 1024)), ("style.png", (768, 768))):
+        Image.fromarray(g.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(out_dir / name)
+    ckpt = out_dir / "dpt_swin2_large_384.pt"
+    torch.save(sd_cpu, str(ckpt))
+    del sd_cpu, net
+    call = functools.partial(
+        adain_inference, str(out_dir / "content.png"), str(out_dir / "style.png"),
+        save_ext=".png", output=str(out_dir), file_name="request", use_depth=True,
+        depth_model="dpt_swin2_large_384", depth_weights=str(ckpt), save_depth=True,
+        compute_dtype=torch.float32, device=dev)
+    call()        # builds and caches the network and the kernels
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, counts = _run_path(torch, "dpt_swin2_request", call, ("png_filter",))
+    stats = profiling.span_stats()
+    profiling.reset_spans()
+    emit("dpt_swin2_request", content="1024x768", launches=counts,
+         network_calls=stats.get("depth.network_calls"), depth_calls=stats.get("depth.calls"),
+         files=sorted(p.name for p in out_dir.glob("request*.png")))
+    # 21 walk convs of the fp32 request and the head's first conv.
+    if (stats.get("depth.network_calls") != 1 or counts.get("png_filter") != 2
+            or counts.get("conv3x3_f32") != 22):
+        raise AssertionError(f"a DPT-SwinV2 depth request: {stats.get('depth.network_calls')} "
+                             f"network calls, {counts} launches")
+    return counts
 
 
 # ---------------------------------------------------------------------------

@@ -1562,6 +1562,75 @@ def test_dpt_large_on_the_card_matches_the_plain_cpu_reference(cuda):
 
 
 @pytest.mark.cuda
+def test_dpt_swin2_on_the_card_matches_the_plain_cpu_reference(cuda):
+    """DPT-SwinV2-L-384 at its published widths, seeded as its cell seeds it
+    (``portbench/drivers/_dpt_swin2.py``), on one 384x384 input: the card's
+    min-max normalised prediction within the cell's ``depth_levels`` limit
+    (16-bit levels) of the plain reference's on the CPU, with TF32 on in the
+    process (the model holds it off inside); 60 windows counted under a
+    profiler, and the flags as they were after. The head's first conv, the
+    one shape where this network launches the fp32 3x3 kernel (256 -> 128
+    at 192^2): one launch, within 1.5e-6 of the largest value of the conv
+    in float64 and no farther from it than cuDNN's fp32 conv."""
+    import json
+    import sys
+    from pathlib import Path
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from aip_tpu_torch.kernels import conv3x3_f32 as KF
+    from aip_tpu_torch.models import dpt_swin2
+    from aip_tpu_torch.utils import profiling
+    from portbench.drivers import _adain, _dpt_swin2
+    from portbench.reference import dpt_swin2 as ref
+
+    cfg = json.loads((root / "portbench" / "configs" / "dpt-swin2-large-384-midas.json")
+                     .read_text())
+    limit = json.loads((root / "portbench" / "workloads" / "depth.request.swin2l-384.fp32.json")
+                       .read_text())["limits"]["depth_levels"]
+    sd = _dpt_swin2.seeded_state_dict(cfg, 26, _adain.images(27, 1, 768, 1024, cuda), 0.9)
+    sd = {k: v.cpu() for k, v in sd.items()}
+    net = dpt_swin2.dpt_swin2_from_state_dict(sd, cuda)
+    x = _adain.images(28, 1, 384, 384, "cpu")
+    with torch.no_grad():
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            profiling.reset_spans()
+            with profile(activities=[ProfilerActivity.CPU]):
+                out = net(x.to(cuda)).cpu().double()
+            windows = profiling.span_stats()["swin2.windows"]
+            assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            profiling.reset_spans()
+        want = ref.forward(sd, ((x - 0.5) / 0.5).permute(0, 3, 1, 2).contiguous(),
+                           cfg).double()
+
+    def norm(p):
+        return (p - p.min()) / (p.max() - p.min())
+
+    assert out.shape == want.shape == (1, 384, 384)
+    assert windows == 60
+    assert float((65535.0 * (norm(out) - norm(want))).abs().max()) <= limit
+
+    conv = net.scratch.output_conv[0]
+    y = torch.randn(1, 256, 192, 192, generator=torch.Generator(device=cuda).manual_seed(29),
+                    device=cuda)
+    KF.reset_launch_counts()
+    with torch.no_grad():
+        head = net._head0(conv, y).double()
+        cudnn = F.conv2d(y, conv.weight, conv.bias, padding=1).double()
+    assert KF.launch_counts() == {"conv3x3_f32": 1}
+    want = F.conv2d(y.double(), conv.weight.double(), conv.bias.double(), padding=1)
+    err, err_cudnn = _max_rel_err(head, want), _max_rel_err(cudnn, want)
+    assert head.shape == want.shape == (1, 128, 192, 192)
+    assert err <= 1.5e-6 and err <= err_cudnn, (err, err_cudnn)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("net,hw", [("vgg", (160, 136)), ("alex", (129, 96)),
                                     ("squeeze", (97, 130))])
 def test_lpips_card_matches_cpu_under_pytorchs_default_tf32_flags(cuda, net, hw):

@@ -133,6 +133,65 @@ def test_get_vgg_params_reads_the_convs_to_relu4_1(tmp_path, rng, monkeypatch, j
                                tvgg.vgg_encode(port_modules[0], x, "relu4_1"), rtol=0, atol=0)
 
 
+def _host_pinned_reader(monkeypatch):
+    """The npz reader of the card's path with a host array for its buffer
+    (page-locking needs a card)."""
+    reader = tweights._PinnedNpz()
+    monkeypatch.setattr(reader, "_buffer", lambda n: np.zeros(max(n, 1 << 20), np.uint8))
+    return reader
+
+
+@pytest.mark.parametrize("n_convs", [tweights._ENCODER_CONVS_USED, None])
+def test_pinned_npz_read_equals_np_load(tmp_path, monkeypatch, jax_params, n_convs):
+    """The card's read of the npz cache (the members' span at once, each
+    checked against its CRC-32) gives np.load's arrays bit for bit, as
+    views of its buffer, and only the first ``n_convs`` convs."""
+    tweights.save_params_npz(jax_params[0], tmp_path / "vgg_normalised.npz")
+    reader = _host_pinned_reader(monkeypatch)
+    got = reader.read(tmp_path / "vgg_normalised.npz", n_convs)
+    want = tweights.load_params_npz(tmp_path / "vgg_normalised.npz", n_convs)
+    assert len(got) == len(want) == (n_convs or len(jax_params[0]))
+    for g, w in zip(got, want):
+        for k in "wb":
+            assert g[k].dtype == np.float32 and g[k].shape == w[k].shape
+            np.testing.assert_array_equal(g[k], w[k])
+            assert np.require(g[k], np.float32, "CW") is g[k]     # uploaded with no copy
+
+
+@pytest.mark.parametrize("fault", ["compressed", "float64", "missing member", "bad byte"])
+def test_pinned_npz_read_leaves_other_files_to_np_load(tmp_path, monkeypatch, jax_params,
+                                                       fault):
+    """A compressed npz, another dtype or a missing member gives None (then
+    np.load reads the file); a member whose bytes fail its CRC-32 raises,
+    as np.load does."""
+    import zipfile
+
+    path = tmp_path / "adain_decoder.npz"
+    params = [{"w": np.asarray(p["w"]), "b": np.asarray(p["b"])} for p in jax_params[1]]
+    flat = {f"{k}{i}": p[k] for i, p in enumerate(params) for k in "wb"}
+    if fault == "compressed":
+        np.savez_compressed(path, **flat)
+    elif fault == "float64":
+        np.savez(path, **{k: v.astype(np.float64) for k, v in flat.items()})
+    elif fault == "missing member":
+        np.savez(path, **{k: v for k, v in flat.items() if k != "b3"})
+    else:
+        np.savez(path, **flat)
+        with zipfile.ZipFile(path) as z:
+            info = z.getinfo("w2.npy")
+        data = bytearray(path.read_bytes())
+        data[info.header_offset + 30 + len("w2.npy") + 200] ^= 1
+        path.write_bytes(bytes(data))
+    reader = _host_pinned_reader(monkeypatch)
+    if fault == "bad byte":
+        with pytest.raises(zipfile.BadZipFile):
+            reader.read(path, None)
+        with pytest.raises(zipfile.BadZipFile):
+            tweights.load_params_npz(path)
+    else:
+        assert reader.read(path, len(params)) is None
+
+
 @pytest.mark.parametrize("taps", [("relu4_2",), ("relu1_1", "relu5_1"), ("relu9",)])
 def test_tap_past_the_encoders_convs_raises(jax_params, taps):
     vgg = tweights.from_jax_params(jax_params[0][:tweights._ENCODER_CONVS_USED], "cpu")

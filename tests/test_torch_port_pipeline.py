@@ -277,6 +277,28 @@ def test_adain_inference_hands_depth_the_full_content(shared_cache, images, tmp_
     np.testing.assert_array_equal(img, want)
 
 
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "I;16"])
+def test_depth_input_equals_the_host_float_content(tmp_path, rng, mode):
+    """A learned depth network's full-size content, divided on the device,
+    is ``_to_array``'s float32 content bit for bit (every 8-bit level is
+    in the image); a 16-bit image keeps ``_to_array``'s path."""
+    levels = np.arange(256, dtype=np.uint8)
+    a = np.concatenate([levels, rng.integers(0, 256, 64 * 64 - 256, dtype=np.uint8)])
+    if mode == "I;16":
+        img = Image.fromarray((a.astype(np.uint16) * 257).reshape(64, 64))
+    else:
+        bands = {"RGB": 3, "RGBA": 4, "L": 1}[mode]
+        img = Image.fromarray(np.stack([np.roll(a, 7 * c) for c in range(bands)], -1)
+                              .reshape(64, 64, bands).squeeze(), mode)
+    img.save(tmp_path / "c.png")
+    img = Image.open(tmp_path / "c.png")
+    got = tinfer._depth_input(img, torch.device("cpu"))
+    want = tinfer._to_array(Image.open(tmp_path / "c.png"))
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert got.dtype == np.float32 and got.shape == want.shape == (64, 64, 3)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_entry_points_without_cuda_raise(nets, images, monkeypatch):
     """device=None means CUDA; with no CUDA every entry point refuses to
     carry on on the CPU (the card's availability is patched away so that

@@ -130,7 +130,7 @@ def test_densenet_features_match_jax(rng):
         assert _rel(out[k].numpy(), ref[k]) <= NET_TOL, k
 
 
-@pytest.mark.parametrize("hw", [(64, 64), (96, 128)])
+@pytest.mark.parametrize("hw", [(64, 64), (96, 128), (96, 160)])
 def test_swin_features_match_jax(swin_tree, rng, hw):
     x = rng.standard_normal((1, *hw, 3)).astype(np.float32)
     ref = jax.jit(jswin.swin_t_features)(swin_tree, jnp.asarray(x))
